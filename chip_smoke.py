@@ -12,7 +12,11 @@ Run from the repository root:  python3 chip_smoke.py
   4. rollout  - the full-width closed loop (get_config() defaults, lanes
                 2048, obs agents 160, agents 128, B=16, 8 replan steps):
                 finite, bounded, deterministic, every kernel launched the
-                expected number of times per forward; scenes/s.
+                expected number of times per forward; scenes/s. Then one
+                forward under torch.profiler with every kernel launch's
+                inputs recorded: each kernel's device ms, launches and bound
+                per forward and per site, and the device time by kernel
+                family (written to chiprun_out/chip_smoke_kernels.json).
   5. parity   - the kernel path against the plain path (the model with its
                 kernel calls pointed at the plain versions), both on the
                 card, at B=2: rollout within PARITY_TOL_M metres.
@@ -33,11 +37,19 @@ PARITY_TOL_M = 1e-3  # metres, the bar the JAX package was held to
 B_FULL, LANES, OBS_AGENTS, AGENTS, REPLAN = 16, 2048, 160, 128, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
-
-# launches of each site per forward at the demo architecture: the scene
-# encoder and decoder build their graphs once, the policy on each replan step
-TOPK_SITES = {"a2a": 1, "s2s": 1, "p2p": 1, "s2p": 1, "a2p": REPLAN, "m2p": REPLAN}
 LAYERS = 6
+
+FAMILIES = [  # (family, substrings of the kernel name), first match wins
+    ("edge_attn (ours)", ("edge_attn_kernel",)),
+    ("neighbor_topk (ours)", ("neighbor_topk_kernel",)),
+    ("matmul", ("gemm", "sm90_xmma", "cutlass", "ampere_sgemm", "sgemm", "gemv")),
+    ("gather/index", ("index", "gather", "scatter")),
+    ("sort", ("sort", "radix")),
+    ("reduce", ("reduce",)),
+    ("copy/cat", ("copy", "cat", "Cat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+]
+KERNEL_NAMES = {"neighbor_topk": "neighbor_topk_kernel", "edge_attn_core": "edge_attn_kernel"}
 
 
 def log(*a):
@@ -58,15 +70,15 @@ def cuda_ms(torch, fn, iters):
 
 
 @contextlib.contextmanager
-def plain_path():
-    """Point the model's kernel calls at the plain PyTorch versions, for the
-    phase-5 comparison only; the originals come back on exit."""
+def kernel_calls(topk_fn, edge_fn):
+    """Point the model's kernel calls at other functions (the plain versions
+    in phase 5, recording shims in phase 4's profiled forward); the
+    originals come back on exit."""
     from prosim_torch.models import decoder, policy, scene_encoder
-    from prosim_torch.ops import attention, edge_attn, neighbors
+    from prosim_torch.ops import attention
 
-    swaps = [(m, "neighbor_topk", neighbors.neighbor_topk_plain)
-             for m in (scene_encoder, decoder, policy)]
-    swaps.append((attention, "edge_attn_core", edge_attn.edge_attn_core_plain))
+    swaps = [(m, "neighbor_topk", topk_fn) for m in (scene_encoder, decoder, policy)]
+    swaps.append((attention, "edge_attn_core", edge_fn))
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     try:
         for m, name, fn in swaps:
@@ -123,10 +135,8 @@ def check_topk(torch, sites):
             bad |= torch.eye(Q, S, dtype=torch.bool, device=d2.device)[None]
         d2 = torch.where(bad, torch.inf, d2)
         lib_ms = cuda_ms(torch, lambda: torch.topk(d2, K, dim=-1, largest=False), iters)
-        nbytes = B * Q * 2 * 4 + B * S * 2 * 4 + B * Q + B * S + B * Q * K * (4 + 1)
-        ops = 5 * B * Q * S  # 2 sub, 2 mul, 1 add per pair
         rows.append(dict(site=name, B=B, Q=Q, S=S, K=K, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bytes=nbytes, ops=ops, max_abs_err=0.0))
+                         library_ms=lib_ms, max_abs_err=0.0, **topk_cost(B, Q, S, K)))
         log(f"  neighbor_topk[{name}] B={B} Q={Q} S={S} K={K}: bit-equal; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms")
     return rows, valids
@@ -167,29 +177,123 @@ def check_edge(torch, valids, H, D, Dp, scale):
             q, kv, kv, attn_mask=mask, scale=scale, enable_gqa=True), iters)
         del q, kv
         n_valid = int(valid.sum())
-        nbytes = (n_valid * (D + Dp) * 4 + B * Q * K + B * Q * H * (D + Dp) * 4 * 2
-                  + B * Q * H * 4)
-        ops = n_valid * 4 * H * (D + Dp)
         rows.append(dict(site=name, B=B, Q=Q, K=K, valid_edges=n_valid, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, ops=ops,
-                         max_abs_err=err))
+                         plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                         **edge_cost(n_valid, B, Q, K, H, D, Dp)))
         log(f"  edge_attn_core[{name}] B={B} Q={Q} K={K} valid={n_valid}: err {err:.2e}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms")
     return rows
 
 
-def bound_ms(row):
-    return 1e3 * max(row["bytes"] / HBM_BYTES_PER_S, row["ops"] / F32_FLOPS)
+def topk_cost(B, Q, S, K):
+    """Bytes the top-K must move (positions and masks read once, idx and
+    valid written once) and its operations (2 sub, 2 mul, 1 add per pair)."""
+    return {"bytes": B * Q * 2 * 4 + B * S * 2 * 4 + B * Q + B * S + B * Q * K * (4 + 1),
+            "ops": 5 * B * Q * S}
 
 
-def summarize(name, route, source, replaces, rows, launches, per_fwd):
+def edge_cost(n_valid, B, Q, K, H, D, Dp):
+    """Bytes the edge core must move (the valid edges' x_g/z_r rows, the
+    mask, the queries, the outputs) and its operations (a multiply-add for
+    the score and one for the aggregate, per valid edge, head and dim)."""
+    return {"bytes": (n_valid * (D + Dp) * 4 + B * Q * K + B * Q * H * (D + Dp) * 4 * 2
+                      + B * Q * H * 4),
+            "ops": n_valid * 4 * H * (D + Dp)}
+
+
+def bound_ms(cost):
+    return 1e3 * max(cost["bytes"] / HBM_BYTES_PER_S, cost["ops"] / F32_FLOPS)
+
+
+def family(name):
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def profile_forward(torch, model, batch, topk_rows, edge_rows):
+    """One forward under torch.profiler, with every kernel launch's inputs
+    recorded by a shim around its wrapper. Each kernel launch's device time
+    (matched to its shim record in launch order) and its bound at these
+    inputs are added up per site; the site is the phase-3 site of the same
+    shape. Also returns the device time by kernel family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from prosim_torch.ops.edge_attn import edge_attn_core
+    from prosim_torch.ops.neighbors import neighbor_topk
+
+    topk_site = {(r["Q"], r["S"], r["K"]): r["site"] for r in topk_rows}
+    edge_site = {(r["Q"], r["K"]): r["site"] for r in edge_rows}
+    calls = {"neighbor_topk": [], "edge_attn_core": []}  # (site, cost or its inputs)
+
+    def topk(*a, **kw):
+        idx, valid = neighbor_topk(*a, **kw)
+        B, Q, K = idx.shape
+        S = a[1].shape[1]
+        calls["neighbor_topk"].append((topk_site[Q, S, K], topk_cost(B, Q, S, K)))
+        return idx, valid
+
+    def edge(x_g, z_r, qx, qp, edge_valid, scale):
+        out = edge_attn_core(x_g, z_r, qx, qp, edge_valid, scale)
+        B, Q, K, D = x_g.shape
+        dims = (B, Q, K, qx.shape[2], D, z_r.shape[-1])
+        calls["edge_attn_core"].append((edge_site[Q, K], (edge_valid, dims)))
+        return out
+
+    before = {"neighbor_topk": neighbor_topk.launches, "edge_attn_core": edge_attn_core.launches}
+    with kernel_calls(topk, edge), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    launched = {"neighbor_topk": neighbor_topk.launches - before["neighbor_topk"],
+                "edge_attn_core": edge_attn_core.launches - before["edge_attn_core"]}
+    if launched != {k: len(v) for k, v in calls.items()}:
+        raise AssertionError(f"the shims saw {[len(v) for v in calls.values()]} of "
+                             f"{launched} kernel launches")
+    calls["edge_attn_core"] = [
+        (site, edge_cost(int(valid.sum()), *dims)) for site, (valid, dims) in calls["edge_attn_core"]]
+
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("the profiler recorded no device time")
+    device.sort(key=lambda e: e.time_range.start)
+    by_fam, by_name, count = {}, {}, {}
+    for e in device:
+        us = e.time_range.elapsed_us()
+        by_fam[family(e.name)] = by_fam.get(family(e.name), 0.0) + us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+        count[e.name] = count.get(e.name, 0) + 1
+    per_site = {}
+    for kernel, recs in calls.items():
+        evs = [e for e in device if KERNEL_NAMES[kernel] in e.name]
+        if len(evs) != len(recs):
+            raise AssertionError(f"{kernel}: profiler saw {len(evs)} launches, shims {len(recs)}")
+        sites = per_site[kernel] = {}
+        for e, (site, cost) in zip(evs, recs):
+            s = sites.setdefault(site, {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
+            s["launches"] += 1
+            s["ms"] += e.time_range.elapsed_us() / 1e3
+            s["bound_ms"] += bound_ms(cost)
+    busy = sum(by_fam.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return per_site, {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(device),
+                      "families_ms": dict(sorted(by_fam.items(), key=lambda kv: -kv[1])),
+                      "top_kernels": [(n[:110], ms, count[n]) for n, ms in top]}
+
+
+def summarize(name, route, source, replaces, rows, launches, forward):
     """One kernel's JSON entry: times and bounds summed over one launch at
-    each of the six sites; per_forward_ms weights each site by its launches
-    in one forward."""
+    each of the six sites (phase 3); forward_ms, forward_bound_ms and the
+    sites' forward_* fields come from phase 4's profiled forward."""
     for r in rows:
         r["bound_ms"] = bound_ms(r)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S >= r["ops"] / F32_FLOPS
                          else "operations")
+        f = forward.get(r["site"], {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
+        r.update({f"forward_{k}": v for k, v in f.items()})
     tot = lambda key: sum(r[key] for r in rows)
     return {
         "name": name, "route": route, "source": source, "replaces": replaces,
@@ -198,8 +302,7 @@ def summarize(name, route, source, replaces, rows, launches, per_fwd):
         "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
         "bound_by": "bytes" if tot("bytes") / HBM_BYTES_PER_S >= tot("ops") / F32_FLOPS else "operations",
         "library_ms": tot("library_ms"),
-        "per_forward_ms": sum(r["ms"] * per_fwd[r["site"]] for r in rows),
-        "per_forward_bound_ms": sum(r["bound_ms"] * per_fwd[r["site"]] for r in rows),
+        "forward_ms": tot("forward_ms"), "forward_bound_ms": tot("forward_bound_ms"),
         "sites": rows,
     }
 
@@ -220,8 +323,8 @@ def main(argv):
     from prosim_torch.data.synthetic import make_synthetic_batch
     from prosim_torch.models.prosim import ProSim
     from prosim_torch.ops import _build
-    from prosim_torch.ops.edge_attn import edge_attn_core
-    from prosim_torch.ops.neighbors import neighbor_topk
+    from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
+    from prosim_torch.ops.neighbors import neighbor_topk, neighbor_topk_plain
     from prosim_torch.rollout.rollout import parallel_rollout
     from prosim_torch.utils.params import init_params
 
@@ -302,14 +405,26 @@ def main(argv):
         f"max |xy| {float(valid_traj[..., :2].abs().max()):.2f} m, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del out, out2, traj, valid_traj
+    per_site, prof = profile_forward(torch, model, batch, topk_rows, edge_rows)
+    log(f"profile: forward wall {prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), {prof['launches']} kernel launches")
+    for fam, ms in prof["families_ms"].items():
+        log(f"  {fam:22s} {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} %")
+    for kernel, sites in per_site.items():
+        log(f"  {kernel} per forward: " + ", ".join(
+            f"{s} x{v['launches']} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
+            for s, v in sites.items()))
 
     # 5. kernel path against plain path, both on the card
     small = make_synthetic_batch(cfg, batch_size=2, num_lanes=LANES,
                                  num_obs_agents=OBS_AGENTS, num_agents=AGENTS,
                                  num_replan=REPLAN, seed=1, device="cuda")
     out_gpu = model(small)
-    with plain_path():
+    before = (neighbor_topk.launches, edge_attn_core.launches)
+    with kernel_calls(neighbor_topk_plain, edge_attn_core_plain):
         out_plain = model(small)
+    if (neighbor_topk.launches, edge_attn_core.launches) != before:
+        raise AssertionError("the plain path launched a kernel")
     m2 = small.prompt.mask
     diff = (out_gpu["rollout_traj"] - out_plain["rollout_traj"])[m2][..., :2].abs()
     err_m = float(diff.max())
@@ -330,19 +445,18 @@ def main(argv):
     if not rep_err <= PARITY_TOL_M:
         raise AssertionError(f"replicas differ from the single rollout by {rep_err}")
 
-    per_fwd_edge = {k: LAYERS * v for k, v in TOPK_SITES.items()}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
                   "prosim_tpu/ops/pallas_topk.py:95", topk_rows,
-                  launches["neighbor_topk"], TOPK_SITES),
+                  launches["neighbor_topk"], per_site["neighbor_topk"]),
         summarize("edge_attn_core", "cuda", "prosim_torch/csrc/edge_attn.cu",
                   "prosim_tpu/ops/edge_attn.py:91", edge_rows,
-                  launches["edge_attn_core"], per_fwd_edge),
+                  launches["edge_attn_core"], per_site["edge_attn_core"]),
     ]
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi, "scenes_per_s": B_FULL / times[1], "forward_s": times,
-                   "kernels": kernels}, f, indent=1)
+                   "profile": prof, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -67,10 +67,9 @@ class SymCoordDecoder(nn.Module):
         x_p = prompt_emb
         for i in range(self.num_layers):
             x_p = getattr(self, f"p2p_{i}")(
-                x_p, x_p, p2p_idx, p2p_valid, p2p_pe, pe_normed=p2p_z)
+                x_p, x_p, p2p_idx, p2p_valid, p2p_z)
             x_p = getattr(self, f"s2p_{i}")(
-                x_p, scene.tokens, s2p_idx, s2p_valid, s2p_pe, src_gathered=s2p_g,
-                pe_normed=s2p_z)
+                x_p, scene.tokens, s2p_idx, s2p_valid, s2p_z, src_gathered=s2p_g)
         x_p = torch.where(prompt.mask[..., None], x_p, 0.0)
 
         result = {"emd": x_p}

@@ -85,11 +85,9 @@ class PolicyRelPE(nn.Module):
         m2p_z = normalize_rel_pe(m2p_pe, self.hidden_dim)
         for i in range(self.num_layers):
             x_p = getattr(self, f"a2p_{i}")(
-                x_p, scene.obs_tokens, a2p_idx, a2p_valid, a2p_pe, src_gathered=a2p_g,
-                pe_normed=a2p_z)
+                x_p, scene.obs_tokens, a2p_idx, a2p_valid, a2p_z, src_gathered=a2p_g)
             x_m = getattr(self, f"m2p_{i}")(
-                x_p, scene.map_tokens, m2p_idx, m2p_valid, m2p_pe, src_gathered=m2p_g,
-                pe_normed=m2p_z)
+                x_p, scene.map_tokens, m2p_idx, m2p_valid, m2p_z, src_gathered=m2p_g)
             x_p = x_p if self.not_use_map else x_m
         return x_p
 

@@ -92,9 +92,9 @@ class SceneEncoderAttnRelPE(nn.Module):
         x = scene.tokens
         for i in range(self.num_layers):
             x_obs = getattr(self, f"a2a_{i}")(
-                x[:, m:], x[:, m:], a2a_idx, a2a_valid, a2a_pe, pe_normed=a2a_z)
+                x[:, m:], x[:, m:], a2a_idx, a2a_valid, a2a_z)
             x = torch.cat([x[:, :m], x_obs], dim=1)
-            x = getattr(self, f"s2s_{i}")(x, x, s2s_idx, s2s_valid, s2s_pe, pe_normed=s2s_z)
+            x = getattr(self, f"s2s_{i}")(x, x, s2s_idx, s2s_valid, s2s_z)
         return scene.replace(tokens=x)
 
     def update_obs(self, scene: SceneTokens, obs_feat, obs_step_mask, obs_pos,

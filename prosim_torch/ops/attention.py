@@ -151,14 +151,13 @@ class GatedNeighborAttention(nn.Module):
         self.ff_dense1 = nn.Linear(hidden_dim * 4, hidden_dim)
         self.ff_postnorm = LayerNorm(hidden_dim)
 
-    def forward(self, x_dst, x_src, idx, edge_valid, rel_pe, src_gathered=None,
-                pe_normed=None):
+    def forward(self, x_dst, x_src, idx, edge_valid, pe_normed, src_gathered=None):
         """x_dst [B,Q,D], x_src [B,S,D], idx [B,Q,K], edge_valid [B,Q,K],
-        rel_pe [B,Q,K,D_pe] (D_pe < P when folded) -> [B,Q,D].
+        pe_normed [B,Q,K,D_pe] = normalize_rel_pe(rel_pe, P) (D_pe < P when
+        folded) -> [B,Q,D].
 
-        src_gathered: optional [B,Q,K,D] from gather_src_features(x_src, idx);
-        pe_normed: optional [B,Q,K,D_pe] from normalize_rel_pe(rel_pe, P);
-        both are shared across a stack whose inputs they depend on are
+        src_gathered: optional [B,Q,K,D] from gather_src_features(x_src, idx).
+        Both tables are shared across a stack whose inputs they depend on are
         layer-constant.
         The folds (exact math, see prosim_tpu/ops/attention.py:242-262):
           score: q . W_k LN_s(x_j)  = ((W_k^T q) * g_s) . z_x[j] + const_q
@@ -181,10 +180,10 @@ class GatedNeighborAttention(nn.Module):
         w_k = self.to_k.weight.t()                  # [D_src, inner]
         w_v, c_v = self.to_v.weight.t(), self.to_v.bias
 
-        D_pe = rel_pe.shape[-1]
+        z_r = pe_normed
+        D_pe = z_r.shape[-1]
         P = self.prenorm_r.weight.shape[0]
         tail = P - D_pe
-        z_r = normalize_rel_pe(rel_pe, P) if pe_normed is None else pe_normed
         g_r, b_r = self.prenorm_r.weight, self.prenorm_r.bias
         w_kr = self.to_k_r.weight.t()               # [P, inner]
         w_vr, c_vr = self.to_v_r.weight.t(), self.to_v_r.bias

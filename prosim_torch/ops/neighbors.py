@@ -27,13 +27,25 @@ def _radius2(radius) -> float:
 
 def pairwise_d2(dst_pos, src_pos):
     """[B,Q,2], [B,S,2] -> [B,Q,S] squared distances rounded as the kernel
-    (and XLA:CPU) computes them: fma(dy, dy, dx * dx), one rounding after
-    the product dx*dx. The fma is taken exactly in float64 and rounded
-    once to float32."""
+    (and XLA:CPU) computes them: fma(dy, dy, dx * dx) in float32, rounded
+    once after the product dx*dx and once after the fused multiply-add.
+
+    dy*dy is exact in float64, but the float64 sum with dx*dx may round,
+    and a second rounding to float32 could then land on the other side of
+    a float32 tie. So the float64 sum is rounded to odd (TwoSum's error
+    term says whether it was inexact, and an inexact even result steps one
+    ulp toward the exact sum); 53 >= 2*24 + 2 bits make the final rounding
+    to float32 that of the exact sum."""
     dx = dst_pos[:, :, None, 0] - src_pos[:, None, :, 0]
     dy = dst_pos[:, :, None, 1] - src_pos[:, None, :, 1]
-    dx2 = dx * dx
-    return (dy.double() * dy.double() + dx2.double()).float()
+    p = dy.double() * dy.double()
+    q = (dx * dx).double()
+    s = p + q
+    b = s - p
+    err = (p - (s - b)) + (q - b)
+    even = (s.view(torch.int64) & 1) == 0
+    step = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf).to(s))
+    return torch.where((err != 0) & even, step, s).float()
 
 
 def neighbor_topk_plain(dst_pos, src_pos, dst_mask, src_mask, k: int,

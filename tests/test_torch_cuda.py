@@ -59,6 +59,20 @@ def test_topk_kernel_matches_plain(cuda, case):
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 
+def test_topk_kernel_rounds_d2_once(cuda):
+    """dy*dy on a float32 tie plus a dx*dx far below it: the kernel's fma
+    and the plain version's rounded-to-odd float64 sum both round up, so
+    source 0 sorts after source 1 instead of tying with it."""
+    dy = 1 + 2**-12
+    dst = torch.zeros((1, 1, 2), device=cuda)
+    src = torch.tensor([[[2**-40, dy], [0.0, dy]]], device=cuda)
+    dm = torch.ones((1, 1), dtype=torch.bool, device=cuda)
+    sm = torch.ones((1, 2), dtype=torch.bool, device=cuda)
+    ki, _ = neighbor_topk(dst, src, dm, sm, 2)
+    pi, _ = neighbor_topk_plain(dst, src, dm, sm, 2)
+    assert ki.tolist() == pi.tolist() == [[[1, 0]]]
+
+
 @pytest.mark.parametrize("K,Dp,H", [
     (32, 96, 8), (100, 96, 8), (768, 96, 8), (128, 128, 8), (40, 24, 4), (7, 96, 8), (1, 96, 8),
 ])

@@ -98,6 +98,28 @@ def test_pairwise_d2_bits_match_jax():
     np.testing.assert_array_equal(got.numpy().view(np.uint32), ref.view(np.uint32))
 
 
+def _double_rounding_case():
+    """dy*dy lands exactly on a float32 tie and dx*dx = 2**-80 lies below
+    float64's ulp there: the single-rounded fma rounds up, a float64 sum
+    rounded again to float32 rounds down and ties with source 1."""
+    dy = np.float32(1 + 2**-12)
+    dst = np.zeros((1, 1, 2), np.float32)
+    src = np.array([[[2**-40, dy], [0.0, dy]]], np.float32)
+    return dst, src, np.ones((1, 1), bool), np.ones((1, 2), bool)
+
+
+def test_pairwise_d2_rounds_once_like_jax():
+    dst, src, dm, sm = _double_rounding_case()
+    ref = _host(jax.jit(lambda a, b: jnp.sum((a[:, :, None] - b[:, None]) ** 2, axis=-1))(dst, src))
+    got = pairwise_d2(torch.from_numpy(dst), torch.from_numpy(src)).numpy()
+    assert got[0, 0, 0] == np.float32(1 + 2**-11 + 2**-23)
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    ji, _ = _host(jax_neighbor_topk(*map(jnp.asarray, (dst, src, dm, sm)), k=2))
+    ti, _ = neighbor_topk_plain(*map(torch.from_numpy, (dst, src, dm, sm)), 2)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_array_equal(ji[0, 0], [1, 0])
+
+
 def test_topk_wrapper_takes_plain_version_on_cpu():
     dp, sp, dm, sm, k, r, ex = _topk_case("radius")
     args = list(map(torch.from_numpy, (dp, sp, dm, sm)))

@@ -221,7 +221,11 @@ def test_rel_pe(learnable, fold_dup):
 def test_gated_neighbor_attention(bipartite, shared_gather, folded):
     from prosim_tpu.ops.attention import GatedNeighborAttention as JG
     from prosim_tpu.ops.attention import gather_src_features as jgather
-    from prosim_torch.ops.attention import GatedNeighborAttention, gather_src_features
+    from prosim_torch.ops.attention import (
+        GatedNeighborAttention,
+        gather_src_features,
+        normalize_rel_pe,
+    )
 
     D, H, hd = 16, 4, 4
     g = _graph(B=2, Q=5, S=9, K=6)
@@ -245,7 +249,7 @@ def test_gated_neighbor_attention(bipartite, shared_gather, folded):
         kw["src_gathered"] = _host(jgather(jnp.asarray(x_src), jnp.asarray(g["idx"])))
         tkw["src_gathered"] = gather_src_features(_t(x_src), _t(g["idx"]))
     ref = _host(jm.apply({"params": params}, *args, **kw))
-    got = tm(*map(_t, args), **tkw)
+    got = tm(*map(_t, args[:4]), normalize_rel_pe(_t(rel_pe), D), **tkw)
     _close(got, ref)
 
 
