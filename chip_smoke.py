@@ -2,24 +2,32 @@
 """Drive prosim_torch's main path on one NVIDIA GPU and check its kernels.
 
 Run from the repository root:  python3 chip_smoke.py
-(`--kernels-only` stops after phase 3.) Phases:
+(`--kernels-only` stops after phase 3.) Two configurations of the closed
+loop are driven: the default (the policy's a2p/m2p stack as a layer loop)
+and FUSED_STACK=True (the stack as one fused kernel per replan step). Phases:
   1. device   - card name and power limit (nvidia-smi); TF32 off.
   2. build    - nvcc builds every CUDA kernel of the path from prosim_torch/csrc.
-  3. kernels  - each kernel against its plain PyTorch version at the six
-                graph/attention sites of the rollout (demo padding, B=16):
-                top-K bit-equal, edge core within EDGE_TOL; times by CUDA
-                events beside the bound and a one-call PyTorch yardstick.
-  4. rollout  - the full-width closed loop (get_config() defaults, lanes
-                2048, obs agents 160, agents 128, B=16, 8 replan steps):
-                finite, bounded, deterministic, every kernel launched the
-                expected number of times per forward; scenes/s. Then one
-                forward under torch.profiler with every kernel launch's
-                inputs recorded: each kernel's device ms, launches and bound
-                per forward and per site, and the device time by kernel
-                family (written to chiprun_out/chip_smoke_kernels.json).
-  5. parity   - the kernel path against the plain path (the model with its
-                kernel calls pointed at the plain versions), both on the
-                card, at B=2: rollout within PARITY_TOL_M metres.
+  3. kernels  - each kernel against its plain PyTorch version at the shapes
+                of the rollout (demo padding, B=16): top-K and the edge core
+                at the six graph/attention sites (top-K bit-equal, edge core
+                within EDGE_TOL), the fused stack on the policy's real
+                a2p/m2p tables of the encoded batch with the fused model's
+                random weights (within FUSED_TOL); times by CUDA events
+                beside the bound and a one-call PyTorch yardstick where one
+                exists (for the fused stack, the layer loop instead).
+  4. rollout  - the full-width closed loop of each configuration
+                (get_config() defaults, lanes 2048, obs agents 160, agents
+                128, B=16, 8 replan steps): finite, bounded, deterministic,
+                every kernel launched the expected number of times per
+                forward; scenes/s. Then one forward of each under
+                torch.profiler with every kernel launch's inputs recorded:
+                each kernel's device ms, launches and bound per forward and
+                per site, and the device time by kernel family (written to
+                chip_smoke_kernels.json in the output directory).
+  5. parity   - each configuration's kernel path against its plain path (the
+                model with its kernel calls pointed at the plain versions),
+                and the fused rollout against the layer-loop rollout, all on
+                the card, at B=2: rollouts within PARITY_TOL_M metres.
   6. replicas - parallel_rollout with M=4 on B=2 matches the B=2 rollout.
 Any failure raises and exits non-zero. The kernels JSON line comes just
 before the last line, which is the device JSON.
@@ -33,6 +41,7 @@ import sys
 import time
 
 EDGE_TOL = 1e-4      # f32, unit-scale inputs; only the summation order differs
+FUSED_TOL = 3e-4     # abs and rel; the bar tests/test_fused_stack.py holds the TPU kernel to
 PARITY_TOL_M = 1e-3  # metres, the bar the JAX package was held to
 B_FULL, LANES, OBS_AGENTS, AGENTS, REPLAN = 16, 2048, 160, 128, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -40,6 +49,7 @@ F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 LAYERS = 6
 
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
+    ("fused_stack (ours)", ("fused_stack_kernel",)),
     ("edge_attn (ours)", ("edge_attn_kernel",)),
     ("neighbor_topk (ours)", ("neighbor_topk_kernel",)),
     ("matmul", ("gemm", "sm90_xmma", "cutlass", "ampere_sgemm", "sgemm", "gemv")),
@@ -49,7 +59,8 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("copy/cat", ("copy", "cat", "Cat")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 ]
-KERNEL_NAMES = {"neighbor_topk": "neighbor_topk_kernel", "edge_attn_core": "edge_attn_kernel"}
+KERNEL_NAMES = {"neighbor_topk": "neighbor_topk_kernel", "edge_attn_core": "edge_attn_kernel",
+                "fused_two_site_stack": "fused_stack_kernel"}
 
 
 def log(*a):
@@ -69,8 +80,22 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def kernel_fns():
+    """{name: wrapper} of every kernel of the path; each counts its launches."""
+    from prosim_torch.ops.edge_attn import edge_attn_core
+    from prosim_torch.ops.fused_stack import fused_two_site_stack
+    from prosim_torch.ops.neighbors import neighbor_topk
+
+    return {"neighbor_topk": neighbor_topk, "edge_attn_core": edge_attn_core,
+            "fused_two_site_stack": fused_two_site_stack}
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
 @contextlib.contextmanager
-def kernel_calls(topk_fn, edge_fn):
+def kernel_calls(topk_fn, edge_fn, fused_fn):
     """Point the model's kernel calls at other functions (the plain versions
     in phase 5, recording shims in phase 4's profiled forward); the
     originals come back on exit."""
@@ -79,6 +104,7 @@ def kernel_calls(topk_fn, edge_fn):
 
     swaps = [(m, "neighbor_topk", topk_fn) for m in (scene_encoder, decoder, policy)]
     swaps.append((attention, "edge_attn_core", edge_fn))
+    swaps.append((policy, "fused_two_site_stack", fused_fn))
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     try:
         for m, name, fn in swaps:
@@ -201,6 +227,78 @@ def edge_cost(n_valid, B, Q, K, H, D, Dp):
             "ops": n_valid * 4 * H * (D + Dp)}
 
 
+def check_fused(torch, model, batch):
+    """The fused stack at the demo shape: the policy's real a2p/m2p tables at
+    the prompt agents' poses, built from the encoded batch as the policy
+    builds them (its graphs, rel-PE features and source tokens), x the
+    policy embeddings, the model's random weights packed; row 0 of every
+    scene has no valid edge. Also times the layer loop (FUSED_STACK=False,
+    12 edge-core launches) and the fused path (tables + kernel) from the
+    same graphs."""
+    from prosim_torch.ops.fused_stack import fused_two_site_stack, fused_two_site_stack_plain
+
+    policy = model.policy
+    p = batch.prompt
+    with torch.inference_mode():
+        scene, emd = model.prepare(batch)
+        x = emd["emd"].contiguous()
+        graphs = [(idx, valid.clone()) for idx, valid in policy.site_graphs(scene, p.pos, p.mask)]
+        for _, valid in graphs:
+            valid[:, 0] = False
+        ta, tm = policy.fused_tables(scene, p.pos, p.ori, graphs)
+        wa, wm = policy.pack_fused()
+        kw = dict(num_heads=policy.num_heads, head_dim=policy.head_dim)
+        out = fused_two_site_stack(x, ta, tm, wa, wm, **kw)
+        ref = fused_two_site_stack_plain(x, ta, tm, wa, wm, **kw)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = float(diff.max())
+        over = float((diff - FUSED_TOL * ref.abs()).max())
+        if not over <= FUSED_TOL:
+            raise AssertionError(f"fused_two_site_stack differs from its plain version: max abs "
+                                 f"err {err}, {over} over {FUSED_TOL} + {FUSED_TOL} * |plain|")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("fused_two_site_stack gave non-finite values")
+        ms = cuda_ms(torch, lambda: fused_two_site_stack(x, ta, tm, wa, wm, **kw), 5)
+        plain_ms = cuda_ms(torch, lambda: fused_two_site_stack_plain(x, ta, tm, wa, wm, **kw), 3)
+        loop_ms = cuda_ms(torch, lambda: policy.layer_loop(x, scene, p.pos, p.ori, graphs), 5)
+        path_ms = cuda_ms(torch, lambda: fused_two_site_stack(
+            x, *policy.fused_tables(scene, p.pos, p.ori, graphs), wa, wm, **kw), 5)
+        cost = fused_cost(x, (ta, tm), (wa, wm), **kw)
+    B, N, _ = x.shape
+    n_valid = [int(t[3].sum()) for t in (ta, tm)]
+    row = dict(site="policy", B=B, N=N, Ka=ta[1].shape[-1], Km=tm[1].shape[-1],
+               valid_edges=n_valid, ms=ms, plain_ms=plain_ms, library_ms=None,
+               layer_loop_ms=loop_ms, fused_path_ms=path_ms, max_abs_err=err, **cost)
+    log(f"  fused_two_site_stack[policy] B={B} N={N} Ka={row['Ka']} Km={row['Km']} "
+        f"valid={n_valid}: err {err:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"tables + kernel {path_ms:.4f} ms, layer loop {loop_ms:.4f} ms")
+    return [row]
+
+
+def fused_cost(x_p, tables, weights, num_heads, head_dim):
+    """Bytes the fused stack must move (x, both sites' source tokens, idx,
+    feats and valid, both sites' packed weights, each read once; the output
+    written once) and its operations: per valid edge and layer, 2 H (D + P)
+    multiply-adds for the score and the aggregate (2 operations each) and
+    the rel-PE expansion at 8 operations per column (the argument's
+    multiply-add, one sin, the norm's sum, sum of squares and scaling); per
+    query row and layer, the dense products' multiply-adds (to_q, the two
+    folds, to_g, to_s, to_out, the FFN)."""
+    from prosim_torch.ops.fused_stack import _FIELDS
+
+    B, N, D = x_p.shape
+    H, I = num_heads, num_heads * head_dim
+    L, P = weights[0][0].shape[0], weights[0][_FIELDS.index("wkvr")].shape[1]
+    dense = D * I + 2 * I * (D + P) + (I + D) * I + 2 * D * I + 8 * D * D
+    nbytes = 2 * B * N * D * 4 + 4 * sum(t.numel() for w in weights for t in w)
+    ops = 0
+    for x_src, idx, feats, valid in tables:
+        nbytes += 4 * (x_src.numel() + idx.numel() + feats.numel()) + valid.numel()
+        ops += L * int(valid.sum()) * (4 * H * (D + P) + 8 * P) + 2 * L * B * N * dense
+    return {"bytes": nbytes, "ops": ops}
+
+
 def bound_ms(cost):
     return 1e3 * max(cost["bytes"] / HBM_BYTES_PER_S, cost["ops"] / F32_FLOPS)
 
@@ -217,44 +315,51 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
     recorded by a shim around its wrapper. Each kernel launch's device time
     (matched to its shim record in launch order) and its bound at these
     inputs are added up per site; the site is the phase-3 site of the same
-    shape. Also returns the device time by kernel family."""
+    shape ("policy" for the fused stack). Also returns the device time by
+    kernel family."""
     from torch.profiler import ProfilerActivity, profile
 
-    from prosim_torch.ops.edge_attn import edge_attn_core
-    from prosim_torch.ops.neighbors import neighbor_topk
-
+    fns = kernel_fns()
     topk_site = {(r["Q"], r["S"], r["K"]): r["site"] for r in topk_rows}
     edge_site = {(r["Q"], r["K"]): r["site"] for r in edge_rows}
-    calls = {"neighbor_topk": [], "edge_attn_core": []}  # (site, cost or its inputs)
+    calls = {name: [] for name in fns}  # (site, cost or the inputs it is computed from)
 
     def topk(*a, **kw):
-        idx, valid = neighbor_topk(*a, **kw)
+        idx, valid = fns["neighbor_topk"](*a, **kw)
         B, Q, K = idx.shape
         S = a[1].shape[1]
         calls["neighbor_topk"].append((topk_site[Q, S, K], topk_cost(B, Q, S, K)))
         return idx, valid
 
     def edge(x_g, z_r, qx, qp, edge_valid, scale):
-        out = edge_attn_core(x_g, z_r, qx, qp, edge_valid, scale)
+        out = fns["edge_attn_core"](x_g, z_r, qx, qp, edge_valid, scale)
         B, Q, K, D = x_g.shape
         dims = (B, Q, K, qx.shape[2], D, z_r.shape[-1])
         calls["edge_attn_core"].append((edge_site[Q, K], (edge_valid, dims)))
         return out
 
-    before = {"neighbor_topk": neighbor_topk.launches, "edge_attn_core": edge_attn_core.launches}
-    with kernel_calls(topk, edge), profile(
+    def fused(x_p, a2p_tables, m2p_tables, weights_a, weights_m, **kw):
+        out = fns["fused_two_site_stack"](x_p, a2p_tables, m2p_tables, weights_a, weights_m, **kw)
+        calls["fused_two_site_stack"].append(
+            ("policy", (x_p, (a2p_tables, m2p_tables), (weights_a, weights_m), kw)))
+        return out
+
+    before = launch_counts()
+    with kernel_calls(topk, edge, fused), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model(batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    launched = {"neighbor_topk": neighbor_topk.launches - before["neighbor_topk"],
-                "edge_attn_core": edge_attn_core.launches - before["edge_attn_core"]}
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
     if launched != {k: len(v) for k, v in calls.items()}:
         raise AssertionError(f"the shims saw {[len(v) for v in calls.values()]} of "
                              f"{launched} kernel launches")
     calls["edge_attn_core"] = [
         (site, edge_cost(int(valid.sum()), *dims)) for site, (valid, dims) in calls["edge_attn_core"]]
+    calls["fused_two_site_stack"] = [
+        (site, fused_cost(x, tables, weights, **kw))
+        for site, (x, tables, weights, kw) in calls["fused_two_site_stack"]]
 
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
@@ -284,10 +389,70 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
                       "top_kernels": [(n[:110], ms, count[n]) for n, ms in top]}
 
 
-def summarize(name, route, source, replaces, rows, launches, forward):
+def run_rollout(torch, cfg, model, batch, want, label):
+    """Warm-up forward, then three timed forwards of the full-width B=16
+    closed loop: launches per forward as `want`, finite, bounded, (sin, cos)
+    on the unit circle, bitwise deterministic. Returns the sorted forward
+    times in seconds."""
+    t0 = time.perf_counter()
+    model(batch)
+    torch.cuda.synchronize()
+    log(f"rollout[{label}]: first forward {time.perf_counter() - t0:.2f} s")
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = model(batch)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    launches = launch_counts()
+    log(f"rollout[{label}]: launches per forward {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches} != {want}")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out2 = model(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    traj = out["rollout_traj"]
+    valid_traj = traj[batch.prompt.mask]
+    if traj.shape != (B_FULL, AGENTS, REPLAN * cfg.ROLLOUT.POLICY.REPLAN_FREQ, 4):
+        raise AssertionError(f"{label}: rollout_traj shape {tuple(traj.shape)}")
+    if not bool(torch.isfinite(valid_traj).all()):
+        raise AssertionError(f"{label}: rollout_traj has non-finite values")
+    if float(valid_traj[..., :2].abs().max()) > 1e4:
+        raise AssertionError(f"{label}: rollout_traj leaves a 10 km box")
+    unit = (valid_traj[..., 2] ** 2 + valid_traj[..., 3] ** 2 - 1).abs().max()
+    if float(unit) > 1e-4:
+        raise AssertionError(f"{label}: (sin, cos) off the unit circle by {float(unit)}")
+    if not torch.equal(out["rollout_traj"], out2["rollout_traj"]):
+        raise AssertionError(f"{label}: two forwards of the same batch differ")
+    times.sort()
+    log(f"rollout[{label}]: B={B_FULL} forward s {['%.4f' % t for t in times]}, "
+        f"median {B_FULL / times[1]:.3f} scenes/s, "
+        f"max |xy| {float(valid_traj[..., :2].abs().max()):.2f} m, "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, times
+
+
+def log_profile(label, per_site, prof):
+    log(f"profile[{label}]: forward wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), "
+        f"{prof['launches']} kernel launches")
+    for fam, ms in prof["families_ms"].items():
+        log(f"  {fam:22s} {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} %")
+    for kernel, sites in per_site.items():
+        if sites:
+            log(f"  {kernel} per forward: " + ", ".join(
+                f"{s} x{v['launches']} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
+                for s, v in sites.items()))
+
+
+def summarize(name, route, source, replaces, rows, launches, forward, extra=()):
     """One kernel's JSON entry: times and bounds summed over one launch at
-    each of the six sites (phase 3); forward_ms, forward_bound_ms and the
-    sites' forward_* fields come from phase 4's profiled forward."""
+    each of its phase-3 sites; forward_ms, forward_bound_ms and the sites'
+    forward_* fields come from phase 4's profiled forward of the
+    configuration that runs the kernel; `extra` names more row fields to
+    sum."""
     for r in rows:
         r["bound_ms"] = bound_ms(r)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S >= r["ops"] / F32_FLOPS
@@ -295,13 +460,15 @@ def summarize(name, route, source, replaces, rows, launches, forward):
         f = forward.get(r["site"], {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
         r.update({f"forward_{k}": v for k, v in f.items()})
     tot = lambda key: sum(r[key] for r in rows)
+    lib = [r["library_ms"] for r in rows]
     return {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
         "bound_by": "bytes" if tot("bytes") / HBM_BYTES_PER_S >= tot("ops") / F32_FLOPS else "operations",
-        "library_ms": tot("library_ms"),
+        "library_ms": None if None in lib else sum(lib),
+        **{key: tot(key) for key in extra},
         "forward_ms": tot("forward_ms"), "forward_bound_ms": tot("forward_bound_ms"),
         "sites": rows,
     }
@@ -323,8 +490,9 @@ def main(argv):
     from prosim_torch.data.synthetic import make_synthetic_batch
     from prosim_torch.models.prosim import ProSim
     from prosim_torch.ops import _build
-    from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
-    from prosim_torch.ops.neighbors import neighbor_topk, neighbor_topk_plain
+    from prosim_torch.ops.edge_attn import edge_attn_core_plain
+    from prosim_torch.ops.fused_stack import fused_two_site_stack_plain
+    from prosim_torch.ops.neighbors import neighbor_topk_plain
     from prosim_torch.rollout.rollout import parallel_rollout
     from prosim_torch.utils.params import init_params
 
@@ -346,8 +514,9 @@ def main(argv):
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions at the six sites
+    # 3. kernels against their plain versions at the rollout's shapes
     cfg = get_config()
+    cfg_fused = get_config(opts=["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"])
     batch = make_synthetic_batch(cfg, batch_size=B_FULL, num_lanes=LANES,
                                  num_obs_agents=OBS_AGENTS, num_agents=AGENTS,
                                  num_replan=REPLAN, seed=0, device="cuda")
@@ -358,82 +527,56 @@ def main(argv):
     edge_rows = check_edge(torch, valids, H, D, 3 * D // 4, hd ** -0.5)
     del valids
     torch.cuda.empty_cache()
+    model_f = ProSim(cfg_fused, device="cuda")
+    init_params(model_f, seed=0)
+    if not model_f.policy.uses_fused_stack():
+        raise AssertionError("FUSED_STACK=True did not select the fused stack")
+    fused_rows = check_fused(torch, model_f, batch)
+    torch.cuda.empty_cache()
     if "--kernels-only" in argv:
         return 0
 
-    # 4. full-width rollout
+    # 4. full-width rollout of both configurations
     model = ProSim(cfg, device="cuda")
     init_params(model, seed=0)
-    t0 = time.perf_counter()
-    model(batch)
-    torch.cuda.synchronize()
-    log(f"rollout: first forward {time.perf_counter() - t0:.2f} s")
-    neighbor_topk.launches = 0
-    edge_attn_core.launches = 0
-    t0 = time.perf_counter()
-    out = model(batch)
-    torch.cuda.synchronize()
-    fwd_s = time.perf_counter() - t0
-    launches = {"neighbor_topk": neighbor_topk.launches, "edge_attn_core": edge_attn_core.launches}
-    want = {"neighbor_topk": 2 + 2 + 2 * REPLAN, "edge_attn_core": LAYERS * (2 + 2 + 2 * REPLAN)}
-    log(f"rollout: launches per forward {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
-    times = [fwd_s]
-    for _ in range(2):
-        t0 = time.perf_counter()
-        out2 = model(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    traj = out["rollout_traj"]
-    mask = batch.prompt.mask
-    valid_traj = traj[mask]
-    if traj.shape != (B_FULL, AGENTS, REPLAN * cfg.ROLLOUT.POLICY.REPLAN_FREQ, 4):
-        raise AssertionError(f"rollout_traj shape {tuple(traj.shape)}")
-    if not bool(torch.isfinite(valid_traj).all()):
-        raise AssertionError("rollout_traj has non-finite values")
-    if float(valid_traj[..., :2].abs().max()) > 1e4:
-        raise AssertionError("rollout_traj leaves a 10 km box")
-    unit = (valid_traj[..., 2] ** 2 + valid_traj[..., 3] ** 2 - 1).abs().max()
-    if float(unit) > 1e-4:
-        raise AssertionError(f"(sin, cos) off the unit circle by {float(unit)}")
-    if not torch.equal(out["rollout_traj"], out2["rollout_traj"]):
-        raise AssertionError("two forwards of the same batch differ")
-    times.sort()
-    log(f"rollout: B={B_FULL} forward s {['%.4f' % t for t in times]}, "
-        f"median {B_FULL / times[1]:.3f} scenes/s, "
-        f"max |xy| {float(valid_traj[..., :2].abs().max()):.2f} m, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del out, out2, traj, valid_traj
+    steps = 2 + 2 + 2 * REPLAN  # graph builds: scene encoder, decoder, policy per step
+    want = {"neighbor_topk": steps, "edge_attn_core": LAYERS * steps, "fused_two_site_stack": 0}
+    launches, times = run_rollout(torch, cfg, model, batch, want, "layer loop")
     per_site, prof = profile_forward(torch, model, batch, topk_rows, edge_rows)
-    log(f"profile: forward wall {prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
-        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), {prof['launches']} kernel launches")
-    for fam, ms in prof["families_ms"].items():
-        log(f"  {fam:22s} {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} %")
-    for kernel, sites in per_site.items():
-        log(f"  {kernel} per forward: " + ", ".join(
-            f"{s} x{v['launches']} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
-            for s, v in sites.items()))
+    log_profile("layer loop", per_site, prof)
+    want_f = {"neighbor_topk": steps, "edge_attn_core": LAYERS * 4, "fused_two_site_stack": REPLAN}
+    launches_f, times_f = run_rollout(torch, cfg_fused, model_f, batch, want_f, "fused")
+    per_site_f, prof_f = profile_forward(torch, model_f, batch, topk_rows, edge_rows)
+    log_profile("fused", per_site_f, prof_f)
 
-    # 5. kernel path against plain path, both on the card
+    # 5. kernel path against plain path, both on the card; fused against layer loop
     small = make_synthetic_batch(cfg, batch_size=2, num_lanes=LANES,
                                  num_obs_agents=OBS_AGENTS, num_agents=AGENTS,
                                  num_replan=REPLAN, seed=1, device="cuda")
-    out_gpu = model(small)
-    before = (neighbor_topk.launches, edge_attn_core.launches)
-    with kernel_calls(neighbor_topk_plain, edge_attn_core_plain):
-        out_plain = model(small)
-    if (neighbor_topk.launches, edge_attn_core.launches) != before:
-        raise AssertionError("the plain path launched a kernel")
     m2 = small.prompt.mask
-    diff = (out_gpu["rollout_traj"] - out_plain["rollout_traj"])[m2][..., :2].abs()
-    err_m = float(diff.max())
-    per_step = diff.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)
-    log(f"parity: B=2 rollout kernel path vs plain path max |dxy| {err_m:.3e} m "
-        f"(mean {float(diff.mean()):.3e}); max per replan step "
-        f"{['%.2e' % float(x) for x in per_step]}")
-    if not err_m <= PARITY_TOL_M:
-        raise AssertionError(f"kernel path vs plain path {err_m} m > {PARITY_TOL_M} m")
+
+    def traj_err(a, b, what):
+        diff = (a["rollout_traj"] - b["rollout_traj"])[m2][..., :2].abs()
+        err_m = float(diff.max())
+        per_step = diff.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)
+        log(f"parity: B=2 rollout {what} max |dxy| {err_m:.3e} m (mean {float(diff.mean()):.3e}); "
+            f"max per replan step {['%.2e' % float(x) for x in per_step]}")
+        if not err_m <= PARITY_TOL_M:
+            raise AssertionError(f"{what}: {err_m} m > {PARITY_TOL_M} m")
+        return err_m
+
+    outs, parity = {}, {}
+    for label, m in (("layer loop", model), ("fused", model_f)):
+        outs[label] = m(small)
+        before = launch_counts()
+        with kernel_calls(neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain):
+            out_plain = m(small)
+        if launch_counts() != before:
+            raise AssertionError(f"{label}: the plain path launched a kernel")
+        parity[label] = traj_err(outs[label], out_plain, f"[{label}] kernel path vs plain path")
+    parity["fused vs layer loop"] = traj_err(outs["fused"], outs["layer loop"],
+                                             "fused stack vs layer loop (kernel paths)")
+    out_gpu = outs["layer loop"]
 
     # 6. M-replica rollout
     M = 4
@@ -445,6 +588,8 @@ def main(argv):
     if not rep_err <= PARITY_TOL_M:
         raise AssertionError(f"replicas differ from the single rollout by {rep_err}")
 
+    # B1 and B2 are read from the layer-loop configuration, B3 from the fused one
+    by_path = {"layer loop": launches, "fused": launches_f}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
                   "prosim_tpu/ops/pallas_topk.py:95", topk_rows,
@@ -452,11 +597,21 @@ def main(argv):
         summarize("edge_attn_core", "cuda", "prosim_torch/csrc/edge_attn.cu",
                   "prosim_tpu/ops/edge_attn.py:91", edge_rows,
                   launches["edge_attn_core"], per_site["edge_attn_core"]),
+        summarize("fused_two_site_stack", "cuda", "prosim_torch/csrc/fused_stack.cu",
+                  "prosim_tpu/ops/fused_stack.py:260", fused_rows,
+                  launches_f["fused_two_site_stack"], per_site_f["fused_two_site_stack"],
+                  extra=("layer_loop_ms", "fused_path_ms")),
     ]
+    for k in kernels:
+        k["launches_per_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
-        json.dump({"card": smi, "scenes_per_s": B_FULL / times[1], "forward_s": times,
-                   "profile": prof, "kernels": kernels}, f, indent=1)
+        json.dump({"card": smi,
+                   "rollout": {"layer loop": {"scenes_per_s": B_FULL / times[1], "forward_s": times,
+                                              "profile": prof, "per_site": per_site},
+                               "fused": {"scenes_per_s": B_FULL / times_f[1], "forward_s": times_f,
+                                         "profile": prof_f, "per_site": per_site_f}},
+                   "parity_m": parity, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,14 @@ The JAX package `prosim_tpu` is the reference; this package keeps its module
 layout and names so each counterpart sits at the same path. It imports
 neither JAX nor anything of `prosim_tpu`.
 
-This slice covers the unconditioned closed-loop rollout in eval mode: the
-scene encoder, prompt encoder, decoder and policy, the replan loop, and the
-two hand-written CUDA kernels on that path (`ops/neighbors.py`,
-`ops/edge_attn.py`, sources under `csrc/`). Entry points run on the card
-unless the caller passes `device="cpu"`. Training, prompt conditions and the
-fused policy stack are still to be ported (see ROADMAP.md).
+The port covers the unconditioned closed-loop rollout in eval mode: the
+scene encoder, prompt encoder, decoder and policy (its a2p/m2p stack as the
+layer loop or, with FUSED_STACK, the fused two-site stack), the replan
+loop, and the three hand-written CUDA kernels on that path
+(`ops/neighbors.py`, `ops/edge_attn.py`, `ops/fused_stack.py`, sources
+under `csrc/`). Entry points run on the card unless the caller passes
+`device="cpu"`. Training and prompt conditions are still to be ported (see
+ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,13 @@
 Queries sit at the agents' current rollout positions and cross-attend to
 agent observation tokens (a2p) and map tokens (m2p) with rel-PE; the
 anchor-conditioned context-gating head emits K-mode [steps, state_dim]
-action deltas, cumsum-integrated within the chunk. This slice ports the
-interleaved per-layer stack and the 'anchor' head; the fused two-site stack
-(FUSED_STACK), the other heads and goal context are still to be ported
-(ROADMAP.md queues A3 and B3).
+action deltas, cumsum-integrated within the chunk. The a2p/m2p stack runs
+either as the interleaved per-layer loop or, with FUSED_STACK, as one call
+of the fused two-site stack per replan step (ops/fused_stack.py, one CUDA
+kernel on the card), under the JAX package's conditions: fixed rel-PE and
+the map site in use. The port is eval-only, so the JAX package's training
+and TPU-backend terms do not apply. The 'anchor' head is ported; the other
+heads and goal context are still to be ported (ROADMAP.md queue A3).
 """
 
 import torch
@@ -17,9 +20,11 @@ from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
     normalize_rel_pe,
+    rel_pe_features,
     rel_pe_input,
     site_gather,
 )
+from prosim_torch.ops.fused_stack import fused_two_site_stack, pack_site_weights
 from prosim_torch.ops.mlp import MLP, ContextGating
 from prosim_torch.ops.neighbors import neighbor_topk
 from prosim_torch.utils.geometry import wrap_angle
@@ -28,10 +33,13 @@ from prosim_torch.utils.geometry import wrap_angle
 class PolicyRelPE(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  agent_radius, map_radius, edge_func, learnable_pe, pe_num_freq,
-                 motion_k, pred_steps, state_dim, use_ped_cycl=True, not_use_map=False):
+                 motion_k, pred_steps, state_dim, use_ped_cycl=True, not_use_map=False,
+                 fused_stack=False):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.head_dim = head_dim
         self.max_neigh = max_neigh
         self.agent_radius = agent_radius
         self.map_radius = map_radius
@@ -41,6 +49,8 @@ class PolicyRelPE(nn.Module):
         self.state_dim = state_dim
         self.use_ped_cycl = use_ped_cycl
         self.not_use_map = not_use_map
+        self.learnable_pe = learnable_pe
+        self.fused_stack = fused_stack
         self.a2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
         self.m2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
         for i in range(num_layers):
@@ -56,25 +66,63 @@ class PolicyRelPE(nn.Module):
         )
 
     def forward(self, policy_emd: dict, scene: SceneTokens, agent_pos, agent_ori,
-                agent_mask, agent_type) -> dict:
-        x_p = self._attn_fuse(policy_emd["emd"], scene, agent_pos, agent_ori, agent_mask)
+                agent_mask, agent_type, packed=None) -> dict:
+        """packed: `pack_fused()` of this policy, made once per forward by the
+        caller; packed here when it is None and the fused stack runs."""
+        x_p = self._attn_fuse(policy_emd["emd"], scene, agent_pos, agent_ori, agent_mask, packed)
         return self._compute_traj(x_p, agent_type)
 
-    def _attn_fuse(self, x_p, scene: SceneTokens, pos, ori, mask):
+    def uses_fused_stack(self) -> bool:
+        return self.fused_stack and not self.learnable_pe and not self.not_use_map
+
+    def pack_fused(self):
+        """Both sites' packed weights for the fused stack, or None when the
+        layer loop runs."""
+        if not self.uses_fused_stack():
+            return None
+        return pack_site_weights(self, "a2p"), pack_site_weights(self, "m2p")
+
+    def site_graphs(self, scene: SceneTokens, pos, mask):
+        """The a2p and m2p neighbor graphs ((idx, valid) each) at the agents'
+        positions."""
         m = scene.num_map
         radius = self.edge_func == "radius"
-        obs_pos, obs_ori = scene.pos[:, m:].contiguous(), scene.ori[:, m:]
-        map_pos, map_ori = scene.pos[:, :m].contiguous(), scene.ori[:, :m]
+        obs_pos, map_pos = scene.pos[:, m:].contiguous(), scene.pos[:, :m].contiguous()
         obs_mask, map_mask = scene.mask[:, m:].contiguous(), scene.mask[:, :m].contiguous()
+        a2p = neighbor_topk(pos, obs_pos, mask, obs_mask, k=self.max_neigh,
+                            radius=self.agent_radius if radius else None)
+        m2p = neighbor_topk(pos, map_pos, mask, map_mask, k=self.max_neigh,
+                            radius=self.map_radius if radius else None)
+        return a2p, m2p
 
-        a2p_idx, a2p_valid = neighbor_topk(
-            pos, obs_pos, mask, obs_mask, k=self.max_neigh,
-            radius=self.agent_radius if radius else None,
-        )
-        m2p_idx, m2p_valid = neighbor_topk(
-            pos, map_pos, mask, map_mask, k=self.max_neigh,
-            radius=self.map_radius if radius else None,
-        )
+    def _attn_fuse(self, x_p, scene: SceneTokens, pos, ori, mask, packed=None):
+        graphs = self.site_graphs(scene, pos, mask)
+        if self.uses_fused_stack():
+            wa, wm = packed if packed is not None else self.pack_fused()
+            return fused_two_site_stack(x_p, *self.fused_tables(scene, pos, ori, graphs), wa, wm,
+                                        num_heads=self.num_heads, head_dim=self.head_dim)
+        return self.layer_loop(x_p, scene, pos, ori, graphs)
+
+    def fused_tables(self, scene: SceneTokens, pos, ori, graphs):
+        """The fused stack's (x_src, idx, feats, valid) tables of both sites."""
+        m = scene.num_map
+        srcs = ((scene.obs_tokens, scene.pos[:, m:], scene.ori[:, m:]),
+                (scene.map_tokens, scene.pos[:, :m], scene.ori[:, :m]))
+        tables = []
+        for (tokens, src_pos, src_ori), (idx, valid) in zip(srcs, graphs):
+            feats = rel_pe_features(pos, ori, src_pos, src_ori, idx)
+            # the stack expands the reference's 4-feature fixed PE itself;
+            # re-append the duplicated rel_ori_vec feature
+            feats = torch.cat([feats, feats[..., 2:3]], dim=-1)
+            tables.append((tokens, idx, feats, valid))
+        return tables
+
+    def layer_loop(self, x_p, scene: SceneTokens, pos, ori, graphs):
+        """The interleaved per-layer a2p/m2p stack."""
+        (a2p_idx, a2p_valid), (m2p_idx, m2p_valid) = graphs
+        m = scene.num_map
+        obs_pos, obs_ori = scene.pos[:, m:], scene.ori[:, m:]
+        map_pos, map_ori = scene.pos[:, :m], scene.ori[:, :m]
         # the gathered source features are layer-constant within a replan
         # step and shared by every layer of the stack
         a2p_g, a2p_npos, a2p_nori = site_gather(scene.obs_tokens, obs_pos, obs_ori, a2p_idx)
@@ -118,10 +166,6 @@ def build_policy(config) -> PolicyRelPE:
     mc = config.MODEL
     ad = mc.POLICY.ACT_DECODER
     attn = ad.ATTN
-    if attn.FUSED_STACK:
-        raise NotImplementedError(
-            "FUSED_STACK=True: the fused two-site policy stack is not ported yet "
-            "(see ROADMAP.md queue B3)")
     if ad.TRAJ.PRED_MODE != "anchor":
         raise NotImplementedError(
             f"TRAJ.PRED_MODE={ad.TRAJ.PRED_MODE!r} is not ported yet (see ROADMAP.md queue A3)")
@@ -148,4 +192,5 @@ def build_policy(config) -> PolicyRelPE:
         state_dim=state_dim,
         use_ped_cycl=config.DATASET.USE_PED_CYCLIST,
         not_use_map=attn.NOT_USE_MAP,
+        fused_stack=attn.FUSED_STACK,
     )

@@ -7,11 +7,13 @@ steps (the JAX package's lax.scan). Per step:
   step_env  - rebuild the policy agents' obs history from their rolled-out
               state, non-policy agents replay logged futures (fut_obs), and
               the obs tokens of the scene are swapped;
-  policy    - a2p/m2p attention at the agents' current poses, anchor head;
+  policy    - a2p/m2p attention at the agents' current poses (the layer
+              loop, or with FUSED_STACK the fused two-site stack, whose
+              packed weights are made once per rollout), anchor head;
   integrate - pick a mode among the top-k and integrate the chunk in f32.
 
-Training (`mode="train"`), prompt conditions and the fused policy stack
-are still to be ported (ROADMAP.md); they raise NotImplementedError.
+Training (`mode="train"`) and prompt conditions are still to be ported
+(ROADMAP.md); they raise NotImplementedError.
 """
 
 from typing import Optional
@@ -205,6 +207,7 @@ class ProSim(nn.Module):
         time_onehot = torch.eye(Th, device=dev)
         mask = prompt.mask
 
+        packed = self.policy.pack_fused()  # None unless the fused stack runs
         motion_preds, motion_probs = [], []
         for r in range(R):
             cursor = Th + r * self.replan
@@ -212,7 +215,8 @@ class ProSim(nn.Module):
             if r > 0:
                 scene = self._step_env(batch, scene, traj, vel, r, cursor, init_pos,
                                        init_heading, type_onehot, time_onehot)
-            out = self.policy(policy_emd, scene, pos_now, theta_now, mask, prompt.agent_type)
+            out = self.policy(policy_emd, scene, pos_now, theta_now, mask, prompt.agent_type,
+                              packed=packed)
 
             # mode selection among the top-k (reference: traj_sam.py:301-313)
             probs = out["motion_prob"]  # [B, N, K]

@@ -17,7 +17,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "prosim_torch_kernels"
-SOURCES = {"neighbor_topk": "neighbor_topk.cu", "edge_attn": "edge_attn.cu"}
+SOURCES = {"neighbor_topk": "neighbor_topk.cu", "edge_attn": "edge_attn.cu",
+           "fused_stack": "fused_stack.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,11 +44,10 @@ def library_path(name: str) -> Path:
 def build_all(names=None) -> Dict[str, str]:
     """Compile every missing library in parallel. Returns {name: ptxas log}
     for the sources compiled in this call; raises if any nvcc fails."""
-    names = list(names or SOURCES)
+    outs = {name: library_path(name) for name in names or SOURCES}  # raises before any nvcc runs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for name, out in outs.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -37,6 +37,9 @@ SMALL_OPTS = [
     "MODEL.DECODER.ATTN.MAX_NUM_NEIGH", "8",
     "MODEL.POLICY.ACT_DECODER.ATTN.MAX_NUM_NEIGH", "8",
 ]
+# the fused two-site policy stack; on the CPU the JAX package runs its XLA
+# layer loop for it (prosim_tpu/models/policy.py), the port its fused stack
+FUSED = ["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"]
 BATCH_KW = dict(batch_size=2, num_lanes=16, num_obs_agents=10, num_agents=6, num_replan=2)
 ROLLOUT_TOL = dict(atol=1e-3, rtol=0)
 
@@ -90,7 +93,6 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("opts", [
-    ["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"],
     ["PROMPT.CONDITION.TYPES", "['goal']"],
     ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "mlp"],
 ])
@@ -164,6 +166,7 @@ def test_converter_maps_every_leaf_once():
     ["MODEL.DECODER.GOAL_PRED.ENABLE", "True", "MODEL.DECODER.GOAL_PRED.K", "4"],
     ["MODEL.PARITY.REFERENCE_STEP_ENV_FRAME", "True"],
     ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_VEL", "False"],
+    pytest.param(FUSED, id="fused_stack"),
 ])
 def test_forward_val_matches_jax(opts):
     jm, params, jb, tm, tb = _pair(SMALL_OPTS + opts)
@@ -181,10 +184,18 @@ def test_forward_val_matches_jax(opts):
 
 
 def test_parallel_rollout_matches_jax():
+    _parallel_rollout_vs_jax(SMALL_OPTS)
+
+
+def test_parallel_rollout_fused_stack_matches_jax():
+    _parallel_rollout_vs_jax(SMALL_OPTS + FUSED)
+
+
+def _parallel_rollout_vs_jax(opts):
     from prosim_tpu.rollout.rollout import parallel_rollout as jax_parallel_rollout
     from prosim_torch.rollout.rollout import parallel_rollout
 
-    jm, params, jb, tm, tb = _pair(SMALL_OPTS, seed=2)
+    jm, params, jb, tm, tb = _pair(opts, seed=2)
     ref = _host(jax.jit(lambda p, b, k: jax_parallel_rollout(jm, p, b, 2, k))(
         params, jb, jax.random.PRNGKey(3)))
     out = parallel_rollout(tm, tb, 2)
