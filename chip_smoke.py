@@ -2,32 +2,46 @@
 """Drive prosim_torch's main path on one NVIDIA GPU and check its kernels.
 
 Run from the repository root:  python3 chip_smoke.py
-(`--kernels-only` stops after phase 3.) Two configurations of the closed
-loop are driven: the default (the policy's a2p/m2p stack as a layer loop)
-and FUSED_STACK=True (the stack as one fused kernel per replan step). Phases:
-  1. device   - card name and power limit (nvidia-smi); TF32 off.
+(`--kernels-only` stops after phase 3.) Three configurations of the closed
+loop are driven: the default (the policy's a2p/m2p stack as a layer loop),
+FUSED_STACK=True (the stack as one fused kernel per replan step), and the
+text-conditioned loop (configs/waymo_demo.yaml's goal, v_action_tag,
+drag_point and OneText conditions, the condition transformer at
+policy_decoder, the Llama text path at Llama3-8B width with random weights).
+Phases:
+  1. device   - card name and power limit (nvidia-smi); TF32 and reduced-
+                precision bf16 reductions off.
   2. build    - nvcc builds every CUDA kernel of the path from prosim_torch/csrc.
   3. kernels  - each kernel against its plain PyTorch version at the shapes
                 of the rollout (demo padding, B=16): top-K and the edge core
-                at the six graph/attention sites (top-K bit-equal, edge core
-                within EDGE_TOL), the fused stack on the policy's real
-                a2p/m2p tables of the encoded batch with the fused model's
-                random weights (within FUSED_TOL); times by CUDA events
-                beside the bound and a one-call PyTorch yardstick where one
-                exists (for the fused stack, the layer loop instead).
-  4. rollout  - the full-width closed loop of each configuration
-                (get_config() defaults, lanes 2048, obs agents 160, agents
-                128, B=16, 8 replan steps): finite, bounded, deterministic,
-                every kernel launched the expected number of times per
-                forward; scenes/s. Then one forward of each under
-                torch.profiler with every kernel launch's inputs recorded:
-                each kernel's device ms, launches and bound per forward and
-                per site, and the device time by kernel family (written to
-                chip_smoke_kernels.json in the output directory).
+                at the six graph/attention sites and the edge core at the
+                condition GNN's site (top-K bit-equal, edge core within
+                EDGE_TOL), the fused stack on the policy's real a2p/m2p
+                tables of the encoded batch with the fused model's random
+                weights (within FUSED_TOL), flash attention at the Llama's
+                shape on a holed tokenizer-layout mask (the 2x rule below,
+                pad rows exactly zero); times by CUDA events beside the
+                bound and a one-call PyTorch yardstick where one exists (for
+                the fused stack, the layer loop instead).
+  4. rollout  - the full-width closed loop of each configuration (lanes
+                2048, obs agents 160, agents 128, B=16, 8 replan steps):
+                finite, bounded, deterministic, every kernel launched the
+                expected number of times per forward; scenes/s. Then one
+                forward of each under torch.profiler with every kernel
+                launch's inputs recorded: each kernel's device ms, launches
+                and bound per forward and per site, and the device time by
+                kernel family (written to chip_smoke_kernels.json in the
+                output directory).
   5. parity   - each configuration's kernel path against its plain path (the
                 model with its kernel calls pointed at the plain versions),
                 and the fused rollout against the layer-loop rollout, all on
-                the card, at B=2: rollouts within PARITY_TOL_M metres.
+                the card, at B=2: rollouts within PARITY_TOL_M metres. For
+                the text configuration the gate is the conditioned policy
+                embedding (LlamaTextAttn's output): the kernel path's max
+                deviation from a plain path whose attention runs in f32 on
+                the same bf16 q/k/v is at most 2x the plain path's own
+                deviation with the attention in bf16, plus 1e-5; its
+                rollout deviation is logged.
   6. replicas - parallel_rollout with M=4 on B=2 matches the B=2 rollout.
 Any failure raises and exits non-zero. The kernels JSON line comes just
 before the last line, which is the device JSON.
@@ -41,18 +55,23 @@ import sys
 import time
 
 EDGE_TOL = 1e-4      # f32, unit-scale inputs; only the summation order differs
+BF16_RULE = (2.0, 1e-5)  # flash attention: err <= 2 * (plain in bf16's err) + 1e-5, both vs f32
 FUSED_TOL = 3e-4     # abs and rel; the bar tests/test_fused_stack.py holds the TPU kernel to
 PARITY_TOL_M = 1e-3  # metres, the bar the JAX package was held to
 B_FULL, LANES, OBS_AGENTS, AGENTS, REPLAN = 16, 2048, 160, 128, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor-core peak
 LAYERS = 6
+TEXT_YAML = "configs/waymo_demo.yaml"
+TEXT_OPTS = ["MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.ARCH", "llama3_8b"]
 
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
+    ("flash_attn (ours)", ("flash_attn_kernel",)),
     ("fused_stack (ours)", ("fused_stack_kernel",)),
     ("edge_attn (ours)", ("edge_attn_kernel",)),
     ("neighbor_topk (ours)", ("neighbor_topk_kernel",)),
-    ("matmul", ("gemm", "sm90_xmma", "cutlass", "ampere_sgemm", "sgemm", "gemv")),
+    ("matmul", ("gemm", "sm90_xmma", "cutlass", "ampere_sgemm", "sgemm", "gemv", "nvjet")),
     ("gather/index", ("index", "gather", "scatter")),
     ("sort", ("sort", "radix")),
     ("reduce", ("reduce",)),
@@ -60,7 +79,8 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 ]
 KERNEL_NAMES = {"neighbor_topk": "neighbor_topk_kernel", "edge_attn_core": "edge_attn_kernel",
-                "fused_two_site_stack": "fused_stack_kernel"}
+                "fused_two_site_stack": "fused_stack_kernel",
+                "causal_attention": "flash_attn_kernel"}
 
 
 def log(*a):
@@ -83,11 +103,12 @@ def cuda_ms(torch, fn, iters):
 def kernel_fns():
     """{name: wrapper} of every kernel of the path; each counts its launches."""
     from prosim_torch.ops.edge_attn import edge_attn_core
+    from prosim_torch.ops.flash_attn import causal_attention
     from prosim_torch.ops.fused_stack import fused_two_site_stack
     from prosim_torch.ops.neighbors import neighbor_topk
 
     return {"neighbor_topk": neighbor_topk, "edge_attn_core": edge_attn_core,
-            "fused_two_site_stack": fused_two_site_stack}
+            "fused_two_site_stack": fused_two_site_stack, "causal_attention": causal_attention}
 
 
 def launch_counts():
@@ -95,16 +116,18 @@ def launch_counts():
 
 
 @contextlib.contextmanager
-def kernel_calls(topk_fn, edge_fn, fused_fn):
+def kernel_calls(topk_fn, edge_fn, fused_fn, flash_fn):
     """Point the model's kernel calls at other functions (the plain versions
     in phase 5, recording shims in phase 4's profiled forward); the
     originals come back on exit."""
     from prosim_torch.models import decoder, policy, scene_encoder
+    from prosim_torch.models.llm import llama
     from prosim_torch.ops import attention
 
     swaps = [(m, "neighbor_topk", topk_fn) for m in (scene_encoder, decoder, policy)]
     swaps.append((attention, "edge_attn_core", edge_fn))
     swaps.append((policy, "fused_two_site_stack", fused_fn))
+    swaps.append((llama, "causal_attention", flash_fn))
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     try:
         for m, name, fn in swaps:
@@ -168,13 +191,14 @@ def check_topk(torch, sites):
     return rows, valids
 
 
-def check_edge(torch, valids, H, D, Dp, scale):
+def check_edge(torch, valids, H, D, scale):
+    """valids: {site: (edge_valid [B,Q,K], D_pe)}."""
     import torch.nn.functional as F
     from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, valid in valids.items():
+    for name, (valid, Dp) in valids.items():
         B, Q, K = valid.shape
         valid = valid.clone()
         valid[:, 0] = False  # at least one row with no valid edge per scene
@@ -203,10 +227,10 @@ def check_edge(torch, valids, H, D, Dp, scale):
             q, kv, kv, attn_mask=mask, scale=scale, enable_gqa=True), iters)
         del q, kv
         n_valid = int(valid.sum())
-        rows.append(dict(site=name, B=B, Q=Q, K=K, valid_edges=n_valid, ms=ms,
+        rows.append(dict(site=name, B=B, Q=Q, K=K, Dp=Dp, valid_edges=n_valid, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
                          **edge_cost(n_valid, B, Q, K, H, D, Dp)))
-        log(f"  edge_attn_core[{name}] B={B} Q={Q} K={K} valid={n_valid}: err {err:.2e}; "
+        log(f"  edge_attn_core[{name}] B={B} Q={Q} K={K} Dp={Dp} valid={n_valid}: err {err:.2e}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms")
     return rows
 
@@ -225,6 +249,72 @@ def edge_cost(n_valid, B, Q, K, H, D, Dp):
     return {"bytes": (n_valid * (D + Dp) * 4 + B * Q * K + B * Q * H * (D + Dp) * 4 * 2
                       + B * Q * H * 4),
             "ops": n_valid * 4 * H * (D + Dp)}
+
+
+def flash_cost(B, T, Hq, D, Hkv):
+    """Bytes the causal attention must move (q, k, v and out in bf16, each
+    once, and the mask) and its operations: the causal q.k and p.v
+    multiply-adds, 4 B Hq D T (T + 1) / 2, at the bf16 tensor-core peak."""
+    return {"bytes": 2 * B * T * D * (2 * Hq + 2 * Hkv) + B * T,
+            "ops": 4 * B * Hq * D * T * (T + 1) // 2, "peak": BF16_FLOPS}
+
+
+def text_layout_mask(torch, B, text_len, block, seed):
+    """The tokenizer's layout of [B, text_len + block] tokens: text of a
+    random valid length 32..text_len, pad, then the prompt block with about
+    half of its slots on (holes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((B, text_len + block), bool)
+    for b in range(B):
+        mask[b, : rng.integers(32, text_len + 1)] = True
+        mask[b, text_len:] = rng.random(block) > 0.5
+    return torch.from_numpy(mask).cuda()
+
+
+def check_flash(torch, cfg_llm, B, text_len, block):
+    """B4 at the Llama's shape: bf16 q/k/v from a seed, the tokenizer's
+    holed mask. The kernel's max error against the plain version in f32 on
+    the same inputs must be at most 2x the plain version's own error in
+    bf16, plus 1e-5, on valid rows; pad rows exactly zero."""
+    import torch.nn.functional as F
+    from prosim_torch.ops.flash_attn import causal_attention, causal_attention_plain
+
+    T, Hq, Hkv, D = text_len + block, cfg_llm.num_heads, cfg_llm.num_kv_heads, cfg_llm.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
+    mask = text_layout_mask(torch, B, text_len, block, seed=4)
+    scale = 1.0 / D ** 0.5
+    out = causal_attention(q, k, v, mask, scale)
+    ref = causal_attention_plain(q.float(), k.float(), v.float(), mask, scale)
+    ref_bf16 = causal_attention_plain(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref)[mask].abs().max())
+    err_bf16 = float((ref_bf16.float() - ref)[mask].abs().max())
+    bar = BF16_RULE[0] * err_bf16 + BF16_RULE[1]
+    if not err <= bar:
+        raise AssertionError(f"causal_attention max abs err {err} > {bar} "
+                             f"(2x the plain version in bf16, {err_bf16}, + 1e-5)")
+    if not bool(torch.isfinite(out).all()) or float(out[~mask].float().abs().max()) != 0.0:
+        raise AssertionError("causal_attention: pad rows are not exactly zero, or non-finite values")
+    del ref, ref_bf16
+    ms = cuda_ms(torch, lambda: causal_attention(q, k, v, mask, scale), 20)
+    plain_ms = cuda_ms(torch, lambda: causal_attention_plain(q, k, v, mask, scale), 5)
+    # yardstick: one SDPA call, the same boolean mask, GQA
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    causal = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    bmask = (causal[None] & mask[:, None, :])[:, None]
+    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bmask, scale=scale, enable_gqa=True), 20)
+    row = dict(site="llama", B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, valid_tokens=int(mask.sum()),
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+               plain_bf16_err=err_bf16, **flash_cost(B, T, Hq, D, Hkv))
+    log(f"  causal_attention[llama] B={B} T={T} Hq={Hq} Hkv={Hkv} D={D}: err {err:.3e} "
+        f"(plain in bf16 {err_bf16:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms")
+    return [row]
 
 
 def check_fused(torch, model, batch):
@@ -299,8 +389,14 @@ def fused_cost(x_p, tables, weights, num_heads, head_dim):
     return {"bytes": nbytes, "ops": ops}
 
 
+def _bound_s(cost):
+    """(bytes time, operations time) in seconds; operations at the cost's
+    own peak (f32 CUDA cores unless it names the bf16 tensor cores)."""
+    return cost["bytes"] / HBM_BYTES_PER_S, cost["ops"] / cost.get("peak", F32_FLOPS)
+
+
 def bound_ms(cost):
-    return 1e3 * max(cost["bytes"] / HBM_BYTES_PER_S, cost["ops"] / F32_FLOPS)
+    return 1e3 * max(_bound_s(cost))
 
 
 def family(name):
@@ -321,7 +417,7 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
 
     fns = kernel_fns()
     topk_site = {(r["Q"], r["S"], r["K"]): r["site"] for r in topk_rows}
-    edge_site = {(r["Q"], r["K"]): r["site"] for r in edge_rows}
+    edge_site = {(r["Q"], r["K"], r["Dp"]): r["site"] for r in edge_rows}
     calls = {name: [] for name in fns}  # (site, cost or the inputs it is computed from)
 
     def topk(*a, **kw):
@@ -335,7 +431,12 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
         out = fns["edge_attn_core"](x_g, z_r, qx, qp, edge_valid, scale)
         B, Q, K, D = x_g.shape
         dims = (B, Q, K, qx.shape[2], D, z_r.shape[-1])
-        calls["edge_attn_core"].append((edge_site[Q, K], (edge_valid, dims)))
+        calls["edge_attn_core"].append((edge_site[Q, K, z_r.shape[-1]], (edge_valid, dims)))
+        return out
+
+    def flash(q, k, v, token_mask, scale):
+        out = fns["causal_attention"](q, k, v, token_mask, scale)
+        calls["causal_attention"].append(("llama", flash_cost(*q.shape, k.shape[2])))
         return out
 
     def fused(x_p, a2p_tables, m2p_tables, weights_a, weights_m, **kw):
@@ -344,26 +445,37 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
             ("policy", (x_p, (a2p_tables, m2p_tables), (weights_a, weights_m), kw)))
         return out
 
-    before = launch_counts()
-    with kernel_calls(topk, edge, fused), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model(batch)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    launched = {k: v - before[k] for k, v in launch_counts().items()}
-    if launched != {k: len(v) for k, v in calls.items()}:
-        raise AssertionError(f"the shims saw {[len(v) for v in calls.values()]} of "
-                             f"{launched} kernel launches")
+    # The profiler can drop device events of a forward with ~18k launches
+    # (seen once in the text forward: 111 of 123 edge-core launches); such a
+    # trace cannot be matched to the shims, so it is taken again.
+    for attempt in range(3):
+        for recs in calls.values():
+            recs.clear()
+        before = launch_counts()
+        with kernel_calls(topk, edge, fused, flash), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(batch)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        if launched != {k: len(v) for k, v in calls.items()}:
+            raise AssertionError(f"the shims saw {[len(v) for v in calls.values()]} of "
+                                 f"{launched} kernel launches")
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not device:
+            raise RuntimeError("the profiler recorded no device time")
+        seen = {k: sum(KERNEL_NAMES[k] in e.name for e in device) for k in calls}
+        if seen == launched:
+            break
+        log(f"profile: the trace holds {seen} of {launched} kernel launches; profiling again")
+    else:
+        raise AssertionError("the profiler dropped kernel launches in three traces")
     calls["edge_attn_core"] = [
         (site, edge_cost(int(valid.sum()), *dims)) for site, (valid, dims) in calls["edge_attn_core"]]
     calls["fused_two_site_stack"] = [
         (site, fused_cost(x, tables, weights, **kw))
         for site, (x, tables, weights, kw) in calls["fused_two_site_stack"]]
-
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        raise RuntimeError("the profiler recorded no device time")
     device.sort(key=lambda e: e.time_range.start)
     by_fam, by_name, count = {}, {}, {}
     for e in device:
@@ -374,8 +486,6 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
     per_site = {}
     for kernel, recs in calls.items():
         evs = [e for e in device if KERNEL_NAMES[kernel] in e.name]
-        if len(evs) != len(recs):
-            raise AssertionError(f"{kernel}: profiler saw {len(evs)} launches, shims {len(recs)}")
         sites = per_site[kernel] = {}
         for e, (site, cost) in zip(evs, recs):
             s = sites.setdefault(site, {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
@@ -387,6 +497,42 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
     return per_site, {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(device),
                       "families_ms": dict(sorted(by_fam.items(), key=lambda kv: -kv[1])),
                       "top_kernels": [(n[:110], ms, count[n]) for n, ms in top]}
+
+
+def text_parity(torch, model, small, plain, flash_plain):
+    """The text configuration at B=2: the conditioned policy embedding
+    (LlamaTextAttn's output, from `prepare`) of the kernel path against a
+    plain path whose attention runs in f32 on the same bf16 q/k/v; the
+    kernel path's max deviation must be at most 2x the deviation of the
+    plain path with the attention in bf16, plus 1e-5. The rollouts'
+    deviation is logged."""
+    from prosim_torch.ops.flash_attn import causal_attention
+
+    def f32_attention(q, k, v, token_mask, scale):
+        return flash_plain(q.float(), k.float(), v.float(), token_mask, scale)
+
+    m2 = small.prompt.mask
+    emd = model.prepare(small)[1]["emd"]
+    out = model(small)
+    before = launch_counts()
+    with kernel_calls(*plain, f32_attention):
+        emd_ref = model.prepare(small)[1]["emd"]
+        out_ref = model(small)
+    with kernel_calls(*plain, flash_plain):
+        emd_bf16 = model.prepare(small)[1]["emd"]
+    if launch_counts() != before:
+        raise AssertionError("text: the plain path launched a kernel")
+    dev = float((emd - emd_ref)[m2].abs().max())
+    dev_bf16 = float((emd_bf16 - emd_ref)[m2].abs().max())
+    dxy = float((out["rollout_traj"] - out_ref["rollout_traj"])[m2][..., :2].abs().max())
+    log(f"parity: B=2 text conditioned embedding, kernel path vs plain path (f32 attention) "
+        f"max dev {dev:.3e}; plain path with bf16 attention {dev_bf16:.3e}; "
+        f"rollout max |dxy| {dxy:.3e} m; {causal_attention.launches} B4 launches so far")
+    bar = BF16_RULE[0] * dev_bf16 + BF16_RULE[1]
+    if not dev <= bar:
+        raise AssertionError(f"text: conditioned embedding deviates by {dev} > {bar} "
+                             f"(2x the bf16 plain path's {dev_bf16} + 1e-5)")
+    return {"embedding_dev": dev, "embedding_dev_plain_bf16": dev_bf16, "rollout_dxy_m": dxy}
 
 
 def run_rollout(torch, cfg, model, batch, want, label):
@@ -455,8 +601,8 @@ def summarize(name, route, source, replaces, rows, launches, forward, extra=()):
     sum."""
     for r in rows:
         r["bound_ms"] = bound_ms(r)
-        r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S >= r["ops"] / F32_FLOPS
-                         else "operations")
+        t_bytes, t_ops = _bound_s(r)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         f = forward.get(r["site"], {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
         r.update({f"forward_{k}": v for k, v in f.items()})
     tot = lambda key: sum(r[key] for r in rows)
@@ -466,7 +612,8 @@ def summarize(name, route, source, replaces, rows, launches, forward, extra=()):
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
-        "bound_by": "bytes" if tot("bytes") / HBM_BYTES_PER_S >= tot("ops") / F32_FLOPS else "operations",
+        "bound_by": ("bytes" if sum(_bound_s(r)[0] for r in rows) >= sum(_bound_s(r)[1] for r in rows)
+                     else "operations"),
         "library_ms": None if None in lib else sum(lib),
         **{key: tot(key) for key in extra},
         "forward_ms": tot("forward_ms"), "forward_bound_ms": tot("forward_bound_ms"),
@@ -490,7 +637,10 @@ def main(argv):
     from prosim_torch.data.synthetic import make_synthetic_batch
     from prosim_torch.models.prosim import ProSim
     from prosim_torch.ops import _build
+    from prosim_torch.models.condition.attn import condition_edge_mask
+    from prosim_torch.models.llm.llama import LlamaConfig
     from prosim_torch.ops.edge_attn import edge_attn_core_plain
+    from prosim_torch.ops.flash_attn import causal_attention_plain
     from prosim_torch.ops.fused_stack import fused_two_site_stack_plain
     from prosim_torch.ops.neighbors import neighbor_topk_plain
     from prosim_torch.rollout.rollout import parallel_rollout
@@ -504,6 +654,7 @@ def main(argv):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 2. build
     t0 = time.perf_counter()
@@ -517,15 +668,26 @@ def main(argv):
     # 3. kernels against their plain versions at the rollout's shapes
     cfg = get_config()
     cfg_fused = get_config(opts=["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"])
-    batch = make_synthetic_batch(cfg, batch_size=B_FULL, num_lanes=LANES,
-                                 num_obs_agents=OBS_AGENTS, num_agents=AGENTS,
-                                 num_replan=REPLAN, seed=0, device="cuda")
+    cfg_text = get_config(os.path.join(root, TEXT_YAML), TEXT_OPTS)
+    shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
+    batch = make_synthetic_batch(cfg, batch_size=B_FULL, seed=0, device="cuda", **shape)
+    batch_t = make_synthetic_batch(cfg_text, batch_size=B_FULL, seed=0, device="cuda", **shape)
     topk_rows, valids = check_topk(torch, site_inputs(torch, cfg, batch))
     hd = cfg.MODEL.POLICY.ACT_DECODER.ATTN.FF_DIM
     H = cfg.MODEL.POLICY.ACT_DECODER.ATTN.NUM_HEAD
     D = cfg.MODEL.HIDDEN_DIM
-    edge_rows = check_edge(torch, valids, H, D, 3 * D // 4, hd ** -0.5)
+    valids = {name: (v, 3 * D // 4) for name, v in valids.items()}
+    # the condition GNN's site: Q = K = N, rel-PE at full width D
+    ct_cfg = cfg_text.MODEL.CONDITION_TRANSFORMER
+    if (ct_cfg.NHEAD, ct_cfg.FF_DIM) != (H, hd):
+        raise AssertionError("the GNN site is timed with the policy's heads; they differ")
+    valids["gnn"] = (condition_edge_mask(batch_t.conditions, cfg_text.PROMPT.CONDITION.TYPES,
+                                         batch_t.prompt.mask), D)
+    edge_rows = check_edge(torch, valids, H, D, hd ** -0.5)
     del valids
+    llm_cfg = LlamaConfig.llama3_8b(lora_rank=ct_cfg.TEXT_ATTN.LORA.R)  # TEXT_OPTS' ARCH
+    text_len = ct_cfg.CONDITION_ENCODER.TEXT.LLM.MAX_TEXT_TOKENS
+    flash_rows = check_flash(torch, llm_cfg, B_FULL, text_len, AGENTS)
     torch.cuda.empty_cache()
     model_f = ProSim(cfg_fused, device="cuda")
     init_params(model_f, seed=0)
@@ -536,18 +698,36 @@ def main(argv):
     if "--kernels-only" in argv:
         return 0
 
-    # 4. full-width rollout of both configurations
+    # 4. full-width rollout of the three configurations
     model = ProSim(cfg, device="cuda")
     init_params(model, seed=0)
     steps = 2 + 2 + 2 * REPLAN  # graph builds: scene encoder, decoder, policy per step
-    want = {"neighbor_topk": steps, "edge_attn_core": LAYERS * steps, "fused_two_site_stack": 0}
+    want = {"neighbor_topk": steps, "edge_attn_core": LAYERS * steps, "fused_two_site_stack": 0,
+            "causal_attention": 0}
     launches, times = run_rollout(torch, cfg, model, batch, want, "layer loop")
     per_site, prof = profile_forward(torch, model, batch, topk_rows, edge_rows)
     log_profile("layer loop", per_site, prof)
-    want_f = {"neighbor_topk": steps, "edge_attn_core": LAYERS * 4, "fused_two_site_stack": REPLAN}
+    want_f = dict(want, edge_attn_core=LAYERS * 4, fused_two_site_stack=REPLAN)
     launches_f, times_f = run_rollout(torch, cfg_fused, model_f, batch, want_f, "fused")
     per_site_f, prof_f = profile_forward(torch, model_f, batch, topk_rows, edge_rows)
     log_profile("fused", per_site_f, prof_f)
+    t0 = time.perf_counter()
+    model_t = ProSim(cfg_text, device="cuda")
+    init_params(model_t, seed=0)
+    with torch.no_grad():  # LoRA B factors start at zero; make the adapters do work
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for name, prm in model_t.named_parameters():
+            if name.endswith(("lora_b", "lora_embed_b")):
+                prm.copy_(torch.randn(prm.shape, generator=gen, device="cuda") * 0.02)
+    torch.cuda.synchronize()
+    n_llm = sum(p.numel() for p in model_t.condition_transformer_policy_decoder.text_attn.llm.parameters())
+    log(f"text model: built and initialised on the card in {time.perf_counter() - t0:.1f} s, "
+        f"Llama {n_llm / 1e9:.3f} B parameters in {llm_cfg.dtype}")
+    want_t = dict(want, edge_attn_core=LAYERS * steps + ct_cfg.NLAYER,
+                  causal_attention=llm_cfg.num_layers)
+    launches_t, times_t = run_rollout(torch, cfg_text, model_t, batch_t, want_t, "text")
+    per_site_t, prof_t = profile_forward(torch, model_t, batch_t, topk_rows, edge_rows)
+    log_profile("text", per_site_t, prof_t)
 
     # 5. kernel path against plain path, both on the card; fused against layer loop
     small = make_synthetic_batch(cfg, batch_size=2, num_lanes=LANES,
@@ -565,11 +745,12 @@ def main(argv):
             raise AssertionError(f"{what}: {err_m} m > {PARITY_TOL_M} m")
         return err_m
 
+    plain = (neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain)
     outs, parity = {}, {}
     for label, m in (("layer loop", model), ("fused", model_f)):
         outs[label] = m(small)
         before = launch_counts()
-        with kernel_calls(neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain):
+        with kernel_calls(*plain, causal_attention_plain):
             out_plain = m(small)
         if launch_counts() != before:
             raise AssertionError(f"{label}: the plain path launched a kernel")
@@ -577,6 +758,10 @@ def main(argv):
     parity["fused vs layer loop"] = traj_err(outs["fused"], outs["layer loop"],
                                              "fused stack vs layer loop (kernel paths)")
     out_gpu = outs["layer loop"]
+    parity["text"] = text_parity(torch, model_t, make_synthetic_batch(
+        cfg_text, batch_size=2, seed=1, device="cuda", **shape), plain, causal_attention_plain)
+    del model_t
+    torch.cuda.empty_cache()
 
     # 6. M-replica rollout
     M = 4
@@ -588,19 +773,23 @@ def main(argv):
     if not rep_err <= PARITY_TOL_M:
         raise AssertionError(f"replicas differ from the single rollout by {rep_err}")
 
-    # B1 and B2 are read from the layer-loop configuration, B3 from the fused one
-    by_path = {"layer loop": launches, "fused": launches_f}
+    # B1, B2 and B4 are read from the text configuration (it runs every site
+    # of B1 and B2, the GNN's included), B3 from the fused one
+    by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
                   "prosim_tpu/ops/pallas_topk.py:95", topk_rows,
-                  launches["neighbor_topk"], per_site["neighbor_topk"]),
+                  launches_t["neighbor_topk"], per_site_t["neighbor_topk"]),
         summarize("edge_attn_core", "cuda", "prosim_torch/csrc/edge_attn.cu",
                   "prosim_tpu/ops/edge_attn.py:91", edge_rows,
-                  launches["edge_attn_core"], per_site["edge_attn_core"]),
+                  launches_t["edge_attn_core"], per_site_t["edge_attn_core"]),
         summarize("fused_two_site_stack", "cuda", "prosim_torch/csrc/fused_stack.cu",
                   "prosim_tpu/ops/fused_stack.py:260", fused_rows,
                   launches_f["fused_two_site_stack"], per_site_f["fused_two_site_stack"],
                   extra=("layer_loop_ms", "fused_path_ms")),
+        summarize("causal_attention", "cuda", "prosim_torch/csrc/flash_attn.cu",
+                  "prosim_tpu/models/llm/llama.py:134", flash_rows,
+                  launches_t["causal_attention"], per_site_t["causal_attention"]),
     ]
     for k in kernels:
         k["launches_per_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
@@ -610,7 +799,9 @@ def main(argv):
                    "rollout": {"layer loop": {"scenes_per_s": B_FULL / times[1], "forward_s": times,
                                               "profile": prof, "per_site": per_site},
                                "fused": {"scenes_per_s": B_FULL / times_f[1], "forward_s": times_f,
-                                         "profile": prof_f, "per_site": per_site_f}},
+                                         "profile": prof_f, "per_site": per_site_f},
+                               "text": {"scenes_per_s": B_FULL / times_t[1], "forward_s": times_t,
+                                        "profile": prof_t, "per_site": per_site_t}},
                    "parity_m": parity, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,23 +6,27 @@ Same fields, shapes and shape legend as prosim_tpu/data/batch.py:
   N - policy agent slots (PAD.NUM_AGENTS)
   Th - history steps             R - replan steps (rollout)
   T - io-pair time indices       S - predicted steps per chunk
+  C - per-type condition slots
 
 `from_numpy` builds a container from numpy arrays (nested dicts for
-SceneBatch); `.to(device)` moves every tensor.
+SceneBatch); `.to(device)` moves every tensor. `SceneBatch.conditions` maps
+each condition type to a `Condition`, or for a text type ('*OneText') to a
+dict of tensors (input_ids, token_mask, agent_slot_ids, prompt_mask and
+read_positions, from data/text_conditions.py).
 """
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 
 def _to(x, device):
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, _Tensors)):
         return x.to(device)
-    if isinstance(x, _Tensors):
-        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
     return x
 
 
@@ -119,12 +123,41 @@ class FutObs(_Tensors):
 
 
 @dataclasses.dataclass
+class Condition(_Tensors):
+    """One prompt-condition type, fixed-C padded."""
+
+    feat: torch.Tensor         # [B, C, F] type-specific features
+    mask: torch.Tensor         # [B, C] bool
+    prompt_idx: torch.Tensor   # [B, C, 1 or 2] int32 indices into prompt slots
+    prompt_mask: torch.Tensor  # [B, N] bool - which agents this condition covers
+
+
+def _conditions_from_numpy(arrays: dict) -> dict:
+    """{type: arrays} -> {type: Condition, or for '*OneText' a dict of tensors}."""
+    out = {}
+    for ctype, v in arrays.items():
+        if "OneText" in ctype:
+            out[ctype] = {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in v.items()}
+        else:
+            out[ctype] = v if isinstance(v, Condition) else Condition.from_numpy(v)
+    return out
+
+
+@dataclasses.dataclass
 class SceneBatch(_Tensors):
     init_map: MapInputs
     init_obs: ObsInputs
     prompt: Prompt
     io_pairs: Optional[IOPairs] = None
     fut_obs: Optional[FutObs] = None
+    conditions: Dict[str, Union[Condition, Dict[str, torch.Tensor]]] = dataclasses.field(
+        default_factory=dict)
+
+    @classmethod
+    def from_numpy(cls, arrays: dict):
+        arrays = dict(arrays)
+        conditions = _conditions_from_numpy(arrays.pop("conditions", None) or {})
+        return super().from_numpy(arrays).replace(conditions=conditions)
 
     @property
     def batch_size(self):
@@ -137,8 +170,12 @@ class SceneBatch(_Tensors):
         def sub(c):
             if c is None:
                 return None
+            if isinstance(c, torch.Tensor):
+                return fn(c)
+            if isinstance(c, dict):
+                return {k: sub(v) for k, v in c.items()}
             return c.replace(**{
-                f.name: getattr(c, f.name) if f.name == "t_indices" else fn(getattr(c, f.name))
+                f.name: getattr(c, f.name) if f.name == "t_indices" else sub(getattr(c, f.name))
                 for f in dataclasses.fields(c)
             })
 

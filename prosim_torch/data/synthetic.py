@@ -2,12 +2,15 @@
 
 The arrays are drawn with numpy in the same order as
 prosim_tpu/data/synthetic.py, so one seed gives the same arrays in both
-packages. Prompt conditions are not ported yet (ROADMAP.md queue A6).
+packages, prompt conditions included. A text ('*OneText') condition is the
+same two-agent instruction in every scene, tokenized by the byte tokenizer.
 """
 
 import numpy as np
 
 from prosim_torch.data.batch import SceneBatch
+from prosim_torch.data.text_conditions import build_one_text_condition
+from prosim_torch.models.llm.tokenizer import AGENT_TEMPLATE, ByteTokenizer
 
 
 def obs_feature_dim(config) -> int:
@@ -41,9 +44,6 @@ def synthetic_arrays(
     num_replan: int = None,
 ) -> dict:
     """Nested dict of numpy arrays in the SceneBatch layout."""
-    if config.PROMPT.CONDITION.TYPES:
-        raise NotImplementedError(
-            "prompt conditions are not ported yet (ROADMAP.md queue A6)")
     rng = np.random.default_rng(seed)
     B = batch_size
     L = num_lanes
@@ -117,8 +117,33 @@ def synthetic_arrays(
         ori=f32(B, R, A),
         obs_index=np.broadcast_to(obs_index[:, None], (B, R, N)).copy(),
     )
+
+    conditions = {}
+    for cond_type in config.PROMPT.CONDITION.TYPES:
+        if "OneText" in cond_type:
+            llm_cfg = config.MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM
+            pm = np.zeros((B, N), bool)
+            pm[:, : min(2, N)] = True
+            texts = [f"{AGENT_TEMPLATE.format(0)} slows down. "
+                     f"{AGENT_TEMPLATE.format(min(1, N - 1))} turns left."] * B
+            conditions[cond_type] = build_one_text_condition(
+                ByteTokenizer(), texts, pm, max_len=llm_cfg.MAX_TEXT_TOKENS,
+                use_prompt_token=llm_cfg.USE_PROMPT_TOKEN,
+                agent_token_mode=llm_cfg.AGENT_TOKEN_MODE)
+            continue
+        C = config.DATASET.FORMAT.PAD.NUM_CONDS
+        fdim = {"goal": 3, "v_action_tag": 3, "v2v_tag": 3, "drag_point": 16}.get(cond_type, 3)
+        pidx_dim = 2 if cond_type == "v2v_tag" else 1
+        cmask = rng.random((B, C)) > 0.5
+        pidx = rng.integers(0, N, size=(B, C, pidx_dim)).astype(np.int32)
+        pmask = np.zeros((B, N), bool)
+        for b in range(B):
+            pmask[b, pidx[b, cmask[b]].ravel()] = True
+        feat = f32(B, C, 8, 2).reshape(B, C, 16) if cond_type == "drag_point" else f32(B, C, fdim)
+        conditions[cond_type] = dict(feat=feat, mask=cmask, prompt_idx=pidx,
+                                     prompt_mask=pmask & prompt_mask)
     return dict(init_map=init_map, init_obs=init_obs, prompt=prompt,
-                io_pairs=io_pairs, fut_obs=fut_obs)
+                io_pairs=io_pairs, fut_obs=fut_obs, conditions=conditions)
 
 
 def make_synthetic_batch(config, batch_size: int = 1, num_lanes: int = 64,

@@ -8,7 +8,8 @@ either as the interleaved per-layer loop or, with FUSED_STACK, as one call
 of the fused two-site stack per replan step (ops/fused_stack.py, one CUDA
 kernel on the card), under the JAX package's conditions: fixed rel-PE and
 the map site in use. The port is eval-only, so the JAX package's training
-and TPU-backend terms do not apply. The 'anchor' head is ported; the other
+and TPU-backend terms do not apply. The 'anchor' head and the goal-reconstruction
+head (`pred_mlp`, LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS) are ported; the other
 heads and goal context are still to be ported (ROADMAP.md queue A3).
 """
 
@@ -34,7 +35,7 @@ class PolicyRelPE(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  agent_radius, map_radius, edge_func, learnable_pe, pe_num_freq,
                  motion_k, pred_steps, state_dim, use_ped_cycl=True, not_use_map=False,
-                 fused_stack=False):
+                 fused_stack=False, goal_recon_head=False):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
@@ -64,13 +65,19 @@ class PolicyRelPE(nn.Module):
             [hidden_dim, hidden_dim, hidden_dim // 2, pred_steps * state_dim],
             ret_before_act=True,
         )
+        self.goal_recon_head = goal_recon_head
+        if goal_recon_head:  # goal reconstruction from the policy embedding
+            self.pred_mlp = MLP([hidden_dim, hidden_dim, hidden_dim // 2, 2], ret_before_act=True)
 
     def forward(self, policy_emd: dict, scene: SceneTokens, agent_pos, agent_ori,
                 agent_mask, agent_type, packed=None) -> dict:
         """packed: `pack_fused()` of this policy, made once per forward by the
         caller; packed here when it is None and the fused stack runs."""
         x_p = self._attn_fuse(policy_emd["emd"], scene, agent_pos, agent_ori, agent_mask, packed)
-        return self._compute_traj(x_p, agent_type)
+        result = self._compute_traj(x_p, agent_type)
+        if self.goal_recon_head:
+            result["reconst_pred"] = self.pred_mlp(policy_emd["emd"])
+        return result
 
     def uses_fused_stack(self) -> bool:
         return self.fused_stack and not self.learnable_pe and not self.not_use_map
@@ -169,10 +176,8 @@ def build_policy(config) -> PolicyRelPE:
     if ad.TRAJ.PRED_MODE != "anchor":
         raise NotImplementedError(
             f"TRAJ.PRED_MODE={ad.TRAJ.PRED_MODE!r} is not ported yet (see ROADMAP.md queue A3)")
-    if ad.CONTEXT.GOAL or not ad.CONTEXT.EMD or config.LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS:
-        raise NotImplementedError(
-            "goal context and the goal-reconstruction head are not ported yet "
-            "(see ROADMAP.md queue A3)")
+    if ad.CONTEXT.GOAL or not ad.CONTEXT.EMD:
+        raise NotImplementedError("goal context is not ported yet (see ROADMAP.md queue A3)")
     state_dim = len(config.DATASET.FORMAT.TARGET.ELEMENTS.split(","))
     if ad.TRAJ.PRED_GMM:
         state_dim += 3
@@ -193,4 +198,5 @@ def build_policy(config) -> PolicyRelPE:
         use_ped_cycl=config.DATASET.USE_PED_CYCLIST,
         not_use_map=attn.NOT_USE_MAP,
         fused_stack=attn.FUSED_STACK,
+        goal_recon_head=config.LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS,
     )

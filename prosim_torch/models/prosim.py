@@ -12,8 +12,16 @@ steps (the JAX package's lax.scan). Per step:
               packed weights are made once per rollout), anchor head;
   integrate - pick a mode among the top-k and integrate the chunk in f32.
 
-Training (`mode="train"`) and prompt conditions are still to be ported
-(ROADMAP.md); they raise NotImplementedError.
+With prompt conditions (PROMPT.CONDITION.TYPES) a condition transformer
+runs at each of MODEL.CONDITION_TRANSFORMER.CONDITION_LOCATIONS: at
+'prompt_encoder' on the prompt embeddings, at 'policy_decoder' on the
+decoder's policy embeddings, where a text condition goes through the Llama
+text path and its prompt-mask loss comes out as `prompt_loss_aux`. The
+model is built directly on `device`, so a Llama3-8B text model never passes
+through host memory.
+
+Training (`mode="train"`) is still to be ported (ROADMAP.md queue A7); it
+raises NotImplementedError.
 """
 
 from typing import Optional
@@ -22,6 +30,7 @@ import torch
 from torch import nn
 
 from prosim_torch.data.batch import SceneBatch, SceneTokens
+from prosim_torch.models.condition.transformer import build_condition_transformer
 from prosim_torch.models.decoder import build_decoder
 from prosim_torch.models.policy import build_policy
 from prosim_torch.models.prompt_encoder import build_prompt_encoder
@@ -43,15 +52,16 @@ def _topk_stable(x, k: int):
 class ProSim(nn.Module):
     def __init__(self, config, device="cuda"):
         super().__init__()
-        if config.PROMPT.CONDITION.TYPES:
-            raise NotImplementedError(
-                "prompt conditions (PROMPT.CONDITION.TYPES) are not ported yet "
-                "(see ROADMAP.md queue A6)")
         self.config = config
-        self.scene_encoder = build_scene_encoder(config)
-        self.prompt_encoder = build_prompt_encoder(config)
-        self.decoder = build_decoder(config)
-        self.policy = build_policy(config)
+        self.condition_locations = (list(config.MODEL.CONDITION_TRANSFORMER.CONDITION_LOCATIONS)
+                                    if config.PROMPT.CONDITION.TYPES else [])
+        with torch.device(device):
+            self.scene_encoder = build_scene_encoder(config)
+            self.prompt_encoder = build_prompt_encoder(config)
+            self.decoder = build_decoder(config)
+            self.policy = build_policy(config)
+            for loc in self.condition_locations:
+                self.add_module(f"condition_transformer_{loc}", build_condition_transformer(config))
 
         self.hist_steps = config.DATASET.FORMAT.HISTORY.STEPS
         self.replan = config.ROLLOUT.POLICY.REPLAN_FREQ
@@ -118,11 +128,30 @@ class ProSim(nn.Module):
         once-per-scene half; M replicas reuse it)."""
         self._check_mode(mode)
         scene = self.scene_encoder(batch.init_obs, batch.init_map)
-        prompt_emb = self.prompt_encoder(batch.prompt)
-        policy_emd = self.decoder(scene, batch.prompt, prompt_emb)
-        policy_emd["goal"] = batch.prompt.goal_point
+        prompt_emb = self.encode_prompt(batch)
+        policy_emd = self.generate_policy(batch, scene, prompt_emb)
         policy_emd = self.select_k_emd(policy_emd, batch, mode, generator)
         return scene, policy_emd
+
+    def encode_prompt(self, batch: SceneBatch):
+        prompt_emb = self.prompt_encoder(batch.prompt)
+        if "prompt_encoder" in self.condition_locations:
+            prompt_emb, _ = self.condition_transformer_prompt_encoder(
+                batch.conditions, prompt_emb, batch.prompt)
+        return prompt_emb
+
+    def generate_policy(self, batch: SceneBatch, scene: SceneTokens, prompt_emb) -> dict:
+        """The decoder's policy embeddings, conditioned at 'policy_decoder';
+        the text path's aux losses ride along as 'prompt_loss_aux'."""
+        policy_emd = self.decoder(scene, batch.prompt, prompt_emb)
+        policy_emd["goal"] = batch.prompt.goal_point
+        if "policy_decoder" in self.condition_locations:
+            emd, aux = self.condition_transformer_policy_decoder(
+                batch.conditions, policy_emd["emd"], batch.prompt)
+            policy_emd["emd"] = emd
+            if aux is not None:
+                policy_emd["prompt_loss_aux"] = aux
+        return policy_emd
 
     @torch.inference_mode()
     def forward(self, batch: SceneBatch, mode: str = "val",
@@ -208,7 +237,7 @@ class ProSim(nn.Module):
         mask = prompt.mask
 
         packed = self.policy.pack_fused()  # None unless the fused stack runs
-        motion_preds, motion_probs = [], []
+        motion_preds, motion_probs, reconst_preds = [], [], []
         for r in range(R):
             cursor = Th + r * self.replan
             pos_now, theta_now = self._agent_pose(traj, cursor, init_pos, init_heading)
@@ -244,6 +273,8 @@ class ProSim(nn.Module):
                 vel[:, :, cursor : cursor + S] = torch.where(mask[..., None, None], vseg, 0.0)
             motion_preds.append(mp)
             motion_probs.append(probs)
+            if "reconst_pred" in out:
+                reconst_preds.append(out["reconst_pred"])
 
         output = {
             # per-step predictions stacked on a leading replan axis [R, B, N, ...]
@@ -256,7 +287,9 @@ class ProSim(nn.Module):
             "init_heading": init_heading,
             "agent_mask": mask,
         }
-        for key in ("goal_prob", "goal_point", "select_idx", "goal"):
+        if reconst_preds:
+            output["reconst_pred"] = torch.stack(reconst_preds)
+        for key in ("prompt_loss_aux", "goal_prob", "goal_point", "select_idx", "goal"):
             if key in policy_emd:
                 output[key] = policy_emd[key]
         return output

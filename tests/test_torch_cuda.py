@@ -7,7 +7,10 @@ it runs on a machine without them:
 Tolerances: top-K bit-equal; the edge core 1e-5 in f32 (the kernel sums in
 another order than the plain einsum); the fused stack 3e-4, the bar the JAX
 package holds its fused kernel to (the kernel folds the k|v projections onto
-the queries where the plain version projects every edge, through 2L layers).
+the queries where the plain version projects every edge, through 2L layers);
+flash attention (bf16 in and out) by the flash-attention rule: its max error
+against the plain version in f32 on the same bf16 inputs is at most twice
+the plain version's own error in bf16, plus 1e-5, on valid rows.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 
 from prosim_torch.ops.attention import GatedNeighborAttention
 from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
+from prosim_torch.ops.flash_attn import causal_attention, causal_attention_plain
 from prosim_torch.ops.fused_stack import (
     fused_two_site_stack,
     fused_two_site_stack_plain,
@@ -102,6 +106,91 @@ def test_edge_kernel_matches_plain(cuda, K, Dp, H):
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b.expand_as(a), atol=1e-5, rtol=1e-5)
     assert float(got[0][0, 3].abs().max()) == 0.0 and float(got[2][0, 3].max()) == 0.0
+
+
+def test_edge_kernel_gnn_site(cuda):
+    """The condition GNN's site: Q = K = N = 128, D_pe = D = 128, most rows
+    with one valid edge (unary conditions sit on the diagonal), a few with
+    more, the rest with none."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, N, D, H = 3, 128, 128, 8
+    x_g = torch.randn((B, N, N, D), generator=gen, device=cuda)
+    z_r = torch.randn((B, N, N, D), generator=gen, device=cuda)
+    qx = torch.randn((B, N, H, D), generator=gen, device=cuda) * 0.1
+    qp = torch.randn((B, N, H, D), generator=gen, device=cuda) * 0.1
+    diag = torch.rand((B, N), generator=gen, device=cuda) > 0.4
+    valid = torch.diag_embed(diag) | (torch.rand((B, N, N), generator=gen, device=cuda) > 0.995)
+    before = edge_attn_core.launches
+    got = edge_attn_core(x_g, z_r, qx, qp, valid, 0.25)
+    ref = edge_attn_core_plain(x_g, z_r, qx, qp, valid, 0.25)
+    torch.cuda.synchronize()
+    assert edge_attn_core.launches == before + 1
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b.expand_as(a), atol=1e-5, rtol=1e-5)
+    empty = ~valid.any(-1)
+    assert bool(empty.any()) and all(float(o[empty].abs().max()) == 0.0 for o in got)
+
+
+def _flash_inputs(cuda, B, T, Hq, Hkv, D, seed):
+    """bf16 q/k/v and the tokenizer's holed mask: text of a random length,
+    pad, a block of slots about half on; scene 0 has no valid token."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
+    block = min(T // 3, 40)
+    mask = torch.zeros((B, T), dtype=torch.bool, device=cuda)
+    for b in range(1, B):
+        n = int(torch.randint(1, T - block, (1,), generator=gen, device=cuda))
+        mask[b, :n] = True
+        mask[b, T - block:] = torch.rand(block, generator=gen, device=cuda) > 0.5
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", [
+    (3, 100, 8, 2, 64), (3, 200, 8, 2, 128), (2, 64, 4, 1, 128), (2, 77, 4, 4, 32), (2, 390, 32, 8, 128),
+])
+def test_flash_attn_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
+    q, k, v, mask = _flash_inputs(cuda, B, T, Hq, Hkv, D, seed=T + D)
+    scale = D ** -0.5
+    before = causal_attention.launches
+    got = causal_attention(q, k, v, mask, scale)
+    again = causal_attention(q, k, v, mask, scale)
+    ref = causal_attention_plain(q.float(), k.float(), v.float(), mask, scale)
+    ref_bf16 = causal_attention_plain(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert causal_attention.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again)  # no atomics: bitwise reproducible
+    err = float((got.float() - ref)[mask].abs().max())
+    err_bf16 = float((ref_bf16.float() - ref)[mask].abs().max())
+    assert err <= 2 * err_bf16 + 1e-5, (err, err_bf16)
+    assert bool(torch.isfinite(got).all())
+    assert float(got[~mask].float().abs().max()) == 0.0  # pad rows (and scene 0) are zeros
+
+
+def test_flash_attn_skips_masked_keys(cuda):
+    """Non-finite values in pad rows of k and v do not reach a valid row:
+    masked keys are skipped, not weighted by p = 0."""
+    q, k, v, mask = _flash_inputs(cuda, 3, 150, 8, 2, 128, seed=1)
+    clean = causal_attention(q, k, v, mask, 0.1)
+    k2, v2 = k.clone(), v.clone()
+    k2[~mask] = float("nan")
+    v2[~mask] = float("inf")
+    assert torch.equal(causal_attention(q, k2, v2, mask, 0.1), clean)
+
+
+def test_flash_attn_refuses_other_inputs(cuda):
+    q, k, v, mask = _flash_inputs(cuda, 2, 40, 4, 2, 64, seed=2)
+    before = causal_attention.launches
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        causal_attention(q.float(), k.float(), v.float(), mask, 0.125)
+    with pytest.raises(ValueError):  # Hq not a multiple of Hkv
+        causal_attention(q[:, :, :3].contiguous(), k, v, mask, 0.125)
+    with pytest.raises(ValueError):  # non-contiguous
+        causal_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask, 0.125)
+    with pytest.raises(ValueError):  # the mask on the CPU
+        causal_attention(q, k, v, mask.cpu(), 0.125)
+    assert causal_attention.launches == before
 
 
 FUSED_CASES = {  # name: (B, N, D, H, head_dim, L, Sa, Ka, Sm, Km)

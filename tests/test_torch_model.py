@@ -42,12 +42,16 @@ SMALL_OPTS = [
 FUSED = ["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"]
 BATCH_KW = dict(batch_size=2, num_lanes=16, num_obs_agents=10, num_agents=6, num_replan=2)
 ROLLOUT_TOL = dict(atol=1e-3, rtol=0)
+# the demo configuration: goal, v_action_tag, drag_point and OneText
+# conditions, the tiny Llama (TEXT.LLM.ARCH auto without weights) with LoRA
+DEMO = "configs/waymo_demo.yaml"
 
 
-def _pair(opts, seed=0):
+def _pair(opts, seed=0, yaml=None):
     """JAX model, params and batch; the port's model carrying those params,
     and its batch from the same seed."""
-    jcfg, tcfg = jax_get_config(opts=opts), get_config(opts=opts)
+    path = os.path.join(REPO, yaml) if yaml else None
+    jcfg, tcfg = jax_get_config(path, opts), get_config(path, opts)
     jm = JaxProSim(jcfg)
     jb = jax_synthetic(jcfg, seed=seed, **BATCH_KW)
     params = jm.init(jax.random.PRNGKey(0), jb)
@@ -93,7 +97,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("opts", [
-    ["PROMPT.CONDITION.TYPES", "['goal']"],
+    ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "cluster"],
     ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "mlp"],
 ])
 def test_unported_options_raise(opts):
@@ -119,28 +123,43 @@ def test_config_same_keys_and_values(yaml, opts):
     assert get_config(path, opts).to_dict() == jax_get_config(path, opts).to_dict()
 
 
-@pytest.mark.parametrize("seed", [0, 5])
-def test_synthetic_batch_same_arrays(seed):
-    cfg = get_config(opts=SMALL_OPTS)
-    jb = jax_synthetic(jax_get_config(opts=SMALL_OPTS), seed=seed, **BATCH_KW)
+@pytest.mark.parametrize("yaml,seed", [(None, 0), (None, 5), (DEMO, 0), (DEMO, 3)])
+def test_synthetic_batch_same_arrays(yaml, seed):
+    path = os.path.join(REPO, yaml) if yaml else None
+    cfg = get_config(path, SMALL_OPTS)
+    jb = jax_synthetic(jax_get_config(path, SMALL_OPTS), seed=seed, **BATCH_KW)
     arrays = synthetic_arrays(cfg, seed=seed, **BATCH_KW)
     tb = make_synthetic_batch(cfg, seed=seed, device="cpu", **BATCH_KW)
-    for group, fields in arrays.items():
+    conditions = arrays.pop("conditions")
+    assert sorted(conditions) == sorted(jb.conditions) == sorted(tb.conditions)
+    assert bool(conditions) == bool(yaml)
+    pairs = [((group, name), a, getattr(getattr(jb, group), name), getattr(getattr(tb, group), name))
+             for group, fields in arrays.items() for name, a in fields.items()]
+    for ctype, fields in conditions.items():
         for name, a in fields.items():
-            ref = np.asarray(getattr(getattr(jb, group), name))
-            got = getattr(getattr(tb, group), name).numpy()
-            assert got.dtype == ref.dtype, (group, name)
-            np.testing.assert_array_equal(got, ref, err_msg=f"{group}.{name}")
-            np.testing.assert_array_equal(a, ref)
+            ref, got = jb.conditions[ctype], tb.conditions[ctype]
+            ref, got = (ref[name], got[name]) if "OneText" in ctype else (
+                getattr(ref, name), getattr(got, name))
+            pairs.append(((ctype, name), a, ref, got))
+    for where, a, ref, got in pairs:
+        ref, got = np.asarray(ref), got.numpy()
+        assert got.dtype == ref.dtype, where
+        np.testing.assert_array_equal(got, ref, err_msg=str(where))
+        np.testing.assert_array_equal(a, ref)
 
 
-def test_converter_maps_every_leaf_once():
+@pytest.mark.parametrize("yaml", [None, DEMO])
+def test_converter_maps_every_leaf_once(yaml):
+    """Every flax leaf lands on one torch parameter of the same shape; with
+    the demo configuration that covers the condition transformer and the
+    Llama (its sharded leaves come boxed)."""
+    path = os.path.join(REPO, yaml) if yaml else None
     opts = SMALL_OPTS + ["MODEL.DECODER.GOAL_PRED.ENABLE", "True"]
-    jm = JaxProSim(jax_get_config(opts=opts))
+    jm = JaxProSim(jax_get_config(path, opts))
     params = jm.init(jax.random.PRNGKey(0), jax_synthetic(jm.config, **BATCH_KW))
     n_leaves = len(jax.tree.leaves(params))
     sd = flax_to_state_dict(jax.tree.map(np.asarray, params))
-    model = ProSim(get_config(opts=opts), device="cpu")
+    model = ProSim(get_config(path, opts), device="cpu")
     own = model.state_dict()
     assert len(sd) == n_leaves == len(own)
     assert set(sd) == set(own)
@@ -161,15 +180,18 @@ def test_converter_maps_every_leaf_once():
 
 # ------------------------------------------------------------ the slice
 
-@pytest.mark.parametrize("opts", [
-    [],
-    ["MODEL.DECODER.GOAL_PRED.ENABLE", "True", "MODEL.DECODER.GOAL_PRED.K", "4"],
-    ["MODEL.PARITY.REFERENCE_STEP_ENV_FRAME", "True"],
-    ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_VEL", "False"],
-    pytest.param(FUSED, id="fused_stack"),
+@pytest.mark.parametrize("yaml,opts", [
+    (None, []),
+    (None, ["MODEL.DECODER.GOAL_PRED.ENABLE", "True", "MODEL.DECODER.GOAL_PRED.K", "4"]),
+    (None, ["MODEL.PARITY.REFERENCE_STEP_ENV_FRAME", "True"]),
+    (None, ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_VEL", "False"]),
+    pytest.param(None, FUSED, id="fused_stack"),
+    pytest.param(DEMO, [], id="text_conditions_policy_decoder"),
+    pytest.param(DEMO, ["MODEL.CONDITION_TRANSFORMER.CONDITION_LOCATIONS", "['prompt_encoder']"],
+                 id="text_conditions_prompt_encoder"),
 ])
-def test_forward_val_matches_jax(opts):
-    jm, params, jb, tm, tb = _pair(SMALL_OPTS + opts)
+def test_forward_val_matches_jax(yaml, opts):
+    jm, params, jb, tm, tb = _pair(SMALL_OPTS + opts, yaml=yaml)
     ref = _host(jax.jit(lambda p, b, k: jm.forward(p, b, "val", k))(params, jb, jax.random.PRNGKey(7)))
     out = tm(tb, mode="val")
     mask = np.asarray(jb.prompt.mask)
@@ -178,9 +200,15 @@ def test_forward_val_matches_jax(opts):
     _valid_close(out["rollout_traj"], ref["rollout_traj"], mask, **ROLLOUT_TOL)
     _valid_close(out["rollout_vel"], ref["rollout_vel"], mask, **ROLLOUT_TOL)
     np.testing.assert_array_equal(out["init_pos"].numpy(), ref["init_pos"])
-    for key in ("goal_prob", "goal_point", "select_idx"):
+    for key in ("goal_prob", "goal_point", "select_idx", "reconst_pred"):
+        assert (key in out) == (key in ref), key
         if key in ref:
             np.testing.assert_allclose(out[key].numpy(), ref[key], atol=1e-4)
+    assert ("prompt_loss_aux" in out) == ("prompt_loss_aux" in ref)
+    if "prompt_loss_aux" in ref:
+        np.testing.assert_allclose(float(out["prompt_loss_aux"]["prompt_mask_pred_loss"]),
+                                   float(ref["prompt_loss_aux"]["prompt_mask_pred_loss"]),
+                                   rtol=1e-5)
 
 
 def test_parallel_rollout_matches_jax():
