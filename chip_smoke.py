@@ -251,12 +251,18 @@ def edge_cost(n_valid, B, Q, K, H, D, Dp):
             "ops": n_valid * 4 * H * (D + Dp)}
 
 
-def flash_cost(B, T, Hq, D, Hkv):
-    """Bytes the causal attention must move (q, k, v and out in bf16, each
-    once, and the mask) and its operations: the causal q.k and p.v
-    multiply-adds, 4 B Hq D T (T + 1) / 2, at the bf16 tensor-core peak."""
-    return {"bytes": 2 * B * T * D * (2 * Hq + 2 * Hkv) + B * T,
-            "ops": 4 * B * Hq * D * T * (T + 1) // 2, "peak": BF16_FLOPS}
+def flash_cost(token_mask, Hq, D, Hkv):
+    """Bytes the causal attention must move (in bf16, once each: every output
+    row, the q rows of valid tokens, the k and v rows of valid keys; and the
+    mask) and its operations: the q.k and p.v multiply-adds over the valid
+    (query, key) pairs at or below the diagonal, 4 Hq D per pair, at the bf16
+    tensor-core peak. A pad query row needs no input (its output is zero)
+    and a masked key takes part in no pair."""
+    B, T = token_mask.shape
+    n = token_mask.sum(dim=1).long()  # valid tokens per scene
+    pairs = int((n * (n + 1) // 2).sum())  # the i-th valid query sees i valid keys
+    return {"bytes": 2 * D * (B * T * Hq + int(n.sum()) * (Hq + 2 * Hkv)) + B * T,
+            "ops": 4 * Hq * D * pairs, "peak": BF16_FLOPS}
 
 
 def text_layout_mask(torch, B, text_len, block, seed):
@@ -310,7 +316,7 @@ def check_flash(torch, cfg_llm, B, text_len, block):
         qt, kt, vt, attn_mask=bmask, scale=scale, enable_gqa=True), 20)
     row = dict(site="llama", B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, valid_tokens=int(mask.sum()),
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-               plain_bf16_err=err_bf16, **flash_cost(B, T, Hq, D, Hkv))
+               plain_bf16_err=err_bf16, **flash_cost(mask, Hq, D, Hkv))
     log(f"  causal_attention[llama] B={B} T={T} Hq={Hq} Hkv={Hkv} D={D}: err {err:.3e} "
         f"(plain in bf16 {err_bf16:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms")
@@ -436,7 +442,7 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
 
     def flash(q, k, v, token_mask, scale):
         out = fns["causal_attention"](q, k, v, token_mask, scale)
-        calls["causal_attention"].append(("llama", flash_cost(*q.shape, k.shape[2])))
+        calls["causal_attention"].append(("llama", (token_mask, q.shape[2], q.shape[3], k.shape[2])))
         return out
 
     def fused(x_p, a2p_tables, m2p_tables, weights_a, weights_m, **kw):
@@ -473,6 +479,8 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
         raise AssertionError("the profiler dropped kernel launches in three traces")
     calls["edge_attn_core"] = [
         (site, edge_cost(int(valid.sum()), *dims)) for site, (valid, dims) in calls["edge_attn_core"]]
+    calls["causal_attention"] = [
+        (site, flash_cost(*args)) for site, args in calls["causal_attention"]]
     calls["fused_two_site_stack"] = [
         (site, fused_cost(x, tables, weights, **kw))
         for site, (x, tables, weights, kw) in calls["fused_two_site_stack"]]

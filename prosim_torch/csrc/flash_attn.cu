@@ -9,17 +9,22 @@
 // with no valid key get zeros. Inputs and output bf16 [B, T, H, D] rows;
 // products accumulate in f32 and the softmax statistics are f32.
 //
-// Bound on the H100: at the Llama3-8B text shape (B 16, T 384, Hq 32,
-// Hkv 8, D 128) q, k, v and out are 126 MB, 0.038 ms at 3.35 TB/s; the
-// causal products are 19 GFLOP, 0.020 ms at the 989 TFLOP/s bf16 tensor
-// peak. So the kernel is bound by device-memory bytes.
+// Bound on the H100: the work it must do depends on the mask. It writes
+// every output row and reads q of the valid rows and k/v of the valid keys
+// (bf16, once each); its products cover the valid (query, key) pairs at or
+// below the diagonal. At the Llama3-8B text shape (B 16, T 384, Hq 32, Hkv 8,
+// D 128) the bytes outweigh the products at 3.35 TB/s against the
+// 989 TFLOP/s bf16 tensor peak for any mask, so the kernel is bound by
+// device-memory bytes (chip_smoke.py computes the bound from each launch's
+// mask).
 //
 // Design: one block of four warps per (query tile of 64 rows, head, batch);
 // each warp owns 16 query rows and keeps their q fragments, the 16 x D f32
-// output accumulator and the running max and sum in registers. The block
-// walks the key tiles of 64 up to the causal diagonal (later tiles are
-// skipped), staging k and v rows in shared memory with masked keys written
-// as zeros, and skips a tile whose keys are all masked. q.k^T and p.v run on
+// output accumulator and the running max and sum in registers. A tile whose
+// rows are all pads only writes zeros. The block walks the key tiles of 64
+// up to the causal diagonal (later tiles are skipped), staging k and v rows
+// in shared memory with masked keys written as zeros, and skips a tile
+// whose keys are all masked. q.k^T and p.v run on
 // the tensor cores as mma.sync m16n8k16 bf16 with f32 accumulation; the
 // scores are masked by selection (never multiplied), so a non-finite value
 // in a masked row cannot reach a valid row. An online softmax in the log2
@@ -87,17 +92,19 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
   const bool ok_lo = r_lo < T && mb[r_lo];
   const bool ok_hi = r_hi < T && mb[r_hi];
   const bool warp_live = __any_sync(kFull, ok_lo || ok_hi);
+  // a tile of pad rows reads nothing and walks no key tile: its output is zeros
+  const int last_kt = __syncthreads_or(ok_lo || ok_hi) ? tile : -1;
 
-  uint32_t qa[KD][4];
+  uint32_t qa[KD][4];  // q of pad rows is never read
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk) {
     const int c = kk * 16 + t4 * 2;
     const uint32_t* lo = reinterpret_cast<const uint32_t*>(qb + (size_t)r_lo * q_stride + c);
     const uint32_t* hi = reinterpret_cast<const uint32_t*>(qb + (size_t)r_hi * q_stride + c);
-    qa[kk][0] = r_lo < T ? lo[0] : 0u;
-    qa[kk][1] = r_hi < T ? hi[0] : 0u;
-    qa[kk][2] = r_lo < T ? lo[4] : 0u;
-    qa[kk][3] = r_hi < T ? hi[4] : 0u;
+    qa[kk][0] = ok_lo ? lo[0] : 0u;
+    qa[kk][1] = ok_hi ? hi[0] : 0u;
+    qa[kk][2] = ok_lo ? lo[4] : 0u;
+    qa[kk][3] = ok_hi ? hi[4] : 0u;
   }
   float o[ND][4];
 #pragma unroll
@@ -105,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
   float m_lo = -INFINITY, m_hi = -INFINITY;  // running max (log2 domain)
   float l_lo = 0.f, l_hi = 0.f;              // this thread's part of the running sum
 
-  for (int kt = 0; kt <= tile; ++kt) {  // key tiles up to the causal diagonal
+  for (int kt = 0; kt <= last_kt; ++kt) {  // key tiles up to the causal diagonal
     const int key0 = kt * kRows;
     __syncthreads();  // the previous tile's reads are done
     bool any = false;

@@ -95,12 +95,11 @@ class GNNConditionAttn(nn.Module):
                 attr = torch.where(hit[..., None], attr, -torch.inf)
                 acc = attr if acc is None else torch.maximum(acc, attr)
             n_hit = n_hit + hit.float()
-        any_hit = n_hit > 0
         if self.pool == "mean":
             pooled = acc / n_hit.clamp_min(1)[..., None]
         else:
-            pooled = torch.where(any_hit[..., None], acc, 0.0)
-        edge_mask = any_hit & prompt.mask[:, :, None] & prompt.mask[:, None, :]
+            pooled = torch.where((n_hit > 0)[..., None], acc, 0.0)
+        edge_mask = condition_edge_mask(conditions, cond_embs, prompt.mask)
 
         all_idx = torch.arange(N, dtype=torch.int32, device=prompt_emb.device).expand(B, N, N)
         pe_in = rel_pe_features(prompt.pos, prompt.ori, prompt.pos, prompt.ori, all_idx)

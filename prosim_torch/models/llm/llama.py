@@ -170,6 +170,31 @@ class LlamaModel(nn.Module):
             self.add_module(f"layer_{i}", LlamaBlock(c))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, dt)
 
+    @torch.no_grad()
+    def init_weights(self, seed: int) -> None:
+        """Seeded random weights drawn on the model's own device (so a
+        Llama3-8B model never passes through host memory), with the flax
+        initializers' scales: projection weights lecun_normal (normal of std
+        1/sqrt(fan_in) truncated at 2 std, rescaled to that std), the
+        embedding and the LoRA A factors N(0, 0.02), the LoRA B factors 0 (so
+        the adapters start as the identity), norm scales 1."""
+        dev = self.embed_tokens.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if p.ndim == 1:
+                p.fill_(1.0)
+            elif leaf in ("lora_b", "lora_embed_b"):
+                p.zero_()
+            else:
+                val = torch.empty(p.shape, dtype=torch.float32, device=dev)
+                if leaf in ("embed_tokens", "lora_a", "lora_embed_a"):
+                    val.normal_(0.0, 0.02, generator=gen)
+                else:  # weight [out, in]
+                    std = p.shape[1] ** -0.5 / 0.87962566103423978
+                    nn.init.trunc_normal_(val, 0.0, std, -2 * std, 2 * std, generator=gen)
+                p.copy_(val)
+
     def lookup(self, ids):
         """Token embeddings [B, T, H] in cfg.dtype. The LoRA delta is applied
         per gathered row (A[ids] @ B), never as a dense [V, H] table."""

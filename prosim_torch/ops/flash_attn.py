@@ -66,8 +66,9 @@ def causal_attention(q, k, v, token_mask, scale: float):
     Hkv = k.shape[2]
     dev = q.device
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"causal_attention on the card takes bf16 q/k/v, got {q.dtype}; "
-                        "other dtypes are not ported (see ROADMAP.md queue B4)")
+        raise TypeError(f"causal_attention on the card takes bf16 q/k/v, got {q.dtype}; other "
+                        "dtypes are not ported (ROADMAP.md B4, 'Left: f32 inputs'); on the card "
+                        "use a bf16 Llama, e.g. TEXT.LLM.ARCH llama3_8b")
     bf16 = torch.bfloat16
     _check("q", q, bf16, (B, T, Hq, D), dev)
     _check("k", k, bf16, (B, T, Hkv, D), dev)

@@ -12,17 +12,15 @@ of numpy arrays) maps leaf by leaf onto a `state_dict`:
 A boxed leaf (flax's `Partitioned`, for the Llama's sharded weights) is
 unboxed first.
 
-`init_params` draws seeded random weights; the Llama of a text path is
-drawn on its own device with the flax initializers' scales
-(`init_llama_params`), so a Llama3-8B model is initialised on the card.
+`init_params` draws seeded random weights; a submodule that has its own
+initialiser (the Llama's `init_weights`, which draws on the model's device,
+so a Llama3-8B model is initialised on the card) is left to it.
 """
 
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
-
-from prosim_torch.models.llm.llama import LlamaModel
 
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -74,39 +72,15 @@ def load_flax_params(module: torch.nn.Module, flax_params: Mapping) -> None:
 
 
 @torch.no_grad()
-def init_llama_params(llm: LlamaModel, seed: int) -> None:
-    """Seeded random Llama weights drawn on the model's device, with the
-    flax initializers' scales: projection weights lecun_normal (normal of
-    std 1/sqrt(fan_in) truncated at 2 std, rescaled to that std), the
-    embedding and the LoRA A factors N(0, 0.02), the LoRA B factors 0 (so
-    the adapters start as the identity), norm scales 1."""
-    dev = llm.embed_tokens.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    for name, p in llm.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if p.ndim == 1:
-            p.fill_(1.0)
-        elif leaf in ("lora_b", "lora_embed_b"):
-            p.zero_()
-        else:
-            val = torch.empty(p.shape, dtype=torch.float32, device=dev)
-            if leaf in ("embed_tokens", "lora_a", "lora_embed_a"):
-                val.normal_(0.0, 0.02, generator=gen)
-            else:  # weight [out, in]
-                std = p.shape[1] ** -0.5 / 0.87962566103423978
-                torch.nn.init.trunc_normal_(val, 0.0, std, -2 * std, 2 * std, generator=gen)
-            p.copy_(val)
-
-
-@torch.no_grad()
 def init_params(module: torch.nn.Module, seed: int) -> None:
     """Seeded random weights: Linear weights U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    biases 0, norm affines (1, 0), embeddings and other tensors N(0, 1);
-    each Llama submodule by `init_llama_params` with a seed of its own."""
-    llms = [(name, m) for name, m in module.named_modules() if isinstance(m, LlamaModel)]
-    for i, (_, m) in enumerate(llms):
-        init_llama_params(m, seed + 1 + i)
-    skip = tuple(name + "." if name else "" for name, _ in llms)
+    biases 0, norm affines (1, 0), embeddings and other tensors N(0, 1). A
+    submodule with an `init_weights(seed)` method (the Llama) initialises
+    its own parameters, with a seed of its own."""
+    owners = [(name, m) for name, m in module.named_modules() if hasattr(m, "init_weights")]
+    for i, (_, m) in enumerate(owners):
+        m.init_weights(seed + 1 + i)
+    skip = tuple(name + "." if name else "" for name, _ in owners)
     gen = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
         if name.startswith(skip):

@@ -169,14 +169,16 @@ def test_flash_attn_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
 
 
 def test_flash_attn_skips_masked_keys(cuda):
-    """Non-finite values in pad rows of k and v do not reach a valid row:
-    masked keys are skipped, not weighted by p = 0."""
+    """Non-finite values in pad rows of q, k and v do not reach the output:
+    masked keys are skipped, not weighted by p = 0, and pad query rows are
+    not read."""
     q, k, v, mask = _flash_inputs(cuda, 3, 150, 8, 2, 128, seed=1)
     clean = causal_attention(q, k, v, mask, 0.1)
-    k2, v2 = k.clone(), v.clone()
+    q2, k2, v2 = q.clone(), k.clone(), v.clone()
+    q2[~mask] = float("nan")
     k2[~mask] = float("nan")
     v2[~mask] = float("inf")
-    assert torch.equal(causal_attention(q, k2, v2, mask, 0.1), clean)
+    assert torch.equal(causal_attention(q2, k2, v2, mask, 0.1), clean)
 
 
 def test_flash_attn_refuses_other_inputs(cuda):
