@@ -3,12 +3,13 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (`--kernels-only` stops after phase 3.) Three configurations of the closed
-loop are driven: the default (the policy's a2p/m2p stack as a layer loop),
-FUSED_STACK=True (the stack as one fused kernel per replan step), and the
-text-conditioned loop (configs/waymo_demo.yaml's goal, v_action_tag,
-drag_point and OneText conditions, the condition transformer at
-policy_decoder, the Llama text path at Llama3-8B width with random weights).
-Phases:
+loop are driven at full width: the default (the policy's a2p/m2p stack as a
+layer loop), FUSED_STACK=True (the stack as one fused kernel per replan
+step), and the text-conditioned loop (configs/waymo_demo.yaml's goal,
+v_action_tag, drag_point and OneText conditions, the condition transformer
+at policy_decoder, the Llama text path at Llama3-8B width with random bf16
+weights); a fourth, configs/waymo_demo.yaml as shipped (its f32 tiny()
+Llama), at B=2 in phase 5. Phases:
   1. device   - card name and power limit (nvidia-smi); TF32 and reduced-
                 precision bf16 reductions off.
   2. build    - nvcc builds every CUDA kernel of the path from prosim_torch/csrc.
@@ -19,10 +20,14 @@ Phases:
                 EDGE_TOL), the fused stack on the policy's real a2p/m2p
                 tables of the encoded batch with the fused model's random
                 weights (within FUSED_TOL), flash attention at the Llama's
-                shape on a holed tokenizer-layout mask (the 2x rule below,
-                pad rows exactly zero); times by CUDA events beside the
-                bound and a one-call PyTorch yardstick where one exists (for
-                the fused stack, the layer loop instead).
+                shape on a holed tokenizer-layout mask (bf16 by the 2x rule
+                below; f32 at tiny()'s shape within FLASH_F32_TOL; pad rows
+                exactly zero). Times: device ms per call (torch.profiler,
+                the call's device operations) beside the bound and a
+                one-call PyTorch yardstick where one exists (for the fused
+                stack, the layer loop instead); wall ms per call between
+                CUDA events (which at the small sites is the host's time to
+                launch the call) for the kernel and the yardstick.
   4. rollout  - the full-width closed loop of each configuration (lanes
                 2048, obs agents 160, agents 128, B=16, 8 replan steps):
                 finite, bounded, deterministic, every kernel launched the
@@ -41,7 +46,9 @@ Phases:
                 deviation from a plain path whose attention runs in f32 on
                 the same bf16 q/k/v is at most 2x the plain path's own
                 deviation with the attention in bf16, plus 1e-5; its
-                rollout deviation is logged.
+                rollout deviation is logged. The shipped demo configuration
+                (f32 Llama): launches per forward, its rollout within
+                PARITY_TOL_M of its plain path, and one profiled forward.
   6. replicas - parallel_rollout with M=4 on B=2 matches the B=2 rollout.
 Any failure raises and exits non-zero. The kernels JSON line comes just
 before the last line, which is the device JSON.
@@ -56,6 +63,7 @@ import time
 
 EDGE_TOL = 1e-4      # f32, unit-scale inputs; only the summation order differs
 BF16_RULE = (2.0, 1e-5)  # flash attention: err <= 2 * (plain in bf16's err) + 1e-5, both vs f32
+FLASH_F32_TOL = 1e-5  # flash attention in f32: only the order of the sums differs
 FUSED_TOL = 3e-4     # abs and rel; the bar tests/test_fused_stack.py holds the TPU kernel to
 PARITY_TOL_M = 1e-3  # metres, the bar the JAX package was held to
 B_FULL, LANES, OBS_AGENTS, AGENTS, REPLAN = 16, 2048, 160, 128, 8
@@ -67,10 +75,10 @@ TEXT_YAML = "configs/waymo_demo.yaml"
 TEXT_OPTS = ["MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.ARCH", "llama3_8b"]
 
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
-    ("flash_attn (ours)", ("flash_attn_kernel",)),
+    ("flash_attn (ours)", ("flash_attn_",)),
     ("fused_stack (ours)", ("fused_stack_kernel",)),
     ("edge_attn (ours)", ("edge_attn_kernel",)),
-    ("neighbor_topk (ours)", ("neighbor_topk_kernel",)),
+    ("neighbor_topk (ours)", ("neighbor_topk_",)),
     ("matmul", ("gemm", "sm90_xmma", "cutlass", "ampere_sgemm", "sgemm", "gemv", "nvjet")),
     ("gather/index", ("index", "gather", "scatter")),
     ("sort", ("sort", "radix")),
@@ -78,9 +86,9 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("copy/cat", ("copy", "cat", "Cat")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 ]
-KERNEL_NAMES = {"neighbor_topk": "neighbor_topk_kernel", "edge_attn_core": "edge_attn_kernel",
-                "fused_two_site_stack": "fused_stack_kernel",
-                "causal_attention": "flash_attn_kernel"}
+KERNEL_NAMES = {  # a substring of the names of each wrapper's CUDA kernels
+    "neighbor_topk": "neighbor_topk_", "edge_attn_core": "edge_attn_kernel",
+    "fused_two_site_stack": "fused_stack_kernel", "causal_attention": "flash_attn_"}
 
 
 def log(*a):
@@ -88,6 +96,8 @@ def log(*a):
 
 
 def cuda_ms(torch, fn, iters):
+    """Wall time per call between CUDA events: the device time, or the
+    host's time to launch the call where that is longer (small launches)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -98,6 +108,29 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters):
+    """Device time per call: the durations of the device operations (kernels,
+    memsets, copies) the calls enqueue, from torch.profiler, over `iters`
+    calls after a warm-up; the host's launch time is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the profiler recorded no device time")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+
+
+def times(torch, fn, iters):
+    """(device ms, wall ms) per call."""
+    return device_ms(torch, fn, iters), cuda_ms(torch, fn, iters)
 
 
 def kernel_fns():
@@ -174,8 +207,10 @@ def check_topk(torch, sites):
         S = sp.shape[1]
         K = idx.shape[-1]
         iters = 5 if S > 1024 else 20
-        ms = cuda_ms(torch, lambda: neighbor_topk(dp, sp, dm, sm, k, radius=r, exclude_self=ex), iters)
-        plain_ms = cuda_ms(torch, lambda: neighbor_topk_plain(dp, sp, dm, sm, k, radius=r, exclude_self=ex), iters)
+        ms, wall_ms = times(torch, lambda: neighbor_topk(dp, sp, dm, sm, k, radius=r, exclude_self=ex),
+                            iters)
+        plain_ms = device_ms(
+            torch, lambda: neighbor_topk_plain(dp, sp, dm, sm, k, radius=r, exclude_self=ex), iters)
         d2 = pairwise_d2(dp, sp)
         bad = ~(sm[:, None, :] & dm[:, :, None])
         if r is not None:
@@ -183,11 +218,13 @@ def check_topk(torch, sites):
         if ex:
             bad |= torch.eye(Q, S, dtype=torch.bool, device=d2.device)[None]
         d2 = torch.where(bad, torch.inf, d2)
-        lib_ms = cuda_ms(torch, lambda: torch.topk(d2, K, dim=-1, largest=False), iters)
-        rows.append(dict(site=name, B=B, Q=Q, S=S, K=K, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, max_abs_err=0.0, **topk_cost(B, Q, S, K)))
-        log(f"  neighbor_topk[{name}] B={B} Q={Q} S={S} K={K}: bit-equal; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms")
+        lib_ms, lib_wall_ms = times(torch, lambda: torch.topk(d2, K, dim=-1, largest=False), iters)
+        rows.append(dict(site=name, B=B, Q=Q, S=S, K=K, ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_wall_ms=lib_wall_ms, max_abs_err=0.0,
+                         **topk_cost(B, Q, S, K)))
+        log(f"  neighbor_topk[{name}] B={B} Q={Q} S={S} K={K}: bit-equal; device ms: kernel "
+            f"{ms:.4f}, plain {plain_ms:.4f}, torch.topk {lib_ms:.4f} ({lib_ms / ms:.2f}x the "
+            f"kernel); wall ms: kernel {wall_ms:.4f}, torch.topk {lib_wall_ms:.4f}")
     return rows, valids
 
 
@@ -216,22 +253,24 @@ def check_edge(torch, valids, H, D, scale):
         if any(float(o[empty].abs().max()) != 0.0 for o in out):
             raise AssertionError(f"edge_attn_core[{name}] rows without a valid edge are not zero")
         iters = 5 if B * Q * K > 2_000_000 else 20
-        ms = cuda_ms(torch, lambda: edge_attn_core(x_g, z_r, qx, qp, valid, scale), iters)
-        plain_ms = cuda_ms(torch, lambda: edge_attn_core_plain(x_g, z_r, qx, qp, valid, scale), iters)
+        ms, wall_ms = times(torch, lambda: edge_attn_core(x_g, z_r, qx, qp, valid, scale), iters)
+        plain_ms = device_ms(torch, lambda: edge_attn_core_plain(x_g, z_r, qx, qp, valid, scale),
+                             iters)
         # yardstick: one SDPA call on [qx|qp] against the shared [x_g|z_r]
         # rows of each destination (one key/value head for H query heads)
         q = torch.cat([qx, qp], -1).reshape(B * Q, H, 1, D + Dp)
         kv = torch.cat([x_g, z_r], -1).reshape(B * Q, 1, K, D + Dp)
         mask = valid.reshape(B * Q, 1, 1, K)
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
             q, kv, kv, attn_mask=mask, scale=scale, enable_gqa=True), iters)
         del q, kv
         n_valid = int(valid.sum())
         rows.append(dict(site=name, B=B, Q=Q, K=K, Dp=Dp, valid_edges=n_valid, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                         wall_ms=wall_ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
                          **edge_cost(n_valid, B, Q, K, H, D, Dp)))
         log(f"  edge_attn_core[{name}] B={B} Q={Q} K={K} Dp={Dp} valid={n_valid}: err {err:.2e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms")
+            f"device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, sdpa {lib_ms:.4f}; wall ms: kernel "
+            f"{wall_ms:.4f}")
     return rows
 
 
@@ -251,18 +290,22 @@ def edge_cost(n_valid, B, Q, K, H, D, Dp):
             "ops": n_valid * 4 * H * (D + Dp)}
 
 
-def flash_cost(token_mask, Hq, D, Hkv):
-    """Bytes the causal attention must move (in bf16, once each: every output
-    row, the q rows of valid tokens, the k and v rows of valid keys; and the
-    mask) and its operations: the q.k and p.v multiply-adds over the valid
-    (query, key) pairs at or below the diagonal, 4 Hq D per pair, at the bf16
-    tensor-core peak. A pad query row needs no input (its output is zero)
+def flash_cost(token_mask, Hq, D, Hkv, dtype):
+    """Bytes the causal attention must move (in the inputs' dtype, once each:
+    every output row, the q rows of valid tokens, the k and v rows of valid
+    keys; and the mask) and its operations: the q.k and p.v multiply-adds
+    over the valid (query, key) pairs at or below the diagonal, 4 Hq D per
+    pair, at the peak of the path's units (bf16: the tensor cores; f32: the
+    CUDA cores' FMA). A pad query row needs no input (its output is zero)
     and a masked key takes part in no pair."""
+    import torch
+
+    size, peak = (2, BF16_FLOPS) if dtype == torch.bfloat16 else (4, F32_FLOPS)
     B, T = token_mask.shape
     n = token_mask.sum(dim=1).long()  # valid tokens per scene
     pairs = int((n * (n + 1) // 2).sum())  # the i-th valid query sees i valid keys
-    return {"bytes": 2 * D * (B * T * Hq + int(n.sum()) * (Hq + 2 * Hkv)) + B * T,
-            "ops": 4 * Hq * D * pairs, "peak": BF16_FLOPS}
+    return {"bytes": size * D * (B * T * Hq + int(n.sum()) * (Hq + 2 * Hkv)) + B * T,
+            "ops": 4 * Hq * D * pairs, "peak": peak}
 
 
 def text_layout_mask(torch, B, text_len, block, seed):
@@ -279,47 +322,58 @@ def text_layout_mask(torch, B, text_len, block, seed):
     return torch.from_numpy(mask).cuda()
 
 
-def check_flash(torch, cfg_llm, B, text_len, block):
-    """B4 at the Llama's shape: bf16 q/k/v from a seed, the tokenizer's
-    holed mask. The kernel's max error against the plain version in f32 on
-    the same inputs must be at most 2x the plain version's own error in
-    bf16, plus 1e-5, on valid rows; pad rows exactly zero."""
+def check_flash(torch, cfg_llm, B, text_len, block, site):
+    """B4 at a Llama's shape and dtype: q/k/v from a seed, the tokenizer's
+    holed mask. bf16: the kernel's max error against the plain version in
+    f32 on the same inputs must be at most 2x the plain version's own error
+    in bf16, plus 1e-5, on valid rows. f32: within FLASH_F32_TOL of the f32
+    plain version on valid rows. Pad rows exactly zero."""
     import torch.nn.functional as F
     from prosim_torch.ops.flash_attn import causal_attention, causal_attention_plain
 
     T, Hq, Hkv, D = text_len + block, cfg_llm.num_heads, cfg_llm.num_kv_heads, cfg_llm.head_dim
+    dtype = cfg_llm.dtype
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device="cuda").to(torch.bfloat16)
+    rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device="cuda").to(dtype)
     q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
     mask = text_layout_mask(torch, B, text_len, block, seed=4)
     scale = 1.0 / D ** 0.5
     out = causal_attention(q, k, v, mask, scale)
     ref = causal_attention_plain(q.float(), k.float(), v.float(), mask, scale)
-    ref_bf16 = causal_attention_plain(q, k, v, mask, scale)
     torch.cuda.synchronize()
     err = float((out.float() - ref)[mask].abs().max())
-    err_bf16 = float((ref_bf16.float() - ref)[mask].abs().max())
-    bar = BF16_RULE[0] * err_bf16 + BF16_RULE[1]
+    extra = {}
+    if dtype == torch.bfloat16:
+        ref_bf16 = causal_attention_plain(q, k, v, mask, scale)
+        err_bf16 = float((ref_bf16.float() - ref)[mask].abs().max())
+        bar = BF16_RULE[0] * err_bf16 + BF16_RULE[1]
+        extra = {"plain_bf16_err": err_bf16}
+        note = f"plain in bf16 {err_bf16:.3e}"
+        del ref_bf16
+    else:
+        bar = FLASH_F32_TOL
+        note = f"bar {bar:.0e}"
     if not err <= bar:
-        raise AssertionError(f"causal_attention max abs err {err} > {bar} "
-                             f"(2x the plain version in bf16, {err_bf16}, + 1e-5)")
+        raise AssertionError(f"causal_attention[{site}] max abs err {err} > {bar} ({note})")
     if not bool(torch.isfinite(out).all()) or float(out[~mask].float().abs().max()) != 0.0:
-        raise AssertionError("causal_attention: pad rows are not exactly zero, or non-finite values")
-    del ref, ref_bf16
-    ms = cuda_ms(torch, lambda: causal_attention(q, k, v, mask, scale), 20)
-    plain_ms = cuda_ms(torch, lambda: causal_attention_plain(q, k, v, mask, scale), 5)
+        raise AssertionError(f"causal_attention[{site}]: pad rows are not exactly zero, or "
+                             "non-finite values")
+    del ref
+    ms, wall_ms = times(torch, lambda: causal_attention(q, k, v, mask, scale), 20)
+    plain_ms = device_ms(torch, lambda: causal_attention_plain(q, k, v, mask, scale), 5)
     # yardstick: one SDPA call, the same boolean mask, GQA
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     causal = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
     bmask = (causal[None] & mask[:, None, :])[:, None]
-    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+    lib_ms, lib_wall_ms = times(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=bmask, scale=scale, enable_gqa=True), 20)
-    row = dict(site="llama", B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, valid_tokens=int(mask.sum()),
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-               plain_bf16_err=err_bf16, **flash_cost(mask, Hq, D, Hkv))
-    log(f"  causal_attention[llama] B={B} T={T} Hq={Hq} Hkv={Hkv} D={D}: err {err:.3e} "
-        f"(plain in bf16 {err_bf16:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms")
+    row = dict(site=site, B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, dtype=str(dtype).split(".")[-1],
+               valid_tokens=int(mask.sum()), ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_wall_ms=lib_wall_ms, max_abs_err=err, **extra,
+               **flash_cost(mask, Hq, D, Hkv, dtype))
+    log(f"  causal_attention[{site}] B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} {row['dtype']}: err "
+        f"{err:.3e} ({note}); device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, sdpa {lib_ms:.4f} "
+        f"({lib_ms / ms:.2f}x the kernel); wall ms: kernel {wall_ms:.4f}, sdpa {lib_wall_ms:.4f}")
     return [row]
 
 
@@ -355,20 +409,20 @@ def check_fused(torch, model, batch):
                                  f"err {err}, {over} over {FUSED_TOL} + {FUSED_TOL} * |plain|")
         if not bool(torch.isfinite(out).all()):
             raise AssertionError("fused_two_site_stack gave non-finite values")
-        ms = cuda_ms(torch, lambda: fused_two_site_stack(x, ta, tm, wa, wm, **kw), 5)
-        plain_ms = cuda_ms(torch, lambda: fused_two_site_stack_plain(x, ta, tm, wa, wm, **kw), 3)
-        loop_ms = cuda_ms(torch, lambda: policy.layer_loop(x, scene, p.pos, p.ori, graphs), 5)
-        path_ms = cuda_ms(torch, lambda: fused_two_site_stack(
+        ms, wall_ms = times(torch, lambda: fused_two_site_stack(x, ta, tm, wa, wm, **kw), 5)
+        plain_ms = device_ms(torch, lambda: fused_two_site_stack_plain(x, ta, tm, wa, wm, **kw), 3)
+        loop_ms = device_ms(torch, lambda: policy.layer_loop(x, scene, p.pos, p.ori, graphs), 5)
+        path_ms = device_ms(torch, lambda: fused_two_site_stack(
             x, *policy.fused_tables(scene, p.pos, p.ori, graphs), wa, wm, **kw), 5)
         cost = fused_cost(x, (ta, tm), (wa, wm), **kw)
     B, N, _ = x.shape
     n_valid = [int(t[3].sum()) for t in (ta, tm)]
     row = dict(site="policy", B=B, N=N, Ka=ta[1].shape[-1], Km=tm[1].shape[-1],
-               valid_edges=n_valid, ms=ms, plain_ms=plain_ms, library_ms=None,
+               valid_edges=n_valid, ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, library_ms=None,
                layer_loop_ms=loop_ms, fused_path_ms=path_ms, max_abs_err=err, **cost)
     log(f"  fused_two_site_stack[policy] B={B} N={N} Ka={row['Ka']} Km={row['Km']} "
-        f"valid={n_valid}: err {err:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"tables + kernel {path_ms:.4f} ms, layer loop {loop_ms:.4f} ms")
+        f"valid={n_valid}: err {err:.2e}; device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
+        f"tables + kernel {path_ms:.4f}, layer loop {loop_ms:.4f}; wall ms: kernel {wall_ms:.4f}")
     return [row]
 
 
@@ -442,7 +496,9 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
 
     def flash(q, k, v, token_mask, scale):
         out = fns["causal_attention"](q, k, v, token_mask, scale)
-        calls["causal_attention"].append(("llama", (token_mask, q.shape[2], q.shape[3], k.shape[2])))
+        site = "llama" if q.dtype == torch.bfloat16 else "tiny_f32"
+        calls["causal_attention"].append(
+            (site, (token_mask, q.shape[2], q.shape[3], k.shape[2], q.dtype)))
         return out
 
     def fused(x_p, a2p_tables, m2p_tables, weights_a, weights_m, **kw):
@@ -615,6 +671,7 @@ def summarize(name, route, source, replaces, rows, launches, forward, extra=()):
         r.update({f"forward_{k}": v for k, v in f.items()})
     tot = lambda key: sum(r[key] for r in rows)
     lib = [r["library_ms"] for r in rows]
+    lib_wall = [r.get("library_wall_ms") for r in rows]
     return {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches,
@@ -623,6 +680,7 @@ def summarize(name, route, source, replaces, rows, launches, forward, extra=()):
         "bound_by": ("bytes" if sum(_bound_s(r)[0] for r in rows) >= sum(_bound_s(r)[1] for r in rows)
                      else "operations"),
         "library_ms": None if None in lib else sum(lib),
+        "wall_ms": tot("wall_ms"), "library_wall_ms": None if None in lib_wall else sum(lib_wall),
         **{key: tot(key) for key in extra},
         "forward_ms": tot("forward_ms"), "forward_bound_ms": tot("forward_bound_ms"),
         "sites": rows,
@@ -695,7 +753,11 @@ def main(argv):
     del valids
     llm_cfg = LlamaConfig.llama3_8b(lora_rank=ct_cfg.TEXT_ATTN.LORA.R)  # TEXT_OPTS' ARCH
     text_len = ct_cfg.CONDITION_ENCODER.TEXT.LLM.MAX_TEXT_TOKENS
-    flash_rows = check_flash(torch, llm_cfg, B_FULL, text_len, AGENTS)
+    flash_rows = check_flash(torch, llm_cfg, B_FULL, text_len, AGENTS, "llama")
+    # the f32 instantiation at tiny()'s shape, what the shipped demo configuration runs
+    llm_tiny = LlamaConfig.tiny(
+        lora_rank=ct_cfg.TEXT_ATTN.LORA.R if ct_cfg.TEXT_ATTN.LORA.ENABLE else 0)
+    flash_rows_f32 = check_flash(torch, llm_tiny, B_FULL, text_len, AGENTS, "tiny_f32")
     torch.cuda.empty_cache()
     model_f = ProSim(cfg_fused, device="cuda")
     init_params(model_f, seed=0)
@@ -743,8 +805,8 @@ def main(argv):
                                  num_replan=REPLAN, seed=1, device="cuda")
     m2 = small.prompt.mask
 
-    def traj_err(a, b, what):
-        diff = (a["rollout_traj"] - b["rollout_traj"])[m2][..., :2].abs()
+    def traj_err(a, b, what, mask=m2):
+        diff = (a["rollout_traj"] - b["rollout_traj"])[mask][..., :2].abs()
         err_m = float(diff.max())
         per_step = diff.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)
         log(f"parity: B=2 rollout {what} max |dxy| {err_m:.3e} m (mean {float(diff.mean()):.3e}); "
@@ -770,6 +832,36 @@ def main(argv):
         cfg_text, batch_size=2, seed=1, device="cuda", **shape), plain, causal_attention_plain)
     del model_t
     torch.cuda.empty_cache()
+    # configs/waymo_demo.yaml as shipped: TEXT.LLM.ARCH auto without weights
+    # resolves to the f32 tiny() Llama, whose attention is B4's f32 path
+    cfg_demo = get_config(os.path.join(root, TEXT_YAML))
+    model_d = ProSim(cfg_demo, device="cuda")
+    init_params(model_d, seed=0)
+    if model_d.condition_transformer_policy_decoder.text_attn.llm.cfg != llm_tiny:
+        raise AssertionError("the shipped demo configuration did not resolve to the f32 tiny() Llama")
+    small_d = make_synthetic_batch(cfg_demo, batch_size=2, seed=1, device="cuda", **shape)
+    model_d(small_d)
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    out_d = model_d(small_d)
+    torch.cuda.synchronize()
+    launches_d = launch_counts()
+    want_d = dict(want_t, causal_attention=llm_tiny.num_layers)
+    log(f"demo (shipped, f32 Llama): launches per B=2 forward {launches_d} (expected {want_d})")
+    if launches_d != want_d:
+        raise AssertionError(f"demo: kernel launches {launches_d} != {want_d}")
+    if not bool(torch.isfinite(out_d["rollout_traj"][small_d.prompt.mask]).all()):
+        raise AssertionError("demo: rollout_traj has non-finite values")
+    before = launch_counts()
+    with kernel_calls(*plain, causal_attention_plain):
+        out_dp = model_d(small_d)
+    if launch_counts() != before:
+        raise AssertionError("demo: the plain path launched a kernel")
+    parity["demo"] = traj_err(out_d, out_dp, "[demo, f32 Llama] kernel path vs plain path",
+                              mask=small_d.prompt.mask)
+    per_site_d, prof_d = profile_forward(torch, model_d, small_d, topk_rows, edge_rows)
+    log_profile("demo B=2", per_site_d, prof_d)
+    del model_d
 
     # 6. M-replica rollout
     M = 4
@@ -783,7 +875,8 @@ def main(argv):
 
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
-    by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t}
+    by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
+               "demo (B=2)": launches_d}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
                   "prosim_tpu/ops/pallas_topk.py:95", topk_rows,
@@ -798,9 +891,18 @@ def main(argv):
         summarize("causal_attention", "cuda", "prosim_torch/csrc/flash_attn.cu",
                   "prosim_tpu/models/llm/llama.py:134", flash_rows,
                   launches_t["causal_attention"], per_site_t["causal_attention"]),
+        # B4's f32 instantiation, read from the shipped demo configuration
+        summarize("causal_attention_f32", "cuda", "prosim_torch/csrc/flash_attn.cu",
+                  "prosim_tpu/models/llm/llama.py:134", flash_rows_f32,
+                  launches_d["causal_attention"], per_site_d["causal_attention"]),
     ]
+    # B4's one launch count covers both instantiations: bf16 in the text
+    # configuration, f32 in the shipped demo one
+    paths = {"causal_attention": ("layer loop", "fused", "text"),
+             "causal_attention_f32": ("demo (B=2)",)}
     for k in kernels:
-        k["launches_per_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
+        wrapper = k["name"].removesuffix("_f32")
+        k["launches_per_path"] = {p: by_path[p][wrapper] for p in paths.get(k["name"], by_path)}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": smi,
@@ -809,7 +911,8 @@ def main(argv):
                                "fused": {"scenes_per_s": B_FULL / times_f[1], "forward_s": times_f,
                                          "profile": prof_f, "per_site": per_site_f},
                                "text": {"scenes_per_s": B_FULL / times_t[1], "forward_s": times_t,
-                                        "profile": prof_t, "per_site": per_site_t}},
+                                        "profile": prof_t, "per_site": per_site_t},
+                               "demo (B=2)": {"profile": prof_d, "per_site": per_site_d}},
                    "parity_m": parity, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,8 @@ every product multiplies f32 activations by weights rounded to cfg.dtype
     cfg.dtype; products accumulate in f32 and come back as f32;
   - residual, norms, RoPE angles and softmax statistics stay f32.
 At `tiny()` (cfg.dtype float32) this is the JAX CPU computation. On the
-card the attention is csrc/flash_attn.cu (ops/flash_attn.py), which takes
-bf16 only, so a CUDA model runs at cfg.dtype bfloat16.
+card the attention is csrc/flash_attn.cu (ops/flash_attn.py) in cfg.dtype:
+its bf16 instantiation at the Llama3-8B widths, its f32 one at `tiny()`.
 
 Left for later (ROADMAP.md queue A8): `load_hf_llama_params` (needs
 weight files and safetensors) and the LM head (`return_logits`, used only

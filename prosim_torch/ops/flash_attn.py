@@ -9,8 +9,11 @@ over the keys s <= t with token_mask[s], g = h // (Hq / Hkv) (grouped-query
 attention: consecutive query heads share a key/value head, jnp.repeat's
 order).
 
-On a CUDA tensor `causal_attention` launches csrc/flash_attn.cu (bf16 in and
-out, f32 accumulation and softmax statistics). The kernel writes zeros on
+On a CUDA tensor `causal_attention` launches csrc/flash_attn.cu: bf16 q/k/v
+(tensor-core products, f32 accumulation and softmax statistics; the
+Llama3-8B text path) or f32 q/k/v (products by FMA on the CUDA cores, the
+f32 `LlamaConfig.tiny()` that configs/waymo_demo.yaml resolves to without
+weights), out in the inputs' dtype. The kernel writes zeros on
 pad query rows (token_mask False) and on rows with no valid key; the dense
 path gives those rows a mean over whatever keys the -1e30 fill leaves. No
 reader of the Llama's hidden states looks at a pad row (LlamaTextAttn reads
@@ -30,10 +33,14 @@ from prosim_torch.ops import _build
 from prosim_torch.ops.neighbors import _check
 
 
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}  # the kernel's instantiations
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("flash_attn").flash_attn_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,8 +63,8 @@ def causal_attention_plain(q, k, v, token_mask, scale: float):
 
 def causal_attention(q, k, v, token_mask, scale: float):
     """q [B,T,Hq,D], k/v [B,T,Hkv,D], token_mask [B,T] bool -> [B,T,Hq,D].
-    On the card: bf16 q/k/v, Hq a multiple of Hkv, D a multiple of 16 up to
-    128, any T."""
+    On the card: bf16 or f32 q/k/v (never cast), Hq a multiple of Hkv, D a
+    multiple of 16 up to 128, any T."""
     if q.device.type == "cpu":
         return causal_attention_plain(q, k, v, token_mask, scale)
     if q.device.type != "cuda":
@@ -65,14 +72,12 @@ def causal_attention(q, k, v, token_mask, scale: float):
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"causal_attention on the card takes bf16 q/k/v, got {q.dtype}; other "
-                        "dtypes are not ported (ROADMAP.md B4, 'Left: f32 inputs'); on the card "
-                        "use a bf16 Llama, e.g. TEXT.LLM.ARCH llama3_8b")
-    bf16 = torch.bfloat16
-    _check("q", q, bf16, (B, T, Hq, D), dev)
-    _check("k", k, bf16, (B, T, Hkv, D), dev)
-    _check("v", v, bf16, (B, T, Hkv, D), dev)
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"causal_attention on the card takes bf16 or f32 q/k/v, got {dtype}")
+    _check("q", q, dtype, (B, T, Hq, D), dev)
+    _check("k", k, dtype, (B, T, Hkv, D), dev)
+    _check("v", v, dtype, (B, T, Hkv, D), dev)
     _check("token_mask", token_mask, torch.bool, (B, T), dev)
     if Hkv < 1 or Hq % Hkv or D % 16 or not 16 <= D <= 128:
         raise ValueError(f"flash_attn kernel takes Hq a multiple of Hkv and D a multiple of 16 "
@@ -82,7 +87,8 @@ def causal_attention(q, k, v, token_mask, scale: float):
     out = torch.empty_like(q)
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), token_mask.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, D, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        B, T, Hq, Hkv, D, float(scale), _DTYPE_CODE[dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error {err}")
     causal_attention.launches += 1

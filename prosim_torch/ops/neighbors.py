@@ -6,9 +6,10 @@ as `[B, Q, eff_k]` int32 indices plus a validity mask, eff_k = min(k, S):
 masked squared distances, optional radius cut, optional self exclusion,
 ties to the lower source index. On a CUDA tensor it launches
 csrc/neighbor_topk.cu (which replaces the TPU kernel
-prosim_tpu/ops/pallas_topk.py:neighbor_topk_pallas); on a CPU tensor it
-runs `neighbor_topk_plain`, which defines the semantics. The two agree bit
-for bit.
+prosim_tpu/ops/pallas_topk.py:neighbor_topk_pallas; warp selection for
+eff_k <= 128, radix select and a sort of next_pow2(eff_k) keys above); on a
+CPU tensor it runs `neighbor_topk_plain`, which defines the semantics. The
+two agree bit for bit.
 """
 
 import ctypes
@@ -108,7 +109,8 @@ def neighbor_topk(dst_pos, src_pos, dst_mask, src_mask, k: int, radius=None,
     if exclude_self and Q > S:
         raise ValueError("exclude_self needs Q <= S")
     if S > (1 << 14):
-        raise ValueError(f"neighbor_topk kernel sorts rows of at most 16384 sources, got {S}")
+        raise ValueError("neighbor_topk kernel stages rows of at most 16384 sources in shared "
+                         f"memory, got {S}")
     eff_k = min(k, S)
     idx = torch.empty((B, Q, eff_k), dtype=torch.int32, device=dev)
     valid = torch.empty((B, Q, eff_k), dtype=torch.bool, device=dev)

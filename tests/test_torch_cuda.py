@@ -8,10 +8,15 @@ Tolerances: top-K bit-equal; the edge core 1e-5 in f32 (the kernel sums in
 another order than the plain einsum); the fused stack 3e-4, the bar the JAX
 package holds its fused kernel to (the kernel folds the k|v projections onto
 the queries where the plain version projects every edge, through 2L layers);
-flash attention (bf16 in and out) by the flash-attention rule: its max error
-against the plain version in f32 on the same bf16 inputs is at most twice
-the plain version's own error in bf16, plus 1e-5, on valid rows.
+flash attention in bf16 by the flash-attention rule: its max error against
+the plain version in f32 on the same bf16 inputs is at most twice the plain
+version's own error in bf16, plus 1e-5, on valid rows; in f32 within 1e-5
+of the f32 plain version on valid rows (the order of the sums is the only
+difference); pad rows exactly zero in both.
 """
+
+from pathlib import Path
+
 
 import numpy as np
 import pytest
@@ -30,6 +35,8 @@ from prosim_torch.utils.params import init_params
 
 pytestmark = pytest.mark.gpu
 
+ROOT = Path(__file__).resolve().parent.parent
+
 TOPK_CASES = {  # name: (Q, S, k, radius, exclude_self, grid step of positions or 0)
     "random": (24, 40, 8, None, False, 0),
     "radius": (24, 40, 12, 25.0, False, 0),
@@ -37,6 +44,25 @@ TOPK_CASES = {  # name: (Q, S, k, radius, exclude_self, grid step of positions o
     "k_exceeds_sources": (24, 40, 64, None, False, 0),
     "duplicated_positions": (24, 40, 16, 30.0, False, 20),
     "wide_row": (128, 2208, 512, 300.0, False, 0),
+    # the six graph sites of the demo configuration (chip_smoke.py site_inputs)
+    "site_a2a": (160, 160, 100, None, False, 0),
+    "site_s2s": (2208, 2208, 32, None, False, 0),
+    "site_p2p": (128, 128, 512, 300.0, True, 0),
+    "site_s2p": (128, 2208, 512, 300.0, False, 0),
+    "site_a2p": (128, 160, 768, 100.0, False, 0),
+    "site_m2p": (128, 2048, 768, 50.0, False, 0),
+    # the boundaries of the kernel's regimes (warp lists of 32/64/128/256
+    # keys; radix select above 128), S not a power of two, ties
+    "k1": (40, 300, 1, None, False, 0),
+    "k32": (40, 1000, 32, 60.0, False, 0),
+    "k33": (40, 1000, 33, None, False, 20),
+    "k128": (40, 777, 128, 80.0, False, 0),
+    "k129": (40, 777, 129, None, False, 20),
+    "k_eq_s_warp": (40, 200, 200, 60.0, False, 20),
+    "k_eq_s_radix": (40, 300, 300, None, False, 0),
+    "k_near_s_radix": (30, 1500, 1499, 40.0, False, 20),
+    "empty_scene_warp": (40, 500, 16, None, False, 0),
+    "empty_scene_radix": (40, 500, 200, None, False, 0),
 }
 
 
@@ -51,7 +77,8 @@ def cuda():
 def test_topk_kernel_matches_plain(cuda, case):
     Q, S, k, r, ex, step = TOPK_CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
-    pos = lambda n: (rng.normal(size=(2, n, 2)) * 30).astype(np.float32)
+    spread = 30 if S <= 40 else 60
+    pos = lambda n: (rng.normal(size=(2, n, 2)) * spread).astype(np.float32)
     dst, src = pos(Q), pos(S)
     if ex:
         dst = src
@@ -62,6 +89,9 @@ def test_topk_kernel_matches_plain(cuda, case):
     if ex:
         dm = sm
     dm[0, :3] = False
+    sm[1, : S // 3] = False  # scene 1: some rows find no valid source within the radius
+    if case.startswith("empty_scene"):
+        sm[1] = False  # no valid source at all
     args = [torch.from_numpy(a).to(cuda) for a in (dst, src, dm, sm)]
     before = neighbor_topk.launches
     ki, kv = neighbor_topk(*args, k, radius=r, exclude_self=ex)
@@ -131,11 +161,12 @@ def test_edge_kernel_gnn_site(cuda):
     assert bool(empty.any()) and all(float(o[empty].abs().max()) == 0.0 for o in got)
 
 
-def _flash_inputs(cuda, B, T, Hq, Hkv, D, seed):
-    """bf16 q/k/v and the tokenizer's holed mask: text of a random length,
-    pad, a block of slots about half on; scene 0 has no valid token."""
+def _flash_inputs(cuda, B, T, Hq, Hkv, D, seed, dtype=torch.bfloat16):
+    """q/k/v (bf16 rounded from f32 draws, or the f32 draws) and the
+    tokenizer's holed mask: text of a random length, pad, a block of slots
+    about half on; scene 0 has no valid token."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device=cuda).to(torch.bfloat16)
+    rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device=cuda).to(dtype)
     q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
     block = min(T // 3, 40)
     mask = torch.zeros((B, T), dtype=torch.bool, device=cuda)
@@ -146,9 +177,16 @@ def _flash_inputs(cuda, B, T, Hq, Hkv, D, seed):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("B,T,Hq,Hkv,D", [
-    (3, 100, 8, 2, 64), (3, 200, 8, 2, 128), (2, 64, 4, 1, 128), (2, 77, 4, 4, 32), (2, 390, 32, 8, 128),
-])
+# (B, T, Hq, Hkv, D): Hq/Hkv of 1, 2, 4 and 8; T off the 64-key tile and the
+# 16-128-row query tiles; D 16 (tiny()), 32, 64, 128 (Llama3-8B)
+FLASH_CASES = [
+    (3, 100, 8, 2, 64), (3, 200, 8, 2, 128), (2, 64, 4, 1, 128), (2, 77, 4, 4, 32),
+    (2, 390, 32, 8, 128), (2, 150, 8, 1, 16), (2, 333, 8, 4, 64), (3, 384, 4, 2, 16),
+    (2, 129, 8, 8, 128), (2, 500, 16, 2, 128), (2, 45, 2, 2, 16),
+]
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", FLASH_CASES)
 def test_flash_attn_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
     q, k, v, mask = _flash_inputs(cuda, B, T, Hq, Hkv, D, seed=T + D)
     scale = D ** -0.5
@@ -168,11 +206,29 @@ def test_flash_attn_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
     assert float(got[~mask].float().abs().max()) == 0.0  # pad rows (and scene 0) are zeros
 
 
-def test_flash_attn_skips_masked_keys(cuda):
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", FLASH_CASES)
+def test_flash_attn_f32_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsums in full f32
+    q, k, v, mask = _flash_inputs(cuda, B, T, Hq, Hkv, D, seed=T + D + 1, dtype=torch.float32)
+    scale = D ** -0.5
+    before = causal_attention.launches
+    got = causal_attention(q, k, v, mask, scale)
+    again = causal_attention(q, k, v, mask, scale)
+    ref = causal_attention_plain(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert causal_attention.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, again)
+    assert float((got - ref)[mask].abs().max()) <= 1e-5
+    assert float(got[~mask].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_skips_masked_keys(cuda, dtype):
     """Non-finite values in pad rows of q, k and v do not reach the output:
     masked keys are skipped, not weighted by p = 0, and pad query rows are
     not read."""
-    q, k, v, mask = _flash_inputs(cuda, 3, 150, 8, 2, 128, seed=1)
+    q, k, v, mask = _flash_inputs(cuda, 3, 150, 8, 2, 128, seed=1, dtype=dtype)
     clean = causal_attention(q, k, v, mask, 0.1)
     q2, k2, v2 = q.clone(), k.clone(), v.clone()
     q2[~mask] = float("nan")
@@ -184,8 +240,11 @@ def test_flash_attn_skips_masked_keys(cuda):
 def test_flash_attn_refuses_other_inputs(cuda):
     q, k, v, mask = _flash_inputs(cuda, 2, 40, 4, 2, 64, seed=2)
     before = causal_attention.launches
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        causal_attention(q.float(), k.float(), v.float(), mask, 0.125)
+    for dtype in (torch.float16, torch.float64):  # never cast
+        with pytest.raises(TypeError):
+            causal_attention(q.to(dtype), k.to(dtype), v.to(dtype), mask, 0.125)
+    with pytest.raises(TypeError):  # mixed dtypes
+        causal_attention(q, k.float(), v.float(), mask, 0.125)
     with pytest.raises(ValueError):  # Hq not a multiple of Hkv
         causal_attention(q[:, :, :3].contiguous(), k, v, mask, 0.125)
     with pytest.raises(ValueError):  # non-contiguous
@@ -193,6 +252,37 @@ def test_flash_attn_refuses_other_inputs(cuda):
     with pytest.raises(ValueError):  # the mask on the CPU
         causal_attention(q, k, v, mask.cpu(), 0.125)
     assert causal_attention.launches == before
+
+
+def test_demo_config_runs_its_f32_llama_through_the_kernel(cuda, monkeypatch):
+    """configs/waymo_demo.yaml as shipped (TEXT.LLM.ARCH auto, no weights)
+    builds the f32 tiny() Llama; on the card its attention is the f32
+    kernel, two launches per forward (one per layer), and the rollout
+    matches the same model with the plain attention within 1e-3 m."""
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.llm import llama
+    from prosim_torch.models.prosim import ProSim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(str(ROOT / "configs" / "waymo_demo.yaml"))
+    model = ProSim(cfg, device="cuda")
+    init_params(model, seed=0)
+    llm_cfg = model.condition_transformer_policy_decoder.text_attn.llm.cfg
+    assert llm_cfg.dtype == torch.float32 and llm_cfg.head_dim == 16
+    batch = make_synthetic_batch(cfg, batch_size=2, num_lanes=64, num_obs_agents=24,
+                                 num_agents=16, num_replan=2, seed=1, device="cuda")
+    before = causal_attention.launches
+    with torch.no_grad():
+        out = model(batch)
+        torch.cuda.synchronize()
+        assert causal_attention.launches == before + llm_cfg.num_layers == before + 2
+        monkeypatch.setattr(llama, "causal_attention", causal_attention_plain)
+        ref = model(batch)
+    m = batch.prompt.mask
+    traj, traj_ref = out["rollout_traj"][m], ref["rollout_traj"][m]
+    assert bool(torch.isfinite(traj).all())
+    assert float((traj - traj_ref)[..., :2].abs().max()) <= 1e-3
 
 
 FUSED_CASES = {  # name: (B, N, D, H, head_dim, L, Sa, Ka, Sm, Km)

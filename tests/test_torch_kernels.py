@@ -87,6 +87,38 @@ def test_topk_plain_matches_pallas_interpret(case):
                                   np.where(pv, pi[..., :eff_k], -1))
 
 
+# the six graph sites of the demo configuration: (Q, S, k, radius, exclude_self),
+# as chip_smoke.py builds them (scene encoder a2a/s2s, decoder p2p/s2p,
+# policy a2p/m2p) at the demo padding
+DEMO_SITES = {
+    "a2a": (160, 160, 100, None, False),
+    "s2s": (2208, 2208, 32, None, False),
+    "p2p": (128, 128, 512, 300.0, True),
+    "s2p": (128, 2208, 512, 300.0, False),
+    "a2p": (128, 160, 768, 100.0, False),
+    "m2p": (128, 2048, 768, 50.0, False),
+}
+
+
+@pytest.mark.parametrize("site", sorted(DEMO_SITES))
+def test_topk_plain_matches_jax_at_demo_sites(site):
+    """Bit-equal at the demo sites' full shapes (B=1), positions spread over
+    the demo scenes' ~100 m, a fifth of the tokens masked."""
+    Q, S, k, r, ex = DEMO_SITES[site]
+    rng = np.random.default_rng(sum(map(ord, site)))
+    src = (rng.normal(size=(1, S, 2)) * 60).astype(np.float32)
+    sm = rng.random((1, S)) > 0.2
+    dst, dm = (src[:, :Q], sm[:, :Q]) if ex else (
+        (rng.normal(size=(1, Q, 2)) * 60).astype(np.float32), rng.random((1, Q)) > 0.2)
+    ji, jv = _host(jax_neighbor_topk(*map(jnp.asarray, (dst, src, dm, sm)), k=k, radius=r,
+                                     exclude_self=ex))
+    ti, tv = neighbor_topk_plain(*map(torch.from_numpy, (dst, src, dm, sm)), k, radius=r,
+                                 exclude_self=ex)
+    assert ti.shape == (1, Q, min(k, S))
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+
+
 def test_pairwise_d2_bits_match_jax():
     """d2 as XLA:CPU rounds it inside the jitted neighbor_topk (the fused
     square-and-sum contracts to fma(dy, dy, dx * dx))."""

@@ -7,6 +7,8 @@ are carried into torch by prosim_torch.utils.params. Tolerance 1e-5: f32
 sums taken in another order.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from prosim_torch.models.llm import llama as tllama
 from prosim_torch.models.llm import tokenizer as ttok
 from prosim_torch.utils.params import load_flax_params
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-5, rtol=1e-5)
 MODES = ["none", "add", "concat", "concat_repeat", "concat_sep", "concat_semantic"]
 
@@ -76,6 +79,48 @@ def test_causal_attention_plain_matches_jax(Hq, Hkv, D, T):
         jnp.asarray(mask), jllama.LlamaConfig.tiny(), False))
     got = causal_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)), 1.0 / D ** 0.5)
     np.testing.assert_allclose(got.numpy()[mask], ref[mask], **TOL)
+
+
+def test_causal_attention_plain_matches_jax_at_tiny_shape():
+    """f32 at tiny()'s shape (head_dim 16, Hq 4, Hkv 2) and the demo's text
+    layout (256 text slots + the 128-slot prompt block, T 384) with the
+    tokenizer's holed mask: every row, pad rows included, within 1e-6."""
+    from prosim_torch.ops.flash_attn import causal_attention_plain
+
+    cfg = jllama.LlamaConfig.tiny()
+    B, T, Hq, Hkv, D = 2, 384, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(384)
+    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, T, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, Hkv, D)).astype(np.float32)
+    mask = _holed_mask(rng, B, T, 256, 128)
+    rep = Hq // Hkv
+    ref = _host(jllama._causal_attention(
+        jnp.asarray(q), jnp.repeat(jnp.asarray(k), rep, axis=2), jnp.repeat(jnp.asarray(v), rep, axis=2),
+        jnp.asarray(mask), cfg, False))
+    got = causal_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, mask)), 1.0 / D ** 0.5)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=0)
+
+
+def test_demo_config_resolves_to_the_f32_tiny_llama():
+    """configs/waymo_demo.yaml as shipped (TEXT.LLM.ARCH auto, no weights)
+    gives both packages the f32 tiny() Llama with head_dim 16: on the card
+    its attention is B4's f32 instantiation."""
+    from prosim_tpu.config import get_config as jax_get_config
+    from prosim_tpu.models.condition.transformer import _resolve_llm_config as jax_resolve
+    from prosim_torch.config import get_config
+    from prosim_torch.models.condition.transformer import build_condition_transformer
+
+    path = os.path.join(REPO, "configs", "waymo_demo.yaml")
+    ct = jax_get_config(path).MODEL.CONDITION_TRANSFORMER
+    llm = ct.CONDITION_ENCODER.TEXT.LLM
+    jcfg = jax_resolve(llm.ARCH, llm.WEIGHTS_PATH, ct.TEXT_ATTN.LORA.R if ct.TEXT_ATTN.LORA.ENABLE else 0)
+    tcfg = build_condition_transformer(get_config(path)).text_attn.llm.cfg
+    assert jcfg.dtype == jnp.float32 and tcfg.dtype == torch.float32
+    assert jcfg.head_dim == tcfg.head_dim == 16
+    assert (jcfg.num_heads, jcfg.num_kv_heads, jcfg.num_layers, jcfg.lora_rank) == (
+        tcfg.num_heads, tcfg.num_kv_heads, tcfg.num_layers, tcfg.lora_rank)
 
 
 # --------------------------------------------------------------- decoder
