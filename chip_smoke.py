@@ -14,10 +14,12 @@ Llama), at B=2 in phase 5. Phases:
                 precision bf16 reductions off.
   2. build    - nvcc builds every CUDA kernel of the path from prosim_torch/csrc.
   3. kernels  - each kernel against its plain PyTorch version at the shapes
-                of the rollout (demo padding, B=16): top-K and the edge core
-                at the six graph/attention sites and the edge core at the
-                condition GNN's site (top-K bit-equal, edge core within
-                EDGE_TOL), the fused stack on the policy's real a2p/m2p
+                of the rollout (demo padding, B=16): top-K at the six graph
+                sites (bit-equal), the edge core on their real graphs (the
+                top-K's idx and valid) and at the condition GNN's site
+                (within EDGE_TOL, empty rows zero, two launches bitwise
+                equal; beside it the earlier design over a gathered table,
+                csrc/edge_attn_table.cu, and its gather), the fused stack on the policy's real a2p/m2p
                 tables of the encoded batch with the fused model's random
                 weights (within FUSED_TOL), flash attention at the Llama's
                 shape on a holed tokenizer-layout mask (bf16 by the 2x rule
@@ -55,6 +57,7 @@ before the last line, which is the device JSON.
 """
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -113,19 +116,23 @@ def cuda_ms(torch, fn, iters):
 def device_ms(torch, fn, iters):
     """Device time per call: the durations of the device operations (kernels,
     memsets, copies) the calls enqueue, from torch.profiler, over `iters`
-    calls after a warm-up; the host's launch time is not in it."""
+    calls after a warm-up; the host's launch time is not in it. A trace
+    with no device event (the profiler has returned one, once) is taken
+    again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("the profiler recorded no device time")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+        log("device_ms: the profiler recorded no device time; profiling again")
+    raise RuntimeError("the profiler recorded no device time in three traces")
 
 
 def times(torch, fn, iters):
@@ -193,7 +200,7 @@ def site_inputs(torch, cfg, batch):
 def check_topk(torch, sites):
     from prosim_torch.ops.neighbors import neighbor_topk, neighbor_topk_plain, pairwise_d2
 
-    rows, valids = [], {}
+    rows, graphs = [], {}
     for name, (dp, sp, dm, sm, k, r, ex) in sites.items():
         idx, val = neighbor_topk(dp, sp, dm, sm, k, radius=r, exclude_self=ex)
         idx_p, val_p = neighbor_topk_plain(dp, sp, dm, sm, k, radius=r, exclude_self=ex)
@@ -202,7 +209,7 @@ def check_topk(torch, sites):
             bad = (idx != idx_p) | (val != val_p)
             raise AssertionError(f"neighbor_topk[{name}] differs from its plain version "
                                  f"in {int(bad.sum())} of {bad.numel()} slots")
-        valids[name] = val
+        graphs[name] = (idx, val)
         B, Q = dp.shape[:2]
         S = sp.shape[1]
         K = idx.shape[-1]
@@ -225,26 +232,69 @@ def check_topk(torch, sites):
         log(f"  neighbor_topk[{name}] B={B} Q={Q} S={S} K={K}: bit-equal; device ms: kernel "
             f"{ms:.4f}, plain {plain_ms:.4f}, torch.topk {lib_ms:.4f} ({lib_ms / ms:.2f}x the "
             f"kernel); wall ms: kernel {wall_ms:.4f}, torch.topk {lib_wall_ms:.4f}")
-    return rows, valids
+    return rows, graphs
 
 
-def check_edge(torch, valids, H, D, scale):
-    """valids: {site: (edge_valid [B,Q,K], D_pe)}."""
+@functools.cache
+def _table_launcher():
+    """The edge core's earlier design over a materialised table x_g
+    (csrc/edge_attn_table.cu), the baseline phase 3 times beside the kernel."""
+    import ctypes
+    from prosim_torch.ops import _build
+
+    fn = _build.load("edge_attn_table").edge_attn_table_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def edge_attn_table(torch, x_g, z_r, qx, qp, edge_valid, scale):
+    B, Q, K, D = x_g.shape
+    H, Dp = qx.shape[2], z_r.shape[-1]
+    out = (torch.empty((B, Q, H, D), device="cuda"), torch.empty((B, Q, H, Dp), device="cuda"),
+           torch.empty((B, Q, H), device="cuda"))
+    err = _table_launcher()(
+        x_g.data_ptr(), z_r.data_ptr(), qx.data_ptr(), qp.data_ptr(), edge_valid.data_ptr(),
+        *(o.data_ptr() for o in out), B * Q, K, H, D, Dp, float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"edge_attn_table launch failed: CUDA error {err}")
+    return out
+
+
+def check_edge(torch, graphs, H, D, scale):
+    """graphs: {site: (idx [B,Q,K] int32, edge_valid [B,Q,K], S, D_pe)}, the
+    sites' real graphs. The source rows x_src_n [B,S,D] are normalized
+    random rows, z_r and the queries random; row 0 of every scene gets no
+    valid edge. Beside the kernel: the earlier design (gather_src_features,
+    then its kernel over the table, both timed) and the SDPA yardstick on
+    the materialised [x_g | z_r] (with the time of the gather it needs)."""
     import torch.nn.functional as F
+    from prosim_torch.ops import _build
+    from prosim_torch.ops.attention import _norm_stats, gather_src_features
     from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
+    from prosim_torch.ops.neighbors import gather_neighbors
 
+    lib = _build.load("edge_attn")
+    for Dp in sorted({g[3] for g in graphs.values()}):
+        log(f"  edge_attn_core at D={D} Dp={Dp}: {lib.edge_attn_smem_bytes(D, Dp)} bytes of "
+            f"dynamic shared memory a block; blocks of 4 warps per SM: short rows "
+            f"{lib.edge_attn_blocks_per_sm(0, D, Dp)}, long rows {lib.edge_attn_blocks_per_sm(1, D, Dp)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, (valid, Dp) in valids.items():
+    for name, (idx, valid, S, Dp) in graphs.items():
         B, Q, K = valid.shape
         valid = valid.clone()
         valid[:, 0] = False  # at least one row with no valid edge per scene
-        x_g = torch.randn((B, Q, K, D), generator=gen, device="cuda")
+        x_src = torch.randn((B, S, D), generator=gen, device="cuda")
+        x_src_n = _norm_stats(x_src)
         z_r = torch.randn((B, Q, K, Dp), generator=gen, device="cuda")
         qx = torch.randn((B, Q, H, D), generator=gen, device="cuda") * 0.1
         qp = torch.randn((B, Q, H, Dp), generator=gen, device="cuda") * 0.1
-        out = edge_attn_core(x_g, z_r, qx, qp, valid, scale)
-        ref = edge_attn_core_plain(x_g, z_r, qx, qp, valid, scale)
+        args = (x_src_n, idx, z_r, qx, qp, valid, scale)
+        out = edge_attn_core(*args)
+        again = edge_attn_core(*args)
+        ref = edge_attn_core_plain(*args)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
         if not err <= EDGE_TOL:
@@ -252,25 +302,44 @@ def check_edge(torch, valids, H, D, scale):
         empty = ~valid.any(-1)
         if any(float(o[empty].abs().max()) != 0.0 for o in out):
             raise AssertionError(f"edge_attn_core[{name}] rows without a valid edge are not zero")
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"edge_attn_core[{name}]: two launches differ")
+        x_g = gather_src_features(x_src, idx)
+        old = edge_attn_table(torch, x_g, z_r, qx, qp, valid, scale)
+        torch.cuda.synchronize()
+        old_err = max(float((a - b).abs().max()) for a, b in zip(old, ref))
         iters = 5 if B * Q * K > 2_000_000 else 20
-        ms, wall_ms = times(torch, lambda: edge_attn_core(x_g, z_r, qx, qp, valid, scale), iters)
-        plain_ms = device_ms(torch, lambda: edge_attn_core_plain(x_g, z_r, qx, qp, valid, scale),
-                             iters)
+        ms, wall_ms = times(torch, lambda: edge_attn_core(*args), iters)
+        plain_ms = device_ms(torch, lambda: edge_attn_core_plain(*args), iters)
+        old_ms = device_ms(torch, lambda: edge_attn_table(torch, x_g, z_r, qx, qp, valid, scale),
+                           iters)
+        gather_ms = device_ms(torch, lambda: gather_src_features(x_src, idx), iters)
+        old_path_ms = device_ms(torch, lambda: edge_attn_table(
+            torch, gather_src_features(x_src, idx), z_r, qx, qp, valid, scale), iters)
+        path_ms = device_ms(torch, lambda: edge_attn_core(_norm_stats(x_src), *args[1:]), iters)
         # yardstick: one SDPA call on [qx|qp] against the shared [x_g|z_r]
         # rows of each destination (one key/value head for H query heads)
         q = torch.cat([qx, qp], -1).reshape(B * Q, H, 1, D + Dp)
-        kv = torch.cat([x_g, z_r], -1).reshape(B * Q, 1, K, D + Dp)
+        kv_of = lambda: torch.cat([gather_neighbors(x_src_n, idx), z_r], -1).reshape(
+            B * Q, 1, K, D + Dp)
+        kv = kv_of()
         mask = valid.reshape(B * Q, 1, 1, K)
         lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
             q, kv, kv, attn_mask=mask, scale=scale, enable_gqa=True), iters)
-        del q, kv
+        lib_gather_ms = device_ms(torch, kv_of, iters)
+        del q, kv, x_g
         n_valid = int(valid.sum())
-        rows.append(dict(site=name, B=B, Q=Q, K=K, Dp=Dp, valid_edges=n_valid, ms=ms,
-                         wall_ms=wall_ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-                         **edge_cost(n_valid, B, Q, K, H, D, Dp)))
-        log(f"  edge_attn_core[{name}] B={B} Q={Q} K={K} Dp={Dp} valid={n_valid}: err {err:.2e}; "
-            f"device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, sdpa {lib_ms:.4f}; wall ms: kernel "
-            f"{wall_ms:.4f}")
+        rows.append(dict(site=name, B=B, Q=Q, K=K, S=S, Dp=Dp, valid_edges=n_valid, ms=ms,
+                         wall_ms=wall_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library_gather_ms=lib_gather_ms, path_ms=path_ms, table_ms=old_ms,
+                         table_gather_ms=gather_ms, table_path_ms=old_path_ms,
+                         table_max_abs_err=old_err, max_abs_err=err,
+                         **edge_cost(n_valid, B, Q, K, H, D, Dp, S)))
+        log(f"  edge_attn_core[{name}] B={B} Q={Q} S={S} K={K} Dp={Dp} valid={n_valid}: err "
+            f"{err:.2e}; device ms: kernel {ms:.4f} (norm + kernel {path_ms:.4f}), earlier "
+            f"design {old_ms:.4f} + gather {gather_ms:.4f} (together {old_path_ms:.4f}), plain "
+            f"{plain_ms:.4f}, sdpa {lib_ms:.4f} + gather {lib_gather_ms:.4f}, bound "
+            f"{bound_ms(rows[-1]):.4f}; wall ms: kernel {wall_ms:.4f}")
     return rows
 
 
@@ -281,12 +350,13 @@ def topk_cost(B, Q, S, K):
             "ops": 5 * B * Q * S}
 
 
-def edge_cost(n_valid, B, Q, K, H, D, Dp):
-    """Bytes the edge core must move (the valid edges' x_g/z_r rows, the
-    mask, the queries, the outputs) and its operations (a multiply-add for
-    the score and one for the aggregate, per valid edge, head and dim)."""
-    return {"bytes": (n_valid * (D + Dp) * 4 + B * Q * K + B * Q * H * (D + Dp) * 4 * 2
-                      + B * Q * H * 4),
+def edge_cost(n_valid, B, Q, K, H, D, Dp, S):
+    """Bytes the edge core must move (per valid edge its idx and its z_r
+    row; the mask; each scene's source table x_src_n once; the queries; the
+    outputs) and its operations (a multiply-add for the score and one for
+    the aggregate, per valid edge, head and dim)."""
+    return {"bytes": (n_valid * (4 + Dp * 4) + B * Q * K + B * S * D * 4
+                      + B * Q * H * (D + Dp) * 4 * 2 + B * Q * H * 4),
             "ops": n_valid * 4 * H * (D + Dp)}
 
 
@@ -487,10 +557,11 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
         calls["neighbor_topk"].append((topk_site[Q, S, K], topk_cost(B, Q, S, K)))
         return idx, valid
 
-    def edge(x_g, z_r, qx, qp, edge_valid, scale):
-        out = fns["edge_attn_core"](x_g, z_r, qx, qp, edge_valid, scale)
-        B, Q, K, D = x_g.shape
-        dims = (B, Q, K, qx.shape[2], D, z_r.shape[-1])
+    def edge(x_src_n, idx, z_r, qx, qp, edge_valid, scale):
+        out = fns["edge_attn_core"](x_src_n, idx, z_r, qx, qp, edge_valid, scale)
+        B, S, D = x_src_n.shape
+        Q, K = idx.shape[1:]
+        dims = (B, Q, K, qx.shape[2], D, z_r.shape[-1], S)
         calls["edge_attn_core"].append((edge_site[Q, K, z_r.shape[-1]], (edge_valid, dims)))
         return out
 
@@ -738,19 +809,24 @@ def main(argv):
     shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
     batch = make_synthetic_batch(cfg, batch_size=B_FULL, seed=0, device="cuda", **shape)
     batch_t = make_synthetic_batch(cfg_text, batch_size=B_FULL, seed=0, device="cuda", **shape)
-    topk_rows, valids = check_topk(torch, site_inputs(torch, cfg, batch))
+    sites = site_inputs(torch, cfg, batch)
+    topk_rows, graphs = check_topk(torch, sites)
     hd = cfg.MODEL.POLICY.ACT_DECODER.ATTN.FF_DIM
     H = cfg.MODEL.POLICY.ACT_DECODER.ATTN.NUM_HEAD
     D = cfg.MODEL.HIDDEN_DIM
-    valids = {name: (v, 3 * D // 4) for name, v in valids.items()}
+    graphs = {name: (idx, v, sites[name][1].shape[1], 3 * D // 4)
+              for name, (idx, v) in graphs.items()}
     # the condition GNN's site: Q = K = N, rel-PE at full width D
     ct_cfg = cfg_text.MODEL.CONDITION_TRANSFORMER
     if (ct_cfg.NHEAD, ct_cfg.FF_DIM) != (H, hd):
         raise AssertionError("the GNN site is timed with the policy's heads; they differ")
-    valids["gnn"] = (condition_edge_mask(batch_t.conditions, cfg_text.PROMPT.CONDITION.TYPES,
-                                         batch_t.prompt.mask), D)
-    edge_rows = check_edge(torch, valids, H, D, hd ** -0.5)
-    del valids
+    N = batch_t.prompt.mask.shape[1]
+    graphs["gnn"] = (torch.arange(N, dtype=torch.int32, device="cuda").expand(B_FULL, N, N)
+                     .contiguous(),
+                     condition_edge_mask(batch_t.conditions, cfg_text.PROMPT.CONDITION.TYPES,
+                                         batch_t.prompt.mask), N, D)
+    edge_rows = check_edge(torch, graphs, H, D, hd ** -0.5)
+    del graphs
     llm_cfg = LlamaConfig.llama3_8b(lora_rank=ct_cfg.TEXT_ATTN.LORA.R)  # TEXT_OPTS' ARCH
     text_len = ct_cfg.CONDITION_ENCODER.TEXT.LLM.MAX_TEXT_TOKENS
     flash_rows = check_flash(torch, llm_cfg, B_FULL, text_len, AGENTS, "llama")
@@ -883,7 +959,9 @@ def main(argv):
                   launches_t["neighbor_topk"], per_site_t["neighbor_topk"]),
         summarize("edge_attn_core", "cuda", "prosim_torch/csrc/edge_attn.cu",
                   "prosim_tpu/ops/edge_attn.py:91", edge_rows,
-                  launches_t["edge_attn_core"], per_site_t["edge_attn_core"]),
+                  launches_t["edge_attn_core"], per_site_t["edge_attn_core"],
+                  extra=("path_ms", "table_ms", "table_gather_ms", "table_path_ms",
+                         "library_gather_ms")),
         summarize("fused_two_site_stack", "cuda", "prosim_torch/csrc/fused_stack.cu",
                   "prosim_tpu/ops/fused_stack.py:260", fused_rows,
                   launches_f["fused_two_site_stack"], per_site_f["fused_two_site_stack"],

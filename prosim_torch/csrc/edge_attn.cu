@@ -1,31 +1,54 @@
-// One-pass gated-attention edge core for Hopper (sm_90a).
+// One-pass gated-attention edge core for Hopper (sm_90a), with the gather
+// of the source rows inside the kernel.
 //
-// Replaces prosim_tpu/ops/edge_attn.py:edge_attn_core (_edge_attn_kernel).
-// Per destination row (b, q) and head h, over the row's K edges:
-//   sim[k, h]  = (x_g[k] . qx[h] + z_r[k] . qp[h]) * scale
+// Replaces prosim_tpu/ops/edge_attn.py:edge_attn_core (_edge_attn_kernel)
+// composed with the gather the JAX package does before it
+// (gather_neighbors(x_src_n, idx), prosim_tpu/ops/attention.py). Per
+// destination row (b, q) and head h, over the row's K edges:
+//   x[k]       = x_src_n[b, idx[b, q, k]]      (read only for valid edges)
+//   sim[k, h]  = (x[k] . qx[h] + z_r[k] . qp[h]) * scale
 //   attn[:, h] = softmax over the valid k (rows with no valid edge give 0)
-//   agg_x[h]   = sum_k attn[k, h] x_g[k];  agg_z[h] = sum_k attn[k, h] z_r[k]
+//   agg_x[h]   = sum_k attn[k, h] x[k];  agg_z[h] = sum_k attn[k, h] z_r[k]
 //   attn_sum[h] = 1 if any edge is valid else 0
 // The per-query score bias of the layer is constant over k and cancels in
 // the softmax, so it is not an input (as in the TPU kernel).
 //
-// Bound on the H100: the per-edge tables x_g [B,Q,K,D] and z_r [B,Q,K,Dp]
-// dominate the bytes (1.4 GB at the policy's m2p site, B=16, K=768, D=128,
-// Dp=96); the 4*H*(D+Dp) f32 operations per edge sit below the memory line,
-// so the kernel is bound by device-memory bytes.
+// Bound on the H100: per valid edge 4 B of idx and the Dp f32 values of its
+// z_r row come from device memory; the source table x_src_n [B,S,D] is at
+// most 1.1 MB per scene (18 MB at B = 16) and stays in the 50 MB L2, so its
+// rows are read from L2 by idx, not from a stored [B,Q,K,D] copy. The
+// 4 H (D + Dp) f32 operations per valid edge take about as long on the CUDA
+// cores as its bytes take from memory, so the FMA pipe, the instruction
+// issue and the shared-memory pipe (each staged value is read four times:
+// by both warps of a team, for the score and for the aggregate) bound it
+// as much as the bytes do.
 //
-// Design: each valid edge's rows are read from device memory exactly once,
-// straight into registers; invalid edges are not read at all. One block of
-// four warps per (b, q); each warp streams every fourth pair of edges. A
-// lane owns columns lane + 32 j of both tables and keeps the queries of all
-// H <= 8 heads for them, and the [H, D + Dp] accumulators, in registers.
-// The H partial dot products of an edge are reduced across the warp by one
-// transpose-reduction (9 shuffles for 8 sums), after which lanes 4h..4h+3
-// hold head h's score and run its online softmax (running max and
-// denominator); the rescale and the two edges' weights then go to every
-// lane by shuffle. At the end the four warps' (max, denominator,
-// accumulator) states merge through shared memory in a fixed order. No
-// atomics: results are bitwise reproducible from run to run.
+// Design:
+//  * A team of two warps owns a row's edges; warp hh of the team holds the
+//    queries and [.,D + Dp] accumulators of heads hh*HH .. hh*HH + HH - 1
+//    (HH = ceil(H / 2) <= 4) for the columns 4 lane .. 4 lane + 3 of each
+//    table (one 16-byte shared-memory load per table and edge), so a thread
+//    keeps 32 query and 32 accumulator registers.
+//  * Short rows (K <= 128): one team per row, two rows per block of four
+//    warps, no block-level merge. Long rows: one row per block, the two
+//    teams take alternate 64-edge segments (top-K puts the valid edges
+//    first, so both get a share) and their states merge at the end in a
+//    fixed order.
+//  * Each team compacts its valid edges (ballot, in edge order) into a list
+//    in shared memory, then walks the list in tiles of 8 edges: the tile's
+//    x rows (gathered by idx) and z_r rows go into a two-stage shared-memory
+//    ring by cp.async, one tile ahead of the compute (a partial tile's
+//    extra rows are zeroed). Invalid edges are never read, and their idx
+//    never dereferenced.
+//  * Per tile, each lane's 32 partial dot products (8 edges x 4 heads over
+//    its columns) are reduced across the warp by one recursive-halving
+//    transpose (31 shuffles) after which lane l holds the score of edge
+//    l / 4 for head l % 4. The online softmax then runs once per tile and
+//    head, over the 8 lanes of that head: one max and one sum by 3
+//    shuffles each, one rescale and one exp per lane. The tile's weights
+//    reach every lane through shared memory (float4 broadcasts), and the
+//    lanes, owning columns again, accumulate the weighted rows of the tile.
+//  * No atomics: results are bitwise reproducible from launch to launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,174 +56,394 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;              // two teams of two warps
 constexpr int kThreads = 32 * kWarps;
+constexpr int kTeamThreads = 64;
 constexpr int kMaxH = 8;
-constexpr int kMaxJ = 4;          // columns per lane of each table: D, Dp <= 32 * kMaxJ
-constexpr int kCols = 2 * kMaxJ;  // x_g columns, then z_r columns
+constexpr int kHH = 4;                 // heads per warp
+constexpr int kTile = 8;               // edges per tile
+constexpr int kStages = 2;
+constexpr int kSeg = 64;               // edges per segment a team takes
+constexpr int kListCap = 256;          // list entries per team
+constexpr int kShortK = 128;           // rows up to this K: one team per row
+constexpr int kMergeFloats = 4 * kHH + 2 * kHH * 8 * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Sums v[h] over the warp for every h; lanes 4h..4h+3 end up holding the
-// sum of v[h] (h = lane >> 2).
-__device__ __forceinline__ float reduce_scatter8(const float (&v)[kMaxH], int lane) {
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-  float w[4];
+// One stage of reduce_scatter32: lanes with bit W set keep the upper half
+// of v[0, 2W), the others the lower half, and add the partner's copy.
+template <int W>
+__device__ __forceinline__ void reduce_half(float (&v)[kTile * kHH], int lane) {
+  const bool up = lane & W;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = b4 ? v[i] : v[i + 4];
-    const float keep = b4 ? v[i + 4] : v[i];
-    w[i] = keep + __shfl_xor_sync(kFull, send, 16);
-  }
-  float x[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = b3 ? w[i] : w[i + 2];
-    const float keep = b3 ? w[i + 2] : w[i];
-    x[i] = keep + __shfl_xor_sync(kFull, send, 8);
-  }
-  float y = (b2 ? x[1] : x[0]) + __shfl_xor_sync(kFull, b2 ? x[0] : x[1], 4);
-  y += __shfl_xor_sync(kFull, y, 2);
-  y += __shfl_xor_sync(kFull, y, 1);
-  return y;
-}
-
-__device__ __forceinline__ void load_edge(const float* __restrict__ x_row,
-                                          const float* __restrict__ z_row, bool ok,
-                                          int lane, int D, int Dp, float (&t)[kCols]) {
-#pragma unroll
-  for (int j = 0; j < kMaxJ; ++j) {
-    const int c = lane + 32 * j;
-    t[j] = (ok && c < D) ? x_row[c] : 0.f;
-    t[kMaxJ + j] = (ok && c < Dp) ? z_row[c] : 0.f;
+  for (int k = 0; k < W; ++k) {
+    const float send = up ? v[k] : v[k + W];
+    const float keep = up ? v[k + W] : v[k];
+    v[k] = keep + __shfl_xor_sync(kFull, send, W);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) edge_attn_kernel(
-    const float* __restrict__ xg, const float* __restrict__ zr,
-    const float* __restrict__ qx, const float* __restrict__ qp,
-    const unsigned char* __restrict__ valid, float* __restrict__ aggx,
-    float* __restrict__ aggz, float* __restrict__ asum, int K, int H, int D,
-    int Dp, float scale) {
-  __shared__ float m_s[kWarps][kMaxH];
-  __shared__ float l_s[kWarps][kMaxH];
-  extern __shared__ float acc_s[];  // [kWarps][H][D + Dp]
+// v[k] for k < 32 (k = e * kHH + i: edge e of the tile, head i): returns on
+// lane l the warp's sum of v[l]. Recursive halving: 16 + 8 + 4 + 2 + 1
+// shuffles, each stage's shuffles independent of each other.
+__device__ __forceinline__ float reduce_scatter32(float (&v)[kTile * kHH], int lane) {
+  static_assert(kTile * kHH == 32, "one sum per lane");
+  reduce_half<16>(v, lane);
+  reduce_half<8>(v, lane);
+  reduce_half<4>(v, lane);
+  reduce_half<2>(v, lane);
+  reduce_half<1>(v, lane);
+  return v[0];
+}
+
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(kTeamThreads) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+struct Shapes {
+  int Q, S, K, H, D, Dp;
+  int Dx, Cs;  // staged row: x at [0, D), z_r at [Dx, Dx + Dp); Dx = D and Cs = Dx + Dp
+               // rounded up to 4, the padding zero
+  int ring;    // floats of both teams' rings, at least the merge state's
+  float scale;
+  bool vec;    // D and Dp multiples of 4 and the tables 16-byte aligned: 16-byte copies
+};
+
+// Stage the x and z_r rows of list entries [e0, e0 + n) into `st`, edges
+// hh, hh + 2, ... by warp hh of the team, and zero the rows n..kTile-1 (a
+// partial tile is computed in full; its extra edges get no weight).
+__device__ __forceinline__ void stage_tile(float* st, const float* __restrict__ xs_b,
+                                           const float* __restrict__ zr_row,
+                                           const int* lk, const int* ls, int e0, int n,
+                                           const Shapes& s, int hh, int lane) {
+  for (int e = hh; e < n; e += 2) {
+    const float* xrow = xs_b + (size_t)ls[e0 + e] * s.D;
+    const float* zrow = zr_row + (size_t)lk[e0 + e] * s.Dp;
+    float* dst = st + e * s.Cs;
+    if (s.vec) {
+      if (4 * lane < s.D) cp_async16(dst + 4 * lane, xrow + 4 * lane);
+      if (4 * lane < s.Dp) cp_async16(dst + s.Dx + 4 * lane, zrow + 4 * lane);
+    } else {
+      for (int c = lane; c < s.D; c += 32) cp_async4(dst + c, xrow + c);
+      for (int c = lane; c < s.Dp; c += 32) cp_async4(dst + s.Dx + c, zrow + c);
+    }
+  }
+  cp_async_commit();
+  for (int i = 32 * hh + lane; i < (kTile - n) * s.Cs; i += kTeamThreads) st[n * s.Cs + i] = 0.f;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Block layout of the dynamic shared memory (floats / ints):
+//   stage[2 teams][kStages][kTile][Cs] in `ring` floats (after the edge
+//                                        loop: the merge state, kMergeFloats)
+//   list_k[2 teams][kListCap], list_s[2 teams][kListCap], count[2 teams]
+//   wsm[kWarps][kTile][kHH], csm[kWarps][kHH]
+// Lane l owns the columns 4l..4l+3 of both tables: q[i][0..3] and acc[i][0..3]
+// for x, q[i][4..7] and acc[i][4..7] for z_r, i the warp's head.
+template <bool kBlockRow>
+__global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
+    const float* __restrict__ xs, const int* __restrict__ idx,
+    const float* __restrict__ zr, const float* __restrict__ qx,
+    const float* __restrict__ qp, const unsigned char* __restrict__ valid,
+    float* __restrict__ aggx, float* __restrict__ aggz, float* __restrict__ asum,
+    int rows, Shapes s) {
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t row = blockIdx.x;
-  const int C = D + Dp;
+  const int team = warp >> 1;
+  const int hh = warp & 1;
+  const size_t row = kBlockRow ? blockIdx.x : (size_t)blockIdx.x * 2 + team;
+  if (!kBlockRow && row >= (size_t)rows) return;  // the whole team leaves
 
-  float q[kMaxH][kCols];
-  float acc[kMaxH][kCols];
+  const int stage_floats = kStages * kTile * s.Cs;
+  float* stage = smem + team * stage_floats;
+  int* list_k = reinterpret_cast<int*>(smem + s.ring) + team * kListCap;
+  int* list_s = reinterpret_cast<int*>(smem + s.ring) + (2 + team) * kListCap;
+  int* count = reinterpret_cast<int*>(smem + s.ring) + 4 * kListCap;
+  float* wsm = smem + s.ring + 4 * kListCap + 4 + warp * (kTile * kHH + kHH);
+  float* csm = wsm + kTile * kHH;
+  // the padding columns are never copied into: zero the ring once
+  for (int i = 32 * hh + lane; i < stage_floats; i += kTeamThreads) stage[i] = 0.f;
+
+  const int HH = (s.H + 1) >> 1;
+  const int h0 = hh * HH;
+  const int nh = max(0, min(HH, s.H - h0));
+  const int D = s.D, Dp = s.Dp, Dx = s.Dx, K = s.K;
+  const int c0 = 4 * lane;
+  const bool own_x = c0 < D, own_z = c0 < Dp;
+
+  float q[kHH][8];
+  float acc[kHH][8];
 #pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
+  for (int i = 0; i < kHH; ++i) {
+    const size_t qrow = row * s.H + h0 + i;
 #pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
-      const int c = lane + 32 * j;
-      q[h][j] = (h < H && c < D) ? qx[(row * H + h) * D + c] : 0.f;
-      q[h][kMaxJ + j] = (h < H && c < Dp) ? qp[(row * H + h) * Dp + c] : 0.f;
+    for (int t = 0; t < 4; ++t) {
+      q[i][t] = (i < nh && c0 + t < D) ? qx[qrow * D + c0 + t] : 0.f;
+      q[i][4 + t] = (i < nh && c0 + t < Dp) ? qp[qrow * Dp + c0 + t] : 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[h][j] = 0.f;
+    for (int t = 0; t < 8; ++t) acc[i][t] = 0.f;
   }
-  float m = -INFINITY;  // running max and denominator of head lane >> 2
+  float m = -INFINITY;  // running max and denominator of head h0 + lane % kHH
   float l = 0.f;
 
-  const float* x_row = xg + row * K * D;
-  const float* z_row = zr + row * K * Dp;
+  const size_t b = row / s.Q;
+  const float* xs_b = xs + b * s.S * D;
+  const float* zr_row = zr + row * K * Dp;
+  const int* idx_row = idx + row * K;
   const unsigned char* v_row = valid + row * K;
-  for (int e0 = 2 * warp; e0 < K; e0 += 2 * kWarps) {
-    const int e1 = e0 + 1;
-    const bool v0 = v_row[e0] != 0;
-    const bool v1 = e1 < K && v_row[e1] != 0;
-    if (!v0 && !v1) continue;  // warp-uniform
-    float t0[kCols], t1[kCols];
-    load_edge(x_row + (size_t)e0 * D, z_row + (size_t)e0 * Dp, v0, lane, D, Dp, t0);
-    load_edge(x_row + (size_t)e1 * D, z_row + (size_t)e1 * Dp, v1, lane, D, Dp, t1);
-    float p0[kMaxH], p1[kMaxH];
+  const int nteams = kBlockRow ? 2 : 1;
+  const int my = kBlockRow ? team : 0;
+  const int span = nteams * kListCap;
+
+  for (int base = 0; base < K; base += span) {
+    // this team's segments of [base, base + span): compact the valid edges
+    if (hh == 0) {
+      // chunk c of 32 edges: segment my + (c / 2) * nteams, half c % 2;
+      // all flags and indices are loaded first, so their latencies overlap
+      constexpr int kChunks = kListCap / 32;
+      bool v[kChunks];
+      int src[kChunks];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      float a = 0.f, b = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        a = fmaf(t0[j], q[h][j], a);
-        b = fmaf(t1[j], q[h][j], b);
+      for (int c = 0; c < kChunks; ++c) {
+        const int k = base + (my + (c >> 1) * nteams) * kSeg + (c & 1) * 32 + lane;
+        v[c] = k < K && v_row[k] != 0;
+        src[c] = v[c] ? idx_row[k] : 0;
       }
-      p0[h] = a;
-      p1[h] = b;
+      int n = 0;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const unsigned mask = __ballot_sync(kFull, v[c]);
+        if (v[c]) {
+          const int at = n + __popc(mask & ((1u << lane) - 1));
+          list_k[at] = base + (my + (c >> 1) * nteams) * kSeg + (c & 1) * 32 + lane;
+          list_s[at] = src[c];
+        }
+        n += __popc(mask);
+      }
+      if (lane == 0) count[team] = n;
     }
-    const float s0 = v0 ? reduce_scatter8(p0, lane) * scale : -INFINITY;
-    const float s1 = v1 ? reduce_scatter8(p1, lane) * scale : -INFINITY;
-    const float m_new = fmaxf(m, fmaxf(s0, s1));  // finite: one edge is valid
-    const float corr = expf(m - m_new);           // 0 while m is -inf
-    const float w0 = v0 ? expf(s0 - m_new) : 0.f;
-    const float w1 = v1 ? expf(s1 - m_new) : 0.f;
-    l = l * corr + w0 + w1;
-    m = m_new;
+    team_sync(team);
+    const int n = count[team];
+    const int tiles = (n + kTile - 1) / kTile;
+    // tiles u < kStages - 1 first; then tile t + kStages - 1 is copied while
+    // tile t is computed (one copy group per tile, empty past the last)
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      if (h < H) {  // warp-uniform
-        const float c = __shfl_sync(kFull, corr, 4 * h);
-        const float a = __shfl_sync(kFull, w0, 4 * h);
-        const float b = __shfl_sync(kFull, w1, 4 * h);
+    for (int u = 0; u < kStages - 1; ++u) {
+      if (u < tiles)
+        stage_tile(stage + u * kTile * s.Cs, xs_b, zr_row, list_k, list_s, u * kTile,
+                   min(kTile, n - u * kTile), s, hh, lane);
+      else
+        cp_async_commit();
+    }
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait<kStages - 2>();
+      team_sync(team);  // tile t visible to the team; tile t - 1 consumed by both warps
+      const int u = t + kStages - 1;
+      if (u < tiles)
+        stage_tile(stage + (u % kStages) * kTile * s.Cs, xs_b, zr_row, list_k, list_s,
+                   u * kTile, min(kTile, n - u * kTile), s, hh, lane);
+      else
+        cp_async_commit();
+      if (nh == 0) continue;  // warp-uniform: a warp without heads only stages
+      const float* st = stage + (t % kStages) * kTile * s.Cs;
+      const int nt = min(kTile, n - t * kTile);
+      float p[kTile * kHH];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          acc[h][j] = fmaf(b, t1[j], fmaf(a, t0[j], acc[h][j] * c));
+      for (int e = 0; e < kTile; ++e) {
+        const float4 x = own_x ? lds4(st + e * s.Cs + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 z = own_z ? lds4(st + e * s.Cs + Dx + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < kHH; ++i) {
+          float a = x.x * q[i][0];
+          a = fmaf(x.y, q[i][1], a);
+          a = fmaf(x.z, q[i][2], a);
+          a = fmaf(x.w, q[i][3], a);
+          a = fmaf(z.x, q[i][4], a);
+          a = fmaf(z.y, q[i][5], a);
+          a = fmaf(z.z, q[i][6], a);
+          p[e * kHH + i] = fmaf(z.w, q[i][7], a);
+        }
       }
+      // lane l now scores edge l / kHH for head l % kHH; the 8 lanes of a
+      // head (lane % kHH) run its online softmax over the tile together
+      const float sum = reduce_scatter32(p, lane);
+      const float sc = (lane >> 2) < nt ? sum * s.scale : -INFINITY;
+      float mt = sc;  // edge 0 is valid: finite
+#pragma unroll
+      for (int w = 4; w < 32; w <<= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, w));
+      const float m_new = fmaxf(m, mt);
+      const float corr = expf(m - m_new);  // 0 while m is -inf
+      const float wt = expf(sc - m_new);   // 0 for the tile's extra edges
+      float lsum = wt;
+#pragma unroll
+      for (int w = 4; w < 32; w <<= 1) lsum += __shfl_xor_sync(kFull, lsum, w);
+      l = fmaf(l, corr, lsum);
+      m = m_new;
+      wsm[lane] = wt;  // wsm[e * kHH + i]
+      if (lane < kHH) csm[lane] = corr;
+      __syncwarp();
+      const float4 c4 = lds4(csm);
+      const float cf[kHH] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int i = 0; i < kHH; ++i)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) acc[i][t] *= cf[i];
+#pragma unroll
+      for (int e = 0; e < kTile; ++e) {
+        const float4 w4 = lds4(wsm + e * kHH);
+        const float w[kHH] = {w4.x, w4.y, w4.z, w4.w};
+        const float4 x = own_x ? lds4(st + e * s.Cs + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 z = own_z ? lds4(st + e * s.Cs + Dx + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float v[8] = {x.x, x.y, x.z, x.w, z.x, z.y, z.z, z.w};
+#pragma unroll
+        for (int i = 0; i < kHH; ++i)
+#pragma unroll
+          for (int t = 0; t < 8; ++t) acc[i][t] = fmaf(w[i], v[t], acc[i][t]);
+      }
+    }
+    team_sync(team);  // the list and the ring are free again
+  }
+
+  if (kBlockRow) {
+    // merge team 1's state into team 0's, head by head, in a fixed order
+    __syncthreads();  // both teams are done with their rings
+    float* ms = smem;                          // [2 warps][kHH]
+    float* ls = smem + 2 * kHH;                // [2 warps][kHH]
+    float* as = smem + 4 * kHH + hh * kHH * 8 * 32;  // [2 warps][kHH][8 values][32 lanes]
+    if (team == 1) {
+      if (lane < kHH) {
+        ms[hh * kHH + lane] = m;
+        ls[hh * kHH + lane] = l;
+      }
+#pragma unroll
+      for (int i = 0; i < kHH; ++i)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) as[(i * 8 + t) * 32 + lane] = acc[i][t];
+    }
+    __syncthreads();
+    if (team == 1) return;
+#pragma unroll
+    for (int i = 0; i < kHH; ++i) {
+      const float m0 = __shfl_sync(kFull, m, i), l0 = __shfl_sync(kFull, l, i);
+      const float m1 = ms[hh * kHH + i], l1 = ls[hh * kHH + i];
+      const float M = fmaxf(m0, m1);
+      const float f0 = m0 == -INFINITY ? 0.f : expf(m0 - M);
+      const float f1 = m1 == -INFINITY ? 0.f : expf(m1 - M);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) acc[i][t] = fmaf(f1, as[(i * 8 + t) * 32 + lane], acc[i][t] * f0);
+      const float L = fmaf(f1, l1, l0 * f0);
+      if (lane == i) l = L;  // lane i holds head i's denominator below
     }
   }
 
-  // merge the warps' states in a fixed order
-  if ((lane & 3) == 0 && (lane >> 2) < H) {
-    m_s[warp][lane >> 2] = m;
-    l_s[warp][lane >> 2] = l;
-  }
 #pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    if (h < H) {
-      float* dst = acc_s + ((size_t)warp * H + h) * C;
+  for (int i = 0; i < kHH; ++i) {
+    if (i < nh) {  // warp-uniform
+      const float L = __shfl_sync(kFull, l, i);
+      const float inv_ok = L > 0.f;
+      const size_t orow = row * s.H + h0 + i;
 #pragma unroll
-      for (int j = 0; j < kMaxJ; ++j) {
-        const int c = lane + 32 * j;
-        if (c < D) dst[c] = acc[h][j];
-        if (c < Dp) dst[D + c] = acc[h][kMaxJ + j];
+      for (int t = 0; t < 4; ++t) {
+        if (c0 + t < D) aggx[orow * D + c0 + t] = inv_ok ? acc[i][t] / L : 0.f;
+        if (c0 + t < Dp) aggz[orow * Dp + c0 + t] = inv_ok ? acc[i][4 + t] / L : 0.f;
       }
+      if (lane == 0) asum[orow] = inv_ok ? 1.f : 0.f;
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < H * C + H; i += kThreads) {
-    const int h = i < H * C ? i / C : i - H * C;
-    float M = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, m_s[w][h]);
-    float L = 0.f, sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = m_s[w][h] == -INFINITY ? 0.f : expf(m_s[w][h] - M);
-      L = fmaf(f, l_s[w][h], L);
-      if (i < H * C) sum = fmaf(f, acc_s[((size_t)w * H + h) * C + (i - h * C)], sum);
-    }
-    if (i >= H * C) {
-      asum[row * H + h] = L > 0.f ? 1.f : 0.f;
-      continue;
-    }
-    const int c = i - h * C;
-    const float out = L > 0.f ? sum / L : 0.f;
-    if (c < D)
-      aggx[(row * H + h) * D + c] = out;
-    else
-      aggz[(row * H + h) * Dp + (c - D)] = out;
-  }
+}
+
+Shapes make_shapes(int Q, int S, int K, int H, int D, int Dp, float scale) {
+  Shapes s;
+  s.Q = Q;
+  s.S = S;
+  s.K = K;
+  s.H = H;
+  s.D = D;
+  s.Dp = Dp;
+  s.Dx = (D + 3) & ~3;
+  s.Cs = s.Dx + ((Dp + 3) & ~3);
+  s.ring = 2 * kStages * kTile * s.Cs;
+  if (s.ring < kMergeFloats) s.ring = kMergeFloats;
+  s.scale = scale;
+  s.vec = false;
+  return s;
+}
+
+size_t smem_bytes(const Shapes& s) {
+  return sizeof(float) * ((size_t)s.ring + 4 * kListCap + 4 + kWarps * (kTile * kHH + kHH));
 }
 
 }  // namespace
 
-extern "C" int edge_attn_launch(const float* xg, const float* zr, const float* qx,
-                                const float* qp, const unsigned char* valid,
-                                float* aggx, float* aggz, float* asum, int rows,
-                                int K, int H, int D, int Dp, float scale,
-                                void* stream) {
-  if (H < 1 || H > kMaxH || D > 32 * kMaxJ || Dp > 32 * kMaxJ)
+extern "C" int edge_attn_launch(const float* xs, const int* idx, const float* zr,
+                                const float* qx, const float* qp,
+                                const unsigned char* valid, float* aggx, float* aggz,
+                                float* asum, int B, int Q, int S, int K, int H, int D,
+                                int Dp, float scale, void* stream) {
+  if (H < 1 || H > kMaxH || D < 1 || Dp < 1 || D > 128 || Dp > 128 || K < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)kWarps * H * (D + Dp);
-  edge_attn_kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
-      xg, zr, qx, qp, valid, aggx, aggz, asum, K, H, D, Dp, scale);
+  const int rows = B * Q;
+  if (rows == 0) return 0;
+  Shapes s = make_shapes(Q, S, K, H, D, Dp, scale);
+  s.vec = (D % 4 == 0) && (Dp % 4 == 0) &&
+          ((reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(zr)) & 15) == 0;
+  const size_t smem = smem_bytes(s);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(edge_attn_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    cudaFuncSetAttribute(edge_attn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  if (K <= kShortK)
+    edge_attn_kernel<false><<<(rows + 1) / 2, kThreads, smem, st>>>(
+        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
+  else
+    edge_attn_kernel<true><<<rows, kThreads, smem, st>>>(
+        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
   return (int)cudaGetLastError();
+}
+
+// For the record of occupancy: the dynamic shared memory of a block at these
+// widths, and the resident blocks of four warps per SM of the short-row
+// (block_row 0) or long-row (1) instantiation.
+extern "C" int edge_attn_smem_bytes(int D, int Dp) {
+  return (int)smem_bytes(make_shapes(1, 1, 1, 1, D, Dp, 1.f));
+}
+
+extern "C" int edge_attn_blocks_per_sm(int block_row, int D, int Dp) {
+  const size_t smem = smem_bytes(make_shapes(1, 1, 1, 1, D, Dp, 1.f));
+  int n = 0;
+  cudaError_t err = block_row
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel<true>, kThreads, smem)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel<false>, kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
 }

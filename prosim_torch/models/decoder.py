@@ -12,10 +12,9 @@ from prosim_torch.data.batch import Prompt, SceneTokens
 from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
+    _norm_stats,
     normalize_rel_pe,
     rel_pe_features,
-    rel_pe_input,
-    site_gather,
 )
 from prosim_torch.ops.mlp import MLP
 from prosim_torch.ops.neighbors import neighbor_topk
@@ -58,9 +57,10 @@ class SymCoordDecoder(nn.Module):
             prompt.pos, scene.pos, prompt.mask, scene.mask, k=self.max_neigh,
             radius=self.scene_radius if radius else None,
         )
-        # scene tokens are layer-constant here: gather once for the stack
-        s2p_g, s2p_npos, s2p_nori = site_gather(scene.tokens, scene.pos, scene.ori, s2p_idx)
-        s2p_pe = self.s2p_pe(rel_pe_input(prompt.pos, prompt.ori, s2p_npos, s2p_nori))
+        s2p_pe = self.s2p_pe(
+            rel_pe_features(prompt.pos, prompt.ori, scene.pos, scene.ori, s2p_idx))
+        # scene tokens are layer-constant here: normalize once for the stack
+        s2p_src = _norm_stats(scene.tokens)
 
         p2p_z = normalize_rel_pe(p2p_pe, self.hidden_dim)
         s2p_z = normalize_rel_pe(s2p_pe, self.hidden_dim)
@@ -69,7 +69,7 @@ class SymCoordDecoder(nn.Module):
             x_p = getattr(self, f"p2p_{i}")(
                 x_p, x_p, p2p_idx, p2p_valid, p2p_z)
             x_p = getattr(self, f"s2p_{i}")(
-                x_p, scene.tokens, s2p_idx, s2p_valid, s2p_z, src_gathered=s2p_g)
+                x_p, scene.tokens, s2p_idx, s2p_valid, s2p_z, src_normed=s2p_src)
         x_p = torch.where(prompt.mask[..., None], x_p, 0.0)
 
         result = {"emd": x_p}

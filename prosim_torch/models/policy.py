@@ -20,10 +20,9 @@ from prosim_torch.data.batch import SceneTokens
 from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
+    _norm_stats,
     normalize_rel_pe,
     rel_pe_features,
-    rel_pe_input,
-    site_gather,
 )
 from prosim_torch.ops.fused_stack import fused_two_site_stack, pack_site_weights
 from prosim_torch.ops.mlp import MLP, ContextGating
@@ -130,19 +129,19 @@ class PolicyRelPE(nn.Module):
         m = scene.num_map
         obs_pos, obs_ori = scene.pos[:, m:], scene.ori[:, m:]
         map_pos, map_ori = scene.pos[:, :m], scene.ori[:, :m]
-        # the gathered source features are layer-constant within a replan
-        # step and shared by every layer of the stack
-        a2p_g, a2p_npos, a2p_nori = site_gather(scene.obs_tokens, obs_pos, obs_ori, a2p_idx)
-        m2p_g, m2p_npos, m2p_nori = site_gather(scene.map_tokens, map_pos, map_ori, m2p_idx)
-        a2p_pe = self.a2p_pe(rel_pe_input(pos, ori, a2p_npos, a2p_nori))
-        m2p_pe = self.m2p_pe(rel_pe_input(pos, ori, m2p_npos, m2p_nori))
+        a2p_pe = self.a2p_pe(rel_pe_features(pos, ori, obs_pos, obs_ori, a2p_idx))
+        m2p_pe = self.m2p_pe(rel_pe_features(pos, ori, map_pos, map_ori, m2p_idx))
+        # the normalized source rows are layer-constant within a replan step
+        # and shared by every layer of the stack
+        a2p_src = _norm_stats(scene.obs_tokens)
+        m2p_src = _norm_stats(scene.map_tokens)
         a2p_z = normalize_rel_pe(a2p_pe, self.hidden_dim)
         m2p_z = normalize_rel_pe(m2p_pe, self.hidden_dim)
         for i in range(self.num_layers):
             x_p = getattr(self, f"a2p_{i}")(
-                x_p, scene.obs_tokens, a2p_idx, a2p_valid, a2p_z, src_gathered=a2p_g)
+                x_p, scene.obs_tokens, a2p_idx, a2p_valid, a2p_z, src_normed=a2p_src)
             x_m = getattr(self, f"m2p_{i}")(
-                x_p, scene.map_tokens, m2p_idx, m2p_valid, m2p_z, src_gathered=m2p_g)
+                x_p, scene.map_tokens, m2p_idx, m2p_valid, m2p_z, src_normed=m2p_src)
             x_p = x_p if self.not_use_map else x_m
         return x_p
 

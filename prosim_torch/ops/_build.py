@@ -18,7 +18,9 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "prosim_torch_kernels"
 SOURCES = {"neighbor_topk": "neighbor_topk.cu", "edge_attn": "edge_attn.cu",
-           "fused_stack": "fused_stack.cu", "flash_attn": "flash_attn.cu"}
+           "fused_stack": "fused_stack.cu", "flash_attn": "flash_attn.cu",
+           # the edge core's earlier design, a baseline chip_smoke.py measures
+           "edge_attn_table": "edge_attn_table.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

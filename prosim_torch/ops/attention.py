@@ -105,18 +105,10 @@ def normalize_rel_pe(rel_pe, full_dim: int):
 
 
 def gather_src_features(x_src, idx):
-    """Gathered parameter-free-normalized source features [B,Q,K,D], shared
-    by every layer of a stack whose source tokens do not change."""
+    """Gathered parameter-free-normalized source features [B,Q,K,D]: the
+    per-edge table of the fused stack's plain version (ops/fused_stack.py).
+    The layer loop's edge core gathers the rows of _norm_stats(x_src) itself."""
     return gather_neighbors(_norm_stats(x_src), idx)
-
-
-def site_gather(x_src, src_pos, src_ori, idx):
-    """Per-edge gathers of one cross-attention site: normalized source
-    features, neighbor positions and orientations.
-    Returns (x_g [B,Q,K,D], nbr_pos [B,Q,K,2], nbr_ori [B,Q,K])."""
-    x_g = gather_src_features(x_src, idx)
-    g = gather_neighbors(_pos_ori_table(src_pos, src_ori), idx)
-    return x_g, g[..., :2], g[..., 2]
 
 
 class GatedNeighborAttention(nn.Module):
@@ -151,13 +143,14 @@ class GatedNeighborAttention(nn.Module):
         self.ff_dense1 = nn.Linear(hidden_dim * 4, hidden_dim)
         self.ff_postnorm = LayerNorm(hidden_dim)
 
-    def forward(self, x_dst, x_src, idx, edge_valid, pe_normed, src_gathered=None):
+    def forward(self, x_dst, x_src, idx, edge_valid, pe_normed, src_normed=None):
         """x_dst [B,Q,D], x_src [B,S,D], idx [B,Q,K], edge_valid [B,Q,K],
         pe_normed [B,Q,K,D_pe] = normalize_rel_pe(rel_pe, P) (D_pe < P when
         folded) -> [B,Q,D].
 
-        src_gathered: optional [B,Q,K,D] from gather_src_features(x_src, idx).
-        Both tables are shared across a stack whose inputs they depend on are
+        src_normed: optional [B,S,D] = _norm_stats(x_src), the parameter-free
+        normalized source rows that the edge core gathers by idx. Both tables
+        are shared across a stack whose inputs they depend on are
         layer-constant.
         The folds (exact math, see prosim_tpu/ops/attention.py:242-262):
           score: q . W_k LN_s(x_j)  = ((W_k^T q) * g_s) . z_x[j] + const_q
@@ -174,7 +167,7 @@ class GatedNeighborAttention(nn.Module):
         g_s, b_s = self.prenorm_src.weight, self.prenorm_src.bias
         norm_dst = self.prenorm_dst if self.bipartite else self.prenorm_src
         x_dst_n = _norm_stats(x_dst) * norm_dst.weight + norm_dst.bias
-        x_g = gather_src_features(x_src, idx) if src_gathered is None else src_gathered
+        x_src_n = _norm_stats(x_src) if src_normed is None else src_normed
 
         qh = self.to_q(x_dst_n).view(B, Q, H, hd)
         w_k = self.to_k.weight.t()                  # [D_src, inner]
@@ -193,8 +186,8 @@ class GatedNeighborAttention(nn.Module):
         q_k = torch.einsum("bqhe,dhe->bqhd", qh, w_k.reshape(D_src, H, hd))
         q_pe = torch.einsum("bqhe,dhe->bqhd", qh, w_kr_g)
         agg_x, agg_z, attn_sum = edge_attn_core(
-            x_g.contiguous(), z_r.contiguous(), (q_k * g_s).contiguous(),
-            q_pe.contiguous(), edge_valid.contiguous(), scale,
+            x_src_n.contiguous(), idx.to(torch.int32).contiguous(), z_r.contiguous(),
+            (q_k * g_s).contiguous(), q_pe.contiguous(), edge_valid.contiguous(), scale,
         )
         agg_v = torch.einsum("bqhd,dhe->bqhe", agg_x * g_s, w_v.reshape(D_src, H, hd))
         agg_pe = torch.einsum("bqhd,dhe->bqhe", agg_z, w_vr_g)

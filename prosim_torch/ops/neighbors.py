@@ -22,8 +22,10 @@ from prosim_torch.ops import _build
 
 
 def _radius2(radius) -> float:
-    # JAX compares the f32 d2 against radius * radius rounded to f32
-    return float(np.float32(float(radius) * float(radius)))
+    # the jitted JAX function traces a float radius as a weak f32 and
+    # squares it in f32: round r to f32 first, then round the product
+    r = np.float32(radius)
+    return float(r * r)
 
 
 def pairwise_d2(dst_pos, src_pos):

@@ -5,7 +5,8 @@ no CPU or interpret mode). This file imports neither JAX nor prosim_tpu, so
 it runs on a machine without them:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 Tolerances: top-K bit-equal; the edge core 1e-5 in f32 (the kernel sums in
-another order than the plain einsum); the fused stack 3e-4, the bar the JAX
+another order than the plain einsum and its gather), rows with no valid
+edge exactly zero; the fused stack 3e-4, the bar the JAX
 package holds its fused kernel to (the kernel folds the k|v projections onto
 the queries where the plain version projects every edge, through 2L layers);
 flash attention in bf16 by the flash-attention rule: its max error against
@@ -116,49 +117,110 @@ def test_topk_kernel_rounds_d2_once(cuda):
     assert ki.tolist() == pi.tolist() == [[[1, 0]]]
 
 
-@pytest.mark.parametrize("K,Dp,H", [
-    (32, 96, 8), (100, 96, 8), (768, 96, 8), (128, 128, 8), (40, 24, 4), (7, 96, 8), (1, 96, 8),
-])
-def test_edge_kernel_matches_plain(cuda, K, Dp, H):
-    gen = torch.Generator(device=cuda).manual_seed(K)
-    B, Q, D = 2, 8, 128 if Dp >= 96 else 32
-    x_g = torch.randn((B, Q, K, D), generator=gen, device=cuda)
+EDGE_CASES = [  # (K, D, Dp, H): one team per row for K <= 128, a block per row above
+    (1, 128, 96, 8), (7, 128, 96, 8), (31, 128, 96, 8), (32, 128, 96, 8), (33, 128, 96, 8),
+    (100, 128, 96, 2), (128, 128, 128, 8), (129, 128, 96, 8), (160, 128, 96, 1),
+    (512, 128, 96, 8), (768, 128, 96, 8), (1100, 128, 96, 8), (40, 32, 24, 4), (64, 128, 96, 3),
+    (200, 64, 96, 5), (50, 30, 18, 8), (300, 30, 18, 2),
+]
+
+
+def _edge_inputs(cuda, B, Q, K, D, Dp, H, S, seed, prefix=False):
+    """(x_src_n, idx, z_r, qx, qp, valid): row (0, 3) has no valid edge and
+    the idx of every invalid edge is poisoned out of range (-1 or S + 7).
+    prefix: the valid edges of a row come first, as top-K with a radius
+    gives them."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x_src = torch.randn((B, S, D), generator=gen, device=cuda)
+    idx = torch.randint(0, S, (B, Q, K), generator=gen, device=cuda, dtype=torch.int32)
     z_r = torch.randn((B, Q, K, Dp), generator=gen, device=cuda)
     qx = torch.randn((B, Q, H, D), generator=gen, device=cuda) * 0.1
     qp = torch.randn((B, Q, H, Dp), generator=gen, device=cuda) * 0.1
-    valid = torch.rand((B, Q, K), generator=gen, device=cuda) > 0.3
+    if prefix:
+        n = torch.randint(0, K + 1, (B, Q, 1), generator=gen, device=cuda)
+        valid = torch.arange(K, device=cuda) < n
+    else:
+        valid = torch.rand((B, Q, K), generator=gen, device=cuda) > 0.3
     valid[0, 3] = False  # a destination with no valid edge
+    poison = torch.where(torch.rand((B, Q, K), generator=gen, device=cuda) > 0.5, -1, S + 7)
+    idx = torch.where(valid, idx, poison.to(torch.int32))
+    return x_src, idx, z_r, qx, qp, valid
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("K,D,Dp,H", EDGE_CASES)
+def test_edge_kernel_matches_plain(cuda, K, D, Dp, H, prefix):
+    """Both regimes, K off every tile and segment, H odd and small, D != Dp,
+    D and Dp not multiples of 4 (4-byte copies); rows with no valid edge
+    exactly zero; two launches bitwise equal."""
+    args = _edge_inputs(cuda, 2, 8, K, D, Dp, H, 300, seed=K + H, prefix=prefix)
+    valid = args[-1]
     before = edge_attn_core.launches
-    got = edge_attn_core(x_g, z_r, qx, qp, valid, 0.25)
-    ref = edge_attn_core_plain(x_g, z_r, qx, qp, valid, 0.25)
+    got = edge_attn_core(*args, 0.25)
+    again = edge_attn_core(*args, 0.25)
+    ref = edge_attn_core_plain(*args, 0.25)
     torch.cuda.synchronize()
-    assert edge_attn_core.launches == before + 1
+    assert edge_attn_core.launches == before + 2
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b.expand_as(a), atol=1e-5, rtol=1e-5)
-    assert float(got[0][0, 3].abs().max()) == 0.0 and float(got[2][0, 3].max()) == 0.0
+    empty = ~valid.any(-1)
+    assert bool(empty[0, 3]) and all(float(o[empty].abs().max()) == 0.0 for o in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
 
 def test_edge_kernel_gnn_site(cuda):
-    """The condition GNN's site: Q = K = N = 128, D_pe = D = 128, most rows
-    with one valid edge (unary conditions sit on the diagonal), a few with
-    more, the rest with none."""
+    """The condition GNN's site: Q = K = N = 128, D_pe = D = 128, idx the
+    identity row, most rows with one valid edge (unary conditions sit on
+    the diagonal), a few with more, the rest with none."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     B, N, D, H = 3, 128, 128, 8
-    x_g = torch.randn((B, N, N, D), generator=gen, device=cuda)
+    x_src = torch.randn((B, N, D), generator=gen, device=cuda)
+    idx = torch.arange(N, dtype=torch.int32, device=cuda).expand(B, N, N).contiguous()
     z_r = torch.randn((B, N, N, D), generator=gen, device=cuda)
     qx = torch.randn((B, N, H, D), generator=gen, device=cuda) * 0.1
     qp = torch.randn((B, N, H, D), generator=gen, device=cuda) * 0.1
     diag = torch.rand((B, N), generator=gen, device=cuda) > 0.4
     valid = torch.diag_embed(diag) | (torch.rand((B, N, N), generator=gen, device=cuda) > 0.995)
     before = edge_attn_core.launches
-    got = edge_attn_core(x_g, z_r, qx, qp, valid, 0.25)
-    ref = edge_attn_core_plain(x_g, z_r, qx, qp, valid, 0.25)
+    got = edge_attn_core(x_src, idx, z_r, qx, qp, valid, 0.25)
+    ref = edge_attn_core_plain(x_src, idx, z_r, qx, qp, valid, 0.25)
     torch.cuda.synchronize()
     assert edge_attn_core.launches == before + 1
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b.expand_as(a), atol=1e-5, rtol=1e-5)
     empty = ~valid.any(-1)
     assert bool(empty.any()) and all(float(o[empty].abs().max()) == 0.0 for o in got)
+
+
+def test_edge_kernel_refuses_other_inputs(cuda):
+    """Widths and head counts outside the kernel's raise; nothing falls back
+    to the plain version."""
+    before = edge_attn_core.launches
+    for K, D, Dp, H in ((8, 129, 96, 8), (8, 128, 129, 8), (8, 128, 96, 9)):
+        args = _edge_inputs(cuda, 1, 4, K, D, Dp, H, 10, seed=0)
+        with pytest.raises(ValueError):
+            edge_attn_core(*args, 0.25)
+    args = list(_edge_inputs(cuda, 1, 4, 8, 32, 24, 2, 10, seed=0))
+    with pytest.raises(TypeError):  # idx must be int32
+        edge_attn_core(args[0], args[1].long(), *args[2:], 0.25)
+    with pytest.raises(ValueError):  # a table on the CPU
+        edge_attn_core(args[0], args[1], args[2].cpu(), *args[3:], 0.25)
+    assert edge_attn_core.launches == before
+
+
+def test_topk_kernel_radius_rounds_like_jax(cuda):
+    """r = 255.14771324126028: float32(r) squared in float32 is 65100.36,
+    which keeps a source at (255.14772, 0) (d2 = 65100.36), as the JAX
+    package's neighbor_topk does (tests/test_torch_kernels.py)."""
+    r = 255.14771324126028
+    dst = torch.zeros((1, 1, 2), device=cuda)
+    src = torch.tensor([[[255.14772, 0.0], [1.0, 0.0], [300.0, 0.0]]], device=cuda)
+    dm = torch.ones((1, 1), dtype=torch.bool, device=cuda)
+    sm = torch.ones((1, 3), dtype=torch.bool, device=cuda)
+    ki, kv = neighbor_topk(dst, src, dm, sm, 3, radius=r)
+    pi, pv = neighbor_topk_plain(dst, src, dm, sm, 3, radius=r)
+    assert kv.tolist() == pv.tolist() == [[[True, True, False]]]
+    assert ki[kv].tolist() == pi[pv].tolist() == [1, 0]
 
 
 def _flash_inputs(cuda, B, T, Hq, Hkv, D, seed, dtype=torch.bfloat16):

@@ -4,7 +4,9 @@ kernels themselves are held against the plain versions on a card in
 tests/test_torch_cuda.py.
 
 Tolerances: neighbor top-K exactly (idx and valid, bit for bit); the edge
-core 1e-5 in f32 (sums taken in another order).
+core 1e-5 in f32 (sums taken in another order). The port's edge core takes
+the normalized source rows and idx and gathers them itself; the JAX side is
+the same function composed: edge_attn_core(gather_neighbors(x_src_n, idx)).
 """
 
 import jax
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from prosim_tpu.ops.edge_attn import edge_attn_core as jax_edge_attn_core
+from prosim_tpu.ops.neighbors import gather_neighbors as jax_gather_neighbors
 from prosim_tpu.ops.neighbors import neighbor_topk as jax_neighbor_topk
 from prosim_tpu.ops.pallas_topk import neighbor_topk_pallas
 from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
@@ -171,19 +174,40 @@ def test_wrappers_refuse_other_devices():
         neighbor_topk(meta(1, 4, 2), meta(1, 5, 2), meta(1, 4, dtype=torch.bool),
                       meta(1, 5, dtype=torch.bool), 3)
     with pytest.raises(ValueError):
-        edge_attn_core(meta(1, 2, 3, 8), meta(1, 2, 3, 6), meta(1, 2, 2, 8),
-                       meta(1, 2, 2, 6), meta(1, 2, 3, dtype=torch.bool), 0.5)
+        edge_attn_core(meta(1, 5, 8), meta(1, 2, 3, dtype=torch.int32), meta(1, 2, 3, 6),
+                       meta(1, 2, 2, 8), meta(1, 2, 2, 6), meta(1, 2, 3, dtype=torch.bool), 0.5)
 
 
-def _edge_inputs(B=2, Q=16, K=128, D=128, Dp=96, H=8, seed=0):
+def _edge_inputs(B=2, Q=16, K=128, D=128, Dp=96, H=8, S=40, seed=0):
+    """(x_src_n, idx, z_r, qx, qp, valid), numpy: row (0, 3) has no valid
+    edge; the idx of invalid edges is poisoned out of range (-1 and S + 7),
+    which the port must never dereference."""
     rng = np.random.default_rng(seed)
-    x_g = rng.normal(size=(B, Q, K, D)).astype(np.float32)
+    x_src = rng.normal(size=(B, S, D)).astype(np.float32)
+    idx = rng.integers(0, S, size=(B, Q, K)).astype(np.int32)
     z_r = rng.normal(size=(B, Q, K, Dp)).astype(np.float32)
     qx = (rng.normal(size=(B, Q, H, D)) * 0.1).astype(np.float32)
     qp = (rng.normal(size=(B, Q, H, Dp)) * 0.1).astype(np.float32)
     valid = rng.random((B, Q, K)) > 0.3
     valid[0, 3] = False  # a row with no valid edge
-    return x_g, z_r, qx, qp, valid
+    idx[~valid] = np.where(rng.random(int((~valid).sum())) > 0.5, -1, S + 7)
+    return x_src, idx, z_r, qx, qp, valid
+
+
+def _jax_gathered(x_src, idx, valid):
+    """x_g for the JAX side. JAX's gather fills out-of-range rows with NaN
+    (which reach the outputs through 0 * NaN), so its invalid edges point
+    at row 0; the port gets the poisoned idx, so a match also shows that
+    the idx of an invalid edge does not matter."""
+    return _host(jax_gather_neighbors(jnp.asarray(x_src), jnp.asarray(np.where(valid, idx, 0))))
+
+
+EDGE_CASES = {  # name: _edge_inputs kwargs
+    "Dp128": dict(Dp=128),
+    "Dp96": dict(Dp=96),
+    "k32_many_rows": dict(Q=64, K=32, S=300),
+    "k45_d_ne_dp": dict(Q=8, K=45, D=32, Dp=24, H=4),
+}
 
 
 def _xla_branch(x_g, z_r, qx, qp, bias, valid, scale):
@@ -200,24 +224,77 @@ def _xla_branch(x_g, z_r, qx, qp, bias, valid, scale):
             jnp.einsum("bqkh,bqkd->bqhd", attn, z_r), attn.sum(axis=2))
 
 
-@pytest.mark.parametrize("Dp", [128, 96])
-def test_edge_plain_matches_pallas_interpret(Dp):
-    args = _edge_inputs(Dp=Dp)
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_edge_plain_matches_pallas_interpret(case):
+    x_src, idx, z_r, qx, qp, valid = _edge_inputs(**EDGE_CASES[case])
     scale = 16.0 ** -0.5
-    ref = _host(jax_edge_attn_core(*map(jnp.asarray, args), scale, interpret=True))
-    got = edge_attn_core_plain(*map(torch.from_numpy, args), scale)
+    x_g = _jax_gathered(x_src, idx, valid)
+    ref = _host(jax_edge_attn_core(*map(jnp.asarray, (x_g, z_r, qx, qp, valid)), scale,
+                                   interpret=True))
+    got = edge_attn_core_plain(*map(torch.from_numpy, (x_src, idx, z_r, qx, qp, valid)), scale)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=1e-5)
+    assert float(got[0][0, 3].abs().max()) == 0.0 and float(got[2][0, 3].max()) == 0.0
 
 
 @pytest.mark.parametrize("K", [32, 100, 768])
 def test_edge_plain_matches_xla_branch(K):
     """Any K, D != Dp, and the per-query bias cancelling in the softmax."""
-    x_g, z_r, qx, qp, valid = _edge_inputs(B=1, Q=8, K=K, seed=K)
+    x_src, idx, z_r, qx, qp, valid = _edge_inputs(B=1, Q=8, K=K, S=900, seed=K)
     bias = np.random.default_rng(1).normal(size=(1, 8, 8)).astype(np.float32)
     scale = 0.25
+    x_g = _jax_gathered(x_src, idx, valid)
     ref = _host(_xla_branch(*map(jnp.asarray, (x_g, z_r, qx, qp, bias, valid)), scale))
-    got = edge_attn_core_plain(*map(torch.from_numpy, (x_g, z_r, qx, qp, valid)), scale)
+    got = edge_attn_core_plain(*map(torch.from_numpy, (x_src, idx, z_r, qx, qp, valid)), scale)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=1e-5)
     assert float(got[0][0, 3].abs().max()) == 0.0 and float(got[2][0, 3].max()) == 0.0
+
+
+def test_edge_wrapper_takes_plain_version_on_cpu():
+    args = list(map(torch.from_numpy, _edge_inputs(Q=8, K=20, D=16, Dp=12, H=2)))
+    before = edge_attn_core.launches
+    a = edge_attn_core(*args, 0.5)
+    b = edge_attn_core_plain(*args, 0.5)
+    assert edge_attn_core.launches == before  # no kernel launched
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# r = 255.14771324126028 squares to 65100.355 in float64 rounded once to
+# float32, but to 65100.36 in float32 from float32(r), which is what the
+# jitted JAX function computes; a source at (255.14772, 0) has d2 = 65100.36
+RADIUS_EDGE = 255.14771324126028
+
+
+def test_topk_radius_rounds_like_jax():
+    dst = np.zeros((1, 1, 2), np.float32)
+    src = np.array([[[255.14772, 0.0], [1.0, 0.0], [300.0, 0.0]]], np.float32)
+    dm, sm = np.ones((1, 1), bool), np.ones((1, 3), bool)
+    ji, jv = _host(jax_neighbor_topk(*map(jnp.asarray, (dst, src, dm, sm)), k=3,
+                                     radius=RADIUS_EDGE))
+    ti, tv = neighbor_topk_plain(*map(torch.from_numpy, (dst, src, dm, sm)), 3,
+                                 radius=RADIUS_EDGE)
+    np.testing.assert_array_equal(jv[0, 0], [True, True, False])
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(np.where(jv, ti.numpy(), -1), np.where(jv, ji, -1))
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_topk_radius_sweep_matches_jax(seed):
+    """Random non-integer radii, with sources placed on and around each
+    radius so that the rounding of r * r decides their validity."""
+    rng = np.random.default_rng(100 + seed)
+    r = float(rng.uniform(1.0, 400.0))
+    ang = rng.uniform(0, 2 * np.pi, size=48)
+    rad = np.float32(r) * (1 + rng.integers(-3, 4, size=48) * 2e-7)
+    src = np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1)[None].astype(np.float32)
+    src[0, :16, 1] = 0.0  # on the axis: d2 is exactly x * x rounded once
+    r32 = np.full(16, r, np.float32)
+    src[0, :16, 0] = np.nextafter(r32, r32 + rng.integers(-1, 2, 16).astype(np.float32))
+    dst = np.zeros((1, 2, 2), np.float32)
+    dm, sm = np.ones((1, 2), bool), np.ones((1, 48), bool)
+    ji, jv = _host(jax_neighbor_topk(*map(jnp.asarray, (dst, src, dm, sm)), k=48, radius=r))
+    ti, tv = neighbor_topk_plain(*map(torch.from_numpy, (dst, src, dm, sm)), 48, radius=r)
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(np.where(jv, ti.numpy(), -1), np.where(jv, ji, -1))

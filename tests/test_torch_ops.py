@@ -192,14 +192,21 @@ def test_rel_pe_features():
 
 
 def test_site_gather():
+    """The JAX package's per-site gathers (normalized source features,
+    neighbor positions and orientations) against the port's: the edge
+    core's plain version gathers the normalized source rows by idx, and
+    rel_pe_features gathers pos/ori."""
     from prosim_tpu.ops.attention import site_gather as js
-    from prosim_torch.ops.attention import site_gather
+    from prosim_torch.ops.attention import _norm_stats, _pos_ori_table
+    from prosim_torch.ops.neighbors import gather_neighbors
 
     g = _graph()
     x = _randn(2, 9, 16)
     ref = _host(js(jnp.asarray(x), jnp.asarray(g["src_pos"]), jnp.asarray(g["src_ori"]),
                    jnp.asarray(g["idx"])))
-    got = site_gather(_t(x), _t(g["src_pos"]), _t(g["src_ori"]), _t(g["idx"]))
+    idx = _t(g["idx"])
+    po = gather_neighbors(_pos_ori_table(_t(g["src_pos"]), _t(g["src_ori"])), idx)
+    got = (gather_neighbors(_norm_stats(_t(x)), idx), po[..., :2], po[..., 2])
     for a, b in zip(got, ref):
         _close(a, b)
 
@@ -221,11 +228,7 @@ def test_rel_pe(learnable, fold_dup):
 def test_gated_neighbor_attention(bipartite, shared_gather, folded):
     from prosim_tpu.ops.attention import GatedNeighborAttention as JG
     from prosim_tpu.ops.attention import gather_src_features as jgather
-    from prosim_torch.ops.attention import (
-        GatedNeighborAttention,
-        gather_src_features,
-        normalize_rel_pe,
-    )
+    from prosim_torch.ops.attention import GatedNeighborAttention, _norm_stats, normalize_rel_pe
 
     D, H, hd = 16, 4, 4
     g = _graph(B=2, Q=5, S=9, K=6)
@@ -247,7 +250,7 @@ def test_gated_neighbor_attention(bipartite, shared_gather, folded):
     kw, tkw = {}, {}
     if shared_gather:
         kw["src_gathered"] = _host(jgather(jnp.asarray(x_src), jnp.asarray(g["idx"])))
-        tkw["src_gathered"] = gather_src_features(_t(x_src), _t(g["idx"]))
+        tkw["src_normed"] = _norm_stats(_t(x_src))
     ref = _host(jm.apply({"params": params}, *args, **kw))
     got = tm(*map(_t, args[:4]), normalize_rel_pe(_t(rel_pe), D), **tkw)
     _close(got, ref)
