@@ -21,7 +21,8 @@ Llama), at B=2 in phase 5. Phases:
                 equal; beside it the earlier design over a gathered table,
                 csrc/edge_attn_table.cu, and its gather), the fused stack on the policy's real a2p/m2p
                 tables of the encoded batch with the fused model's random
-                weights (within FUSED_TOL), flash attention at the Llama's
+                weights (within FUSED_TOL, two launches bitwise equal),
+                flash attention at the Llama's
                 shape on a holed tokenizer-layout mask (bf16 by the 2x rule
                 below; f32 at tiny()'s shape within FLASH_F32_TOL; pad rows
                 exactly zero). Times: device ms per call (torch.profiler,
@@ -455,10 +456,16 @@ def check_fused(torch, model, batch):
     scene has no valid edge. Also times the layer loop (FUSED_STACK=False,
     12 edge-core launches) and the fused path (tables + kernel) from the
     same graphs."""
+    from prosim_torch.ops import _build
     from prosim_torch.ops.fused_stack import fused_two_site_stack, fused_two_site_stack_plain
 
     policy = model.policy
     p = batch.prompt
+    lib = _build.load("fused_stack")
+    dims = (policy.hidden_dim, policy.num_heads, policy.head_dim, policy.hidden_dim)
+    log(f"  fused_two_site_stack at D=P={dims[0]}, H={dims[1]}, hd={dims[2]}: "
+        f"{lib.fused_stack_smem_bytes(*dims)} bytes of dynamic shared memory a block; "
+        f"blocks of 16 warps per SM: {lib.fused_stack_blocks_per_sm(*dims)}")
     with torch.inference_mode():
         scene, emd = model.prepare(batch)
         x = emd["emd"].contiguous()
@@ -470,7 +477,10 @@ def check_fused(torch, model, batch):
         kw = dict(num_heads=policy.num_heads, head_dim=policy.head_dim)
         out = fused_two_site_stack(x, ta, tm, wa, wm, **kw)
         ref = fused_two_site_stack_plain(x, ta, tm, wa, wm, **kw)
+        again = fused_two_site_stack(x, ta, tm, wa, wm, **kw)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError("fused_two_site_stack: two launches on the same inputs differ")
         diff = (out - ref).abs()
         err = float(diff.max())
         over = float((diff - FUSED_TOL * ref.abs()).max())
@@ -491,8 +501,9 @@ def check_fused(torch, model, batch):
                valid_edges=n_valid, ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, library_ms=None,
                layer_loop_ms=loop_ms, fused_path_ms=path_ms, max_abs_err=err, **cost)
     log(f"  fused_two_site_stack[policy] B={B} N={N} Ka={row['Ka']} Km={row['Km']} "
-        f"valid={n_valid}: err {err:.2e}; device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
-        f"tables + kernel {path_ms:.4f}, layer loop {loop_ms:.4f}; wall ms: kernel {wall_ms:.4f}")
+        f"valid={n_valid}: err {err:.2e}, two launches bitwise equal; device ms: kernel "
+        f"{ms:.4f}, plain {plain_ms:.4f}, tables + kernel {path_ms:.4f}, layer loop "
+        f"{loop_ms:.4f}; wall ms: kernel {wall_ms:.4f}")
     return [row]
 
 
@@ -500,11 +511,12 @@ def fused_cost(x_p, tables, weights, num_heads, head_dim):
     """Bytes the fused stack must move (x, both sites' source tokens, idx,
     feats and valid, both sites' packed weights, each read once; the output
     written once) and its operations: per valid edge and layer, 2 H (D + P)
-    multiply-adds for the score and the aggregate (2 operations each) and
-    the rel-PE expansion at 8 operations per column (the argument's
-    multiply-add, one sin, the norm's sum, sum of squares and scaling); per
-    query row and layer, the dense products' multiply-adds (to_q, the two
-    folds, to_g, to_s, to_out, the FFN)."""
+    multiply-adds for the score and the aggregate (2 operations each); per
+    valid edge once per call (the function's rel-PE does not change from
+    layer to layer), the rel-PE expansion at 8 operations per column (the
+    argument's multiply-add, one sin, the norm's sum, sum of squares and
+    scaling); per query row and layer, the dense products' multiply-adds
+    (to_q, the two folds, to_g, to_s, to_out, the FFN)."""
     from prosim_torch.ops.fused_stack import _FIELDS
 
     B, N, D = x_p.shape
@@ -515,7 +527,8 @@ def fused_cost(x_p, tables, weights, num_heads, head_dim):
     ops = 0
     for x_src, idx, feats, valid in tables:
         nbytes += 4 * (x_src.numel() + idx.numel() + feats.numel()) + valid.numel()
-        ops += L * int(valid.sum()) * (4 * H * (D + P) + 8 * P) + 2 * L * B * N * dense
+        n_valid = int(valid.sum())
+        ops += L * n_valid * 4 * H * (D + P) + n_valid * 8 * P + 2 * L * B * N * dense
     return {"bytes": nbytes, "ops": ops}
 
 

@@ -14,37 +14,67 @@
 // with the packed weights of prosim_torch/ops/fused_stack.py:pack_site_weights
 // (the LayerNorm affines of src and rel-PE folded into wkv / wkvr / bkv).
 //
-// Design: the source tables and the query rows are fixed within a replan
-// step and the rows are independent, so one block of 8 warps owns a tile of
-// 8 query rows through all 2L layers, with the rows' state in shared memory
-// and no grid-wide synchronization. The TPU kernel projected every edge's
-// k|v ([qt*K, D] @ [D, 2I]) to feed its matrix unit; here the projections
-// fold onto the query side instead (as prosim_torch/ops/attention.py does):
-//   score: q_h . k_h[k] = x_g[k] . (wkv_k[:, h] q_h) + z[k] . (wkvr_k[:, h] q_h)
-//          + q_h . bkv_k[h], and the last term is constant over k;
-//   value: v_h = (sum_k a_k x_g[k]) wkv_v[:, h] + (sum_k a_k z[k]) wkvr_v[:, h]
-//          + bkv_v[h] * any(valid),
-// which cuts the per-edge work from 2 (D + P) 2I to 2 H (D + P) multiply-adds.
-// The edge phase reuses csrc/edge_attn.cu's register scheme: warp t
-// compacts row t's valid edges into shared memory and streams them in
-// pairs, gathering each source row by idx straight from the [B, S, D]
-// normalized tokens (the next pair's rows are prefetched into L1) and
-// expanding the edge's rel-PE from its F raw features (sinf, not the fast
-// intrinsic: arguments reach several hundred radians; the duplicated 4th
-// feature reuses the 3rd's sines), keeps the folded queries and the
-// [H, D + P] accumulators of its lane's columns in registers, and runs one
-// online softmax per head. The dense products around it (to_q, the folds,
-// to_g, to_s, to_out, the FFN) run on all 8 rows at once, one output column
-// per thread, so every weight read from device memory (or L2: both sites'
-// packed weights are 13.4 MB at the demo width) serves the whole tile. No
-// atomics; every sum runs in a fixed order, so results are bitwise
-// reproducible.
+// What bounds it on the H100: by count, the f32 operations of the edge
+// phases. Per valid edge and layer the score and the aggregate take
+// 4 H (D + P) operations on the CUDA cores: at the demo shape (B=16, N=128,
+// K = 160 / 768, L = 6) ~70 GFLOP a step, ~1.0 ms at 67 TFLOP/s; the dense
+// products around the edges are ~14 GFLOP, and the inputs, read once,
+// ~72 MB (the packed weights 13.4 MB of it). In practice the edge phases
+// are held by the engine's instruction issue and shared-memory reads (each
+// staged value is read four times: by both warps of a team, for the score
+// and for the aggregate), and the rel-PE table adds ~0.7 GB of writes and
+// ~4.4 GB of reads a step at the demo shape.
 //
-// Bound on the H100: by f32 operations. At the demo shape (B=16, N=128,
-// K = 160 / 768, L = 6) the inputs, read once, are ~72 MB (the packed
-// weights 13.4 MB of it), while the edges alone need up to 6 x 1.9M x
-// (4 H (D + P) + 8 P) ~ 105 GFLOP when every edge is valid: ~1.6 ms at
-// 67 TFLOP/s against ~21 us at 3.35 TB/s.
+// Design:
+//  * One block of 16 warps owns a tile of kRows = 8 query rows through all
+//    2L layers, with the rows' state in shared memory and no grid-wide
+//    synchronization: the source tables and the query rows are fixed
+//    within a replan step and the rows are independent. 128 registers a
+//    thread (__launch_bounds__(512, 1)): 16 warps per SM. The blocks take
+//    the rows in the order the wrapper gives (heaviest first), so the 8
+//    rows of a block carry about as many edges: its teams meet at a
+//    barrier after every layer's edges.
+//  * The rel-PE is expanded once per launch, not once per layer. Before
+//    layer 0 the block writes the normalized rel-PE row of each valid edge
+//    of its rows, at both sites, into a scratch table z [B, N, K, Pz] (Pz =
+//    P rounded up to 4, the padding zero) that the wrapper allocates: one
+//    warp per edge, sinf (not the fast intrinsic: arguments reach several
+//    hundred radians) of the product and the sum rounded apart, the
+//    duplicated 4th feature reusing the 3rd's sines, then the parameter-free
+//    LayerNorm. An invalid edge's row is neither written nor read.
+//  * The k|v projections fold onto the query side (as
+//    prosim_torch/ops/attention.py does), so an edge costs 2 H (D + P)
+//    multiply-adds and not 2 (D + P) 2I:
+//      score: q_h . k_h[k] = x_g[k] . (wkv_k[:, h] q_h) + z[k] . (wkvr_k[:, h] q_h)
+//             + q_h . bkv_k[h], and the last term is constant over k;
+//      value: v_h = (sum_k a_k x_g[k]) wkv_v[:, h] + (sum_k a_k z[k]) wkvr_v[:, h]
+//             + bkv_v[h] * any(valid).
+//  * The edge phase is csrc/edge_attn.cu's tile engine (the same function:
+//    a masked softmax of x_g . qx_h + z . qp_h and the per-head aggregates
+//    of [x_g | z]). Row t of the tile belongs to team t, warps 2t and
+//    2t + 1; warp hh of a team holds the folded queries and the [D + P]
+//    accumulators of heads hh HH .. hh HH + HH - 1 (HH = ceil(H / 2) <= 4)
+//    for the columns 4 lane .. 4 lane + 3 of each table. The team compacts
+//    its row's valid edges by ballot (an invalid edge's idx is never
+//    dereferenced), streams them in tiles of 8 edges through a two-stage
+//    cp.async ring (the x_src_n rows gathered by idx, which the L2 holds,
+//    and the z rows), reduces each tile's 32 partial scores with one
+//    31-shuffle transpose, and takes one online-softmax step per tile and
+//    head. The rings (8 teams x 2 stages x 8 edges x 256 floats, 128 KB)
+//    alias the dense phases' buffers, which are dead while the edges
+//    stream; the queries are in registers by then, and the aggregates are
+//    written back after every team is done.
+//  * The dense products around it (to_q, the folds, to_g, to_s, to_out, the
+//    FFN) run on all 8 rows at once, one output column per thread, so every
+//    weight read from device memory (or L2: both sites' packed weights are
+//    13.4 MB at the demo width) serves the whole tile.
+//  * No atomics; every sum runs in a fixed order, so results are bitwise
+//    reproducible, whatever the row order.
+// Helpers copied from csrc/edge_attn.cu (a shared header would change that
+// source): reduce_half / reduce_scatter32 (the transpose reduction),
+// team_sync, the cp.async wrappers, stage_tile, lds4 (its lines 72-160),
+// and the compaction and the tile loop of edge_attn_kernel (its lines
+// 226-333).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,14 +82,21 @@
 
 namespace {
 
-constexpr int kRows = 8;            // query rows per block
-constexpr int kWarps = kRows;       // warp t runs row t's edges and norms
+constexpr int kRows = 8;              // query rows per block
+constexpr int kTeams = kRows;         // team t runs row t's edges
+constexpr int kWarps = 2 * kTeams;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kTeamThreads = 64;
 constexpr int kMaxH = 8;
-constexpr int kMaxJ = 4;            // columns per lane: D, P, I <= 32 * kMaxJ
-constexpr int kCols = 2 * kMaxJ;    // source columns, then rel-PE columns
+constexpr int kHH = 4;                // heads per warp of a team
+constexpr int kMaxJ = 4;              // columns per lane of a warp's row: D, P <= 32 * kMaxJ
+constexpr int kDx = 32 * kMaxJ;       // staged edge row: x at [0, D), z at [kDx, kDx + P)
+constexpr int kCs = 2 * kDx;          // floats per staged edge row (a constant stride keeps
+                                      // the tile's addresses immediate offsets of one register)
+constexpr int kTile = 8;              // edges per tile
+constexpr int kStages = 2;
+constexpr int kListCap = 256;         // list entries per team and pass
 constexpr int kFields = 23;
-constexpr int kChunk = 256;         // edges a warp compacts per pass
 constexpr unsigned kFull = 0xffffffffu;
 
 // packed field order of prosim_torch/ops/fused_stack.py:_FIELDS
@@ -72,14 +109,48 @@ struct Site {
   const int* idx;              // [B, N, K]
   const float* feats;          // [B, N, K, F] raw rel-PE features
   const unsigned char* valid;  // [B, N, K]
+  float* z;                    // [B, N, K, Pz] scratch: the normalized rel-PE
   const float* w[kFields];     // packed fields, each stacked over L
   int S, K;
 };
 
 struct Dims {
-  int N, L, D, H, hd, I, F, P;
+  int R, N, L, D, H, hd, I, F, P;  // R = B N query rows
+  int Pz;    // z row stride: P rounded up to 4
+  bool vec;  // D % 4 == 0 and src 16-byte aligned: x rows by 16-byte copies
   float scale;
 };
+
+__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Offsets (floats) into the block's dynamic shared memory, each a multiple
+// of 4. The edge rings share the region from `ring` on with the dense
+// buffers vec, big, qa and red.
+struct Layout {
+  int xs, cat, any, wsm, count, rowid, list, vec, big, qa, red, ring, total, ldv, ldb;
+};
+
+__host__ __device__ inline Layout layout(const Dims& d) {
+  Layout o;
+  o.ldv = imax(d.I, d.D);
+  o.ldb = imax(4 * d.D, 2 * d.I);
+  int at = 0;
+  o.xs = at;    at += up4(kRows * d.D);               // [kRows][D]     the residual stream
+  o.cat = at;   at += up4(kRows * (d.I + d.D));       // [kRows][I + D] agg | xn
+  o.any = at;   at += up4(kRows);                     // [kRows]
+  o.wsm = at;   at += kWarps * (kTile * kHH + kHH);   // [kWarps][tile weights | rescales]
+  o.count = at; at += up4(kTeams);                    // [kTeams] ints
+  o.rowid = at; at += up4(kRows);                     // [kRows] ints: b N + n, -1 past the end
+  o.list = at;  at += 2 * kTeams * kListCap;          // [kTeams][edge k | source s][kListCap] ints
+  o.ring = at;                                        // [kTeams][kStages][kTile][kCs]
+  o.vec = at;   at += up4(kRows * o.ldv);             // [kRows][ldv]
+  o.big = at;   at += up4(kRows * o.ldb);             // [kRows][ldb]
+  o.qa = at;    at += up4(kRows * d.H * (d.D + d.P)); // [kRows][H][D + P]
+  o.red = at;   at += kThreads * kRows;               // rowmat's split sums
+  o.total = imax(at, o.ring + kTeams * kStages * kTile * kCs);
+  return o;
+}
 
 __device__ __forceinline__ int field_size(int f, const Dims& d) {
   switch (f) {
@@ -103,30 +174,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
-}
-
-// Sums v[h] over the warp for every h; lanes 4h..4h+3 end up holding the
-// sum of v[h] (h = lane >> 2). Copied from csrc/edge_attn.cu.
-__device__ __forceinline__ float reduce_scatter8(const float (&v)[kMaxH], int lane) {
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-  float w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = b4 ? v[i] : v[i + 4];
-    const float keep = b4 ? v[i + 4] : v[i];
-    w[i] = keep + __shfl_xor_sync(kFull, send, 16);
-  }
-  float x[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = b3 ? w[i] : w[i + 2];
-    const float keep = b3 ? w[i + 2] : w[i];
-    x[i] = keep + __shfl_xor_sync(kFull, send, 8);
-  }
-  float y = (b2 ? x[1] : x[0]) + __shfl_xor_sync(kFull, b2 ? x[0] : x[1], 4);
-  y += __shfl_xor_sync(kFull, y, 2);
-  y += __shfl_xor_sync(kFull, y, 1);
-  return y;
 }
 
 // Parameter-free LayerNorm of one row of n <= 128 values, run by one warp
@@ -221,111 +268,42 @@ __device__ void rowmat(const float* in, int ldi, int ldh, int hd, const float* _
 
 // Folds each row's query onto the source and rel-PE columns, per head:
 // qa[t][h][c] = sum_{e < hd} W[c][h hd + e] q[t][h hd + e], with W = wkv
-// (its k half) for c < D and W = wkvr for D <= c < D + P. One column c per
-// thread for all rows and heads: the thread reads its weight row as float4
-// (hd % 4 == 0), L1 serving each line to the next three reads, and the
-// queries are shared-memory broadcasts.
+// (its k half) for c < D and W = wkvr for D <= c < D + P. One (column, head)
+// per thread for all rows: the thread reads its weights as float4
+// (hd % 4 == 0), and the queries are shared-memory broadcasts.
 __device__ void fold_queries(const float* q, int ldq, const float* __restrict__ wkv,
                              const float* __restrict__ wkvr, float* qa, const Dims& d) {
   const int C = d.D + d.P;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  for (int it = threadIdx.x; it < C * d.H; it += kThreads) {
+    const int h = it / C, c = it - h * C;
     const float* wrow = c < d.D ? wkv + (size_t)c * 2 * d.I : wkvr + (size_t)(c - d.D) * 2 * d.I;
-    for (int h = 0; h < d.H; ++h) {
-      float acc[kRows];
+    float acc[kRows];
 #pragma unroll
-      for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
-      for (int i = h * d.hd; i < (h + 1) * d.hd; i += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(wrow + i);
+    for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
+    for (int i = h * d.hd; i < (h + 1) * d.hd; i += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(wrow + i);
 #pragma unroll
-        for (int t = 0; t < kRows; ++t) {
-          const float* qt = q + t * ldq + i;
-          acc[t] = fmaf(w.w, qt[3], fmaf(w.z, qt[2], fmaf(w.y, qt[1], fmaf(w.x, qt[0], acc[t]))));
-        }
+      for (int t = 0; t < kRows; ++t) {
+        const float* qt = q + t * ldq + i;
+        acc[t] = fmaf(w.w, qt[3], fmaf(w.z, qt[2], fmaf(w.y, qt[1], fmaf(w.x, qt[0], acc[t]))));
       }
-#pragma unroll
-      for (int t = 0; t < kRows; ++t) qa[(t * d.H + h) * C + c] = acc[t];
-    }
-  }
-}
-
-// One edge into registers: t[0..kMaxJ) the lane's columns of the gathered
-// source row, t[kMaxJ..kCols) its rel-PE columns, normalized over all P.
-// `ok` is warp-uniform; an invalid edge is not read.
-__device__ __forceinline__ void load_edge(const float* __restrict__ x_row,
-                                          const float* __restrict__ fe, int D, int P, bool ok,
-                                          const float (&fr)[kMaxJ], const float (&ph)[kMaxJ],
-                                          const int (&fi)[kMaxJ], unsigned twins, int lane,
-                                          float (&t)[kCols]) {
-  if (!ok) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) t[j] = 0.f;
-    return;
-  }
-  float s = 0.f, ss = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxJ; ++j) {
-    const int c = lane + 32 * j;
-    t[j] = c < D ? x_row[c] : 0.f;
-    // the product and the sum rounded apart, as the plain version and XLA
-    // compute feats @ m1 + phase; contracting them into an fma would move
-    // sin by up to an ulp of a ~300 rad argument. A column at the same
-    // frequency and phase as the lane's previous one (bit j of `twins`)
-    // whose feature has the same value there (the reference's duplicated
-    // rel_ori_vec) reuses that sine: the argument is the same.
-    float z = 0.f;
-    if (j > 0 && ((twins >> j) & 1u) && fe[fi[j]] == fe[fi[j > 0 ? j - 1 : 0]])
-      z = t[kMaxJ + (j > 0 ? j - 1 : 0)];
-    else if (c < P)
-      z = sinf(__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j]));
-    t[kMaxJ + j] = z;
-    s += z;
-    ss = fmaf(z, z, ss);
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mu = s / P;
-  const float r = rsqrtf(fmaxf(ss / P - mu * mu, 0.f) + 1e-5f);
-#pragma unroll
-  for (int j = 0; j < kMaxJ; ++j)
-    t[kMaxJ + j] = lane + 32 * j < P ? (t[kMaxJ + j] - mu) * r : 0.f;
-}
-
-// Asks for an edge's source row and features in L1 ahead of load_edge.
-__device__ __forceinline__ void prefetch_edge(const float* x_row, const float* fe, int D,
-                                              int lane) {
-#pragma unroll
-  for (int j = 0; j < kMaxJ; ++j)
-    if (lane + 32 * j < D) asm volatile("prefetch.global.L1 [%0];" ::"l"(x_row + lane + 32 * j));
-  if (lane == 0) asm volatile("prefetch.global.L1 [%0];" ::"l"(fe));
-}
-
-// One warp's row: the masked online softmax over the row's valid edges and
-// the aggregates sum_k a_k [x_g[k] | z[k]] per head, written over the row's
-// folded queries in qa_t [H][D + P]; any_t = 1 if the row has a valid edge.
-// The warp compacts the valid edges of each chunk of kChunk into `list`
-// (its own [kChunk] in shared memory), so the edge loop runs over valid
-// edges only, with their source index at hand, and asks for the next
-// pair's rows in L1 while it works on the current pair.
-__device__ void edge_phase(const Site& s, int b, int row, bool live, const Dims& d,
-                           const float* __restrict__ fc, float* qa_t, float* any_t, int2* list,
-                           int lane) {
-  const int D = d.D, P = d.P, H = d.H, C = D + P;
-  float q[kMaxH][kCols];
-  float acc[kMaxH][kCols];
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
-      const int c = lane + 32 * j;
-      q[h][j] = (h < H && c < D) ? qa_t[h * C + c] : 0.f;
-      q[h][kMaxJ + j] = (h < H && c < P) ? qa_t[h * C + D + c] : 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[h][j] = 0.f;
+    for (int t = 0; t < kRows; ++t) qa[(t * d.H + h) * C + c] = acc[t];
   }
+}
+
+// Writes the normalized rel-PE row of every valid edge of the block's rows
+// (rowid) at one site into s.z (the padding columns P..Pz zero), one warp
+// per edge, lane l holding the columns l + 32 j. Each warp takes chunks of
+// 32 edges of a row; an invalid edge is skipped.
+__device__ void expand_pe(const Site& s, const int* rowid, const Dims& d,
+                          const float* __restrict__ fc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = d.P, F = d.F, K = s.K;
+  const int npf = P / F;
   float fr[kMaxJ], ph[kMaxJ];
   int fi[kMaxJ];
-  const int npf = P / d.F;
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) {
     const int c = lane + 32 * j;
@@ -340,203 +318,444 @@ __device__ void edge_phase(const Site& s, int b, int row, bool live, const Dims&
 #pragma unroll
   for (int j = 1; j < kMaxJ; ++j)
     if (lane + 32 * j < P && fr[j] == fr[j - 1] && ph[j] == ph[j - 1]) twins |= 1u << j;
-  float m = -INFINITY;  // running max and denominator of head lane >> 2
-  float l = 0.f;
-  if (live) {
-    const size_t rg = (size_t)b * d.N + row;
-    const int K = s.K;
-    const int* idx_row = s.idx + rg * K;
-    const unsigned char* v_row = s.valid + rg * K;
-    const float* f_row = s.feats + rg * K * d.F;
-    const float* src_b = s.src + (size_t)b * s.S * D;
-    auto x_row = [&](int2 ed) { return src_b + (size_t)ed.y * D; };
-    auto fe = [&](int2 ed) { return f_row + (size_t)ed.x * d.F; };
-    for (int c0 = 0; c0 < K; c0 += kChunk) {
-      // compact the chunk's valid edges, (edge, source index), in edge order
-      int n = 0;
-      for (int base = c0; base < min(c0 + kChunk, K); base += 32) {
-        const int e = base + lane;
-        const bool ok = e < K && v_row[e] != 0;
-        const int src = e < K ? idx_row[e] : 0;
-        const unsigned bal = __ballot_sync(kFull, ok);
-        if (ok) list[n + __popc(bal & ((1u << lane) - 1))] = make_int2(e, src);
-        n += __popc(bal);
+  const int chunks = (K + 31) >> 5;
+  for (int it = warp; it < kRows * chunks; it += kWarps) {
+    const int t = it / chunks, c0 = (it - t * chunks) * 32;
+    if (rowid[t] < 0) break;  // later items are past the end too
+    const size_t rg = rowid[t];
+    const int e = c0 + lane;
+    const bool ok = e < K && s.valid[rg * K + e] != 0;
+    const float* f_row = s.feats + rg * K * F;
+    if (ok) asm volatile("prefetch.global.L1 [%0];" ::"l"(f_row + (size_t)e * F));
+    float* z_row = s.z + rg * K * d.Pz;
+    for (unsigned bal = __ballot_sync(kFull, ok); bal; bal &= bal - 1) {
+      const int k = c0 + __ffs(bal) - 1;
+      const float* fe = f_row + (size_t)k * F;
+      float v[kMaxJ];
+      float sum = 0.f, ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxJ; ++j) {
+        // the product and the sum rounded apart, as the plain version and
+        // XLA compute feats @ m1 + phase; contracting them into an fma would
+        // move sin by up to an ulp of a ~300 rad argument. A column at the
+        // same frequency and phase as the lane's previous one (bit j of
+        // `twins`) whose feature has the same value there (the reference's
+        // duplicated rel_ori_vec) reuses that sine: the argument is the same.
+        float z = 0.f;
+        if (j > 0 && ((twins >> j) & 1u) && fe[fi[j]] == fe[fi[j > 0 ? j - 1 : 0]])
+          z = v[j > 0 ? j - 1 : 0];
+        else if (lane + 32 * j < P)
+          z = sinf(__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j]));
+        v[j] = z;
+        sum += z;
+        ss = fmaf(z, z, ss);
       }
-      __syncwarp();
-      if (n > 0) prefetch_edge(x_row(list[0]), fe(list[0]), D, lane);
-      if (n > 1) prefetch_edge(x_row(list[1]), fe(list[1]), D, lane);
-      for (int i = 0; i < n; i += 2) {
-        const int2 e0 = list[i];
-        const bool v1 = i + 1 < n;
-        const int2 e1 = v1 ? list[i + 1] : e0;
-        if (i + 2 < n) prefetch_edge(x_row(list[i + 2]), fe(list[i + 2]), D, lane);
-        if (i + 3 < n) prefetch_edge(x_row(list[i + 3]), fe(list[i + 3]), D, lane);
-        float t0[kCols], t1[kCols];
-        load_edge(x_row(e0), fe(e0), D, P, true, fr, ph, fi, twins, lane, t0);
-        load_edge(x_row(e1), fe(e1), D, P, v1, fr, ph, fi, twins, lane, t1);
-        float p0[kMaxH], p1[kMaxH];
-#pragma unroll
-        for (int h = 0; h < kMaxH; ++h) {
-          float a = 0.f, bb = 0.f;
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            a = fmaf(t0[j], q[h][j], a);
-            bb = fmaf(t1[j], q[h][j], bb);
-          }
-          p0[h] = a;
-          p1[h] = bb;
-        }
-        const float s0 = reduce_scatter8(p0, lane) * d.scale;
-        const float s1 = v1 ? reduce_scatter8(p1, lane) * d.scale : -INFINITY;
-        const float m_new = fmaxf(m, fmaxf(s0, s1));  // finite: edge e0 is valid
-        const float corr = expf(m - m_new);           // 0 while m is -inf
-        const float w0 = expf(s0 - m_new);
-        const float w1 = v1 ? expf(s1 - m_new) : 0.f;
-        l = l * corr + w0 + w1;
-        m = m_new;
-#pragma unroll
-        for (int h = 0; h < kMaxH; ++h) {
-          if (h < H) {  // warp-uniform
-            const float c = __shfl_sync(kFull, corr, 4 * h);
-            const float a = __shfl_sync(kFull, w0, 4 * h);
-            const float bb = __shfl_sync(kFull, w1, 4 * h);
-#pragma unroll
-            for (int j = 0; j < kCols; ++j)
-              acc[h][j] = fmaf(bb, t1[j], fmaf(a, t0[j], acc[h][j] * c));
-          }
-        }
-      }
-      __syncwarp();  // the list is rewritten by the next chunk
-    }
-  }
-  __syncwarp();  // every lane has read its queries before qa_t is overwritten
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    if (h < H) {
-      const float L = __shfl_sync(kFull, l, 4 * h);
+      sum = warp_sum(sum);
+      ss = warp_sum(ss);
+      const float mu = sum / P;
+      const float r = rsqrtf(fmaxf(ss / P - mu * mu, 0.f) + 1e-5f);
+      float* zr = z_row + (size_t)k * d.Pz;
 #pragma unroll
       for (int j = 0; j < kMaxJ; ++j) {
         const int c = lane + 32 * j;
-        if (c < D) qa_t[h * C + c] = L > 0.f ? acc[h][j] / L : 0.f;
-        if (c < P) qa_t[h * C + D + c] = L > 0.f ? acc[h][kMaxJ + j] / L : 0.f;
+        if (c < d.Pz) zr[c] = c < P ? (v[j] - mu) * r : 0.f;
       }
     }
   }
-  if (lane == 0) *any_t = l > 0.f ? 1.f : 0.f;  // lane 0 holds head 0's denominator
 }
 
-struct Smem {
-  float *xs, *cat, *vec, *big, *qa, *red, *any;
-  int2* list;
-  int ldv, ldb;
-};
+// One stage of reduce_scatter32: lanes with bit W set keep the upper half
+// of v[0, 2W), the others the lower half, and add the partner's copy.
+template <int W>
+__device__ __forceinline__ void reduce_half(float (&v)[kTile * kHH], int lane) {
+  const bool up = lane & W;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float send = up ? v[k] : v[k + W];
+    const float keep = up ? v[k + W] : v[k];
+    v[k] = keep + __shfl_xor_sync(kFull, send, W);
+  }
+}
+
+// v[k] for k < 32 (k = e * kHH + i: edge e of the tile, head i): returns on
+// lane l the warp's sum of v[l]. Recursive halving: 16 + 8 + 4 + 2 + 1
+// shuffles, each stage's shuffles independent of each other.
+__device__ __forceinline__ float reduce_scatter32(float (&v)[kTile * kHH], int lane) {
+  static_assert(kTile * kHH == 32, "one sum per lane");
+  reduce_half<16>(v, lane);
+  reduce_half<8>(v, lane);
+  reduce_half<4>(v, lane);
+  reduce_half<2>(v, lane);
+  reduce_half<1>(v, lane);
+  return v[0];
+}
+
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(kTeamThreads) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Stage the x and z rows of list entries [e0, e0 + n) into `st`, edges hh,
+// hh + 2, ... by warp hh of the team, and zero the rows n..kTile-1 (a
+// partial tile is computed in full; its extra edges get no weight). The
+// ring aliases other buffers, so x's padding columns D..up4(D) are zeroed
+// too; z's come zero from the table. Columns past those are never read.
+__device__ __forceinline__ void stage_tile(float* st, const float* __restrict__ xs_b,
+                                           const float* __restrict__ z_row, const int* lk,
+                                           const int* ls, int e0, int n, const Dims& d, int hh,
+                                           int lane) {
+  for (int e = hh; e < n; e += 2) {
+    const float* xrow = xs_b + (size_t)ls[e0 + e] * d.D;
+    const float* zrow = z_row + (size_t)lk[e0 + e] * d.Pz;
+    float* dst = st + e * kCs;
+    if (d.vec) {
+      if (4 * lane < d.D) cp_async16(dst + 4 * lane, xrow + 4 * lane);
+    } else {
+      for (int c = lane; c < d.D; c += 32) cp_async4(dst + c, xrow + c);
+      if (d.D + lane < up4(d.D)) dst[d.D + lane] = 0.f;
+    }
+    if (4 * lane < d.Pz) cp_async16(dst + kDx + 4 * lane, zrow + 4 * lane);
+  }
+  cp_async_commit();
+  for (int i = 32 * hh + lane; i < (kTile - n) * kCs; i += kTeamThreads) st[n * kCs + i] = 0.f;
+}
+
+// The edges of one site and layer: team t runs row rowid[t]. On entry qa
+// holds the rows' folded queries [kRows][H][D + P]; on exit the per-head
+// aggregates sum_k a_k [x_g[k] | z[k]] over the row's valid edges (a the
+// masked softmax), and any[t] = 1 if row t has a valid edge. Starts and
+// ends with __syncthreads().
+__device__ __forceinline__ void edge_phase(const Site& s, const int* rowid, const Dims& d,
+                                           const Layout& o, float* sm) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int team = warp >> 1;
+  const int hh = warp & 1;
+  const int row = rowid[team];
+  const int D = d.D, P = d.P, C = D + P, K = s.K;
+  const int HH = (d.H + 1) >> 1;
+  const int h0 = hh * HH;
+  const int nh = max(0, min(HH, d.H - h0));
+  const int c0 = 4 * lane;
+  const bool own_x = c0 < D, own_z = c0 < P;
+  float* qa_t = sm + o.qa + team * d.H * C;
+
+  float q[kHH][8];
+  float acc[kHH][8];
+#pragma unroll
+  for (int i = 0; i < kHH; ++i) {
+    const float* qh = qa_t + (h0 + i) * C;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      q[i][t] = (i < nh && c0 + t < D) ? qh[c0 + t] : 0.f;
+      q[i][4 + t] = (i < nh && c0 + t < P) ? qh[D + c0 + t] : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) acc[i][t] = 0.f;
+  }
+  float m = -INFINITY;  // running max and denominator of head h0 + lane % kHH
+  float l = 0.f;
+  __syncthreads();  // every query is in registers: the rings may overwrite qa
+
+  if (row >= 0) {
+    const int stage_floats = kStages * kTile * kCs;
+    float* stage = sm + o.ring + team * stage_floats;
+    int* list_k = reinterpret_cast<int*>(sm + o.list) + 2 * team * kListCap;
+    int* list_s = list_k + kListCap;
+    int* count = reinterpret_cast<int*>(sm + o.count);
+    float* wsm = sm + o.wsm + warp * (kTile * kHH + kHH);
+    float* csm = wsm + kTile * kHH;
+    const size_t rg = row;
+    const float* xs_b = s.src + (size_t)(row / d.N) * s.S * D;
+    const float* z_row = s.z + rg * K * d.Pz;
+    const int* idx_row = s.idx + rg * K;
+    const unsigned char* v_row = s.valid + rg * K;
+
+    for (int base = 0; base < K; base += kListCap) {
+      // compact the valid edges of [base, base + kListCap) in edge order;
+      // all flags and indices are loaded first, so their latencies overlap
+      if (hh == 0) {
+        constexpr int kChunks = kListCap / 32;
+        bool v[kChunks];
+        int src[kChunks];
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          const int k = base + 32 * c + lane;
+          v[c] = k < K && v_row[k] != 0;
+          src[c] = v[c] ? idx_row[k] : 0;
+        }
+        int n = 0;
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          const unsigned mask = __ballot_sync(kFull, v[c]);
+          if (v[c]) {
+            const int at = n + __popc(mask & ((1u << lane) - 1));
+            list_k[at] = base + 32 * c + lane;
+            list_s[at] = src[c];
+          }
+          n += __popc(mask);
+        }
+        if (lane == 0) count[team] = n;
+      }
+      team_sync(team);
+      const int n = count[team];
+      const int tiles = (n + kTile - 1) / kTile;
+      // tiles u < kStages - 1 first; then tile t + kStages - 1 is copied while
+      // tile t is computed (one copy group per tile, empty past the last)
+#pragma unroll
+      for (int u = 0; u < kStages - 1; ++u) {
+        if (u < tiles)
+          stage_tile(stage + u * kTile * kCs, xs_b, z_row, list_k, list_s, u * kTile,
+                     min(kTile, n - u * kTile), d, hh, lane);
+        else
+          cp_async_commit();
+      }
+      for (int t = 0; t < tiles; ++t) {
+        cp_async_wait<kStages - 2>();
+        team_sync(team);  // tile t visible to the team; tile t - 1 consumed by both warps
+        const int u = t + kStages - 1;
+        if (u < tiles)
+          stage_tile(stage + (u % kStages) * kTile * kCs, xs_b, z_row, list_k, list_s,
+                     u * kTile, min(kTile, n - u * kTile), d, hh, lane);
+        else
+          cp_async_commit();
+        if (nh == 0) continue;  // warp-uniform: a warp without heads only stages
+        const float* st = stage + (t % kStages) * kTile * kCs;
+        const int nt = min(kTile, n - t * kTile);
+        float p[kTile * kHH];
+#pragma unroll
+        for (int e = 0; e < kTile; ++e) {
+          const float4 x = own_x ? lds4(st + e * kCs + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 z = own_z ? lds4(st + e * kCs + kDx + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int i = 0; i < kHH; ++i) {
+            float a = x.x * q[i][0];
+            a = fmaf(x.y, q[i][1], a);
+            a = fmaf(x.z, q[i][2], a);
+            a = fmaf(x.w, q[i][3], a);
+            a = fmaf(z.x, q[i][4], a);
+            a = fmaf(z.y, q[i][5], a);
+            a = fmaf(z.z, q[i][6], a);
+            p[e * kHH + i] = fmaf(z.w, q[i][7], a);
+          }
+        }
+        // lane l now scores edge l / kHH for head l % kHH; the 8 lanes of a
+        // head (lane % kHH) run its online softmax over the tile together
+        const float sum = reduce_scatter32(p, lane);
+        const float sc = (lane >> 2) < nt ? sum * d.scale : -INFINITY;
+        float mt = sc;  // edge 0 is valid: finite
+#pragma unroll
+        for (int w = 4; w < 32; w <<= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, w));
+        const float m_new = fmaxf(m, mt);
+        const float corr = expf(m - m_new);  // 0 while m is -inf
+        const float wt = expf(sc - m_new);   // 0 for the tile's extra edges
+        float lsum = wt;
+#pragma unroll
+        for (int w = 4; w < 32; w <<= 1) lsum += __shfl_xor_sync(kFull, lsum, w);
+        l = fmaf(l, corr, lsum);
+        m = m_new;
+        wsm[lane] = wt;  // wsm[e * kHH + i]
+        if (lane < kHH) csm[lane] = corr;
+        __syncwarp();
+        const float4 c4 = lds4(csm);
+        const float cf[kHH] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int i = 0; i < kHH; ++i)
+#pragma unroll
+          for (int t2 = 0; t2 < 8; ++t2) acc[i][t2] *= cf[i];
+#pragma unroll
+        for (int e = 0; e < kTile; ++e) {
+          const float4 w4 = lds4(wsm + e * kHH);
+          const float w[kHH] = {w4.x, w4.y, w4.z, w4.w};
+          const float4 x = own_x ? lds4(st + e * kCs + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 z = own_z ? lds4(st + e * kCs + kDx + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float v[8] = {x.x, x.y, x.z, x.w, z.x, z.y, z.z, z.w};
+#pragma unroll
+          for (int i = 0; i < kHH; ++i)
+#pragma unroll
+            for (int t2 = 0; t2 < 8; ++t2) acc[i][t2] = fmaf(w[i], v[t2], acc[i][t2]);
+        }
+      }
+      team_sync(team);  // the list and the ring are free again
+    }
+  }
+
+  __syncthreads();  // every team is done with its ring: qa may be written
+#pragma unroll
+  for (int i = 0; i < kHH; ++i) {
+    if (i < nh) {  // warp-uniform
+      const float L = __shfl_sync(kFull, l, i);
+      const bool ok = L > 0.f;
+      float* out = qa_t + (h0 + i) * C;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (c0 + t < D) out[c0 + t] = ok ? acc[i][t] / L : 0.f;
+        if (c0 + t < P) out[D + c0 + t] = ok ? acc[i][4 + t] / L : 0.f;
+      }
+    }
+  }
+  // lane 0 of the team's first warp holds head 0's denominator
+  if (hh == 0 && lane == 0) sm[o.any + team] = l > 0.f ? 1.f : 0.f;
+  __syncthreads();
+}
 
 // One GatedNeighborAttention layer of one site on the block's rows.
-__device__ void site_layer(const Site& s, int l, int b, int row0, const Dims& d,
-                           const float* __restrict__ fc, const Smem& m) {
+__device__ void site_layer(const Site& s, int l, const int* rowid, const Dims& d, const Layout& o,
+                           float* sm) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int D = d.D, I = d.I, P = d.P, C = D + P, ldc = I + D;
+  const int D = d.D, I = d.I, P = d.P, C = D + P, ldc = I + D, ldv = o.ldv, ldb = o.ldb;
+  float *xs = sm + o.xs, *cat = sm + o.cat, *vec = sm + o.vec, *big = sm + o.big;
+  float *qa = sm + o.qa, *red = sm + o.red, *any = sm + o.any;
   auto W = [&](int f) { return weight(s, f, l, d); };
 
   // xn = LN_dst(x), kept in cat[:, I:] (cat = [agg | xn] feeds to_g)
-  warp_norm(m.xs + warp * D, m.cat + warp * ldc + I, D, W(GD), W(BD), false, lane);
+  if (warp < kRows) warp_norm(xs + warp * D, cat + warp * ldc + I, D, W(GD), W(BD), false, lane);
   __syncthreads();
   // q = xn Wq + bq, folded onto the source and rel-PE columns per head
-  rowmat(m.cat + I, ldc, 0, 1, W(WQ), D, nullptr, 0, I, I, W(BQ), kNone, m.vec, m.ldv, m.red);
-  fold_queries(m.vec, m.ldv, W(WKV), W(WKVR), m.qa, d);
+  rowmat(cat + I, ldc, 0, 1, W(WQ), D, nullptr, 0, I, I, W(BQ), kNone, vec, ldv, red);
+  fold_queries(vec, ldv, W(WKV), W(WKVR), qa, d);
   __syncthreads();
   // the edges: per-head aggregates over [x_g | z] into qa
-  edge_phase(s, b, row0 + warp, row0 + warp < d.N, d, fc, m.qa + warp * d.H * C,
-             m.any + warp, m.list + warp * kChunk, lane);
-  __syncthreads();
+  edge_phase(s, rowid, d, o, sm);
   // agg = the aggregates through the v halves of wkv / wkvr, + bkv_v * any
-  rowmat(m.qa, d.H * C, C, d.hd, W(WKV) + I, D, W(WKVR) + I, P, 2 * I, I, nullptr, kNone,
-         m.cat, ldc, m.red);
+  rowmat(qa, d.H * C, C, d.hd, W(WKV) + I, D, W(WKVR) + I, P, 2 * I, I, nullptr, kNone,
+         cat, ldc, red);
   const float* bkv = W(BKV);
   for (int i = threadIdx.x; i < kRows * I; i += kThreads) {
     const int t = i / I, j = i - t * I;
-    m.cat[t * ldc + j] += bkv[I + j] * m.any[t];
+    cat[t * ldc + j] += bkv[I + j] * any[t];
   }
   __syncthreads();
   // gate g = sigmoid(to_g [agg, xn]) and s = to_s(xn), then the gated update
-  rowmat(m.cat, ldc, 0, 1, W(WG), I + D, nullptr, 0, I, I, W(BG), kSigmoid, m.big, m.ldb, m.red);
-  rowmat(m.cat + I, ldc, 0, 1, W(WS), D, nullptr, 0, I, I, W(BS2), kNone, m.big + I, m.ldb,
-         m.red);
+  rowmat(cat, ldc, 0, 1, W(WG), I + D, nullptr, 0, I, I, W(BG), kSigmoid, big, ldb, red);
+  rowmat(cat + I, ldc, 0, 1, W(WS), D, nullptr, 0, I, I, W(BS2), kNone, big + I, ldb, red);
   for (int i = threadIdx.x; i < kRows * I; i += kThreads) {
     const int t = i / I, j = i - t * I;
-    const float agg = m.cat[t * ldc + j];
-    m.vec[t * m.ldv + j] = agg + m.big[t * m.ldb + j] * (m.big[t * m.ldb + I + j] - agg);
+    const float agg = cat[t * ldc + j];
+    vec[t * ldv + j] = agg + big[t * ldb + j] * (big[t * ldb + I + j] - agg);
   }
   __syncthreads();
-  rowmat(m.vec, m.ldv, 0, 1, W(WO), I, nullptr, 0, D, D, W(BO), kNone, m.big, m.ldb, m.red);
+  rowmat(vec, ldv, 0, 1, W(WO), I, nullptr, 0, D, D, W(BO), kNone, big, ldb, red);
   // x += LN_post(out); ff_in = LN_ff(x) (warp t owns row t in both)
-  warp_norm(m.big + warp * m.ldb, m.xs + warp * D, D, W(PNG), W(PNB), true, lane);
-  __syncwarp();
-  warp_norm(m.xs + warp * D, m.vec + warp * m.ldv, D, W(F1G), W(F1B), false, lane);
+  if (warp < kRows) {
+    warp_norm(big + warp * ldb, xs + warp * D, D, W(PNG), W(PNB), true, lane);
+    __syncwarp();
+    warp_norm(xs + warp * D, vec + warp * ldv, D, W(F1G), W(F1B), false, lane);
+  }
   __syncthreads();
   // FFN, then x += LN_ffpost(ff)
-  rowmat(m.vec, m.ldv, 0, 1, W(W0), D, nullptr, 0, 4 * D, 4 * D, W(B0), kRelu, m.big, m.ldb,
-         m.red);
-  rowmat(m.big, m.ldb, 0, 1, W(W1), 4 * D, nullptr, 0, D, D, W(B1), kNone, m.vec, m.ldv, m.red);
-  warp_norm(m.vec + warp * m.ldv, m.xs + warp * D, D, W(F2G), W(F2B), true, lane);
+  rowmat(vec, ldv, 0, 1, W(W0), D, nullptr, 0, 4 * D, 4 * D, W(B0), kRelu, big, ldb, red);
+  rowmat(big, ldb, 0, 1, W(W1), 4 * D, nullptr, 0, D, D, W(B1), kNone, vec, ldv, red);
+  if (warp < kRows)
+    warp_norm(vec + warp * ldv, xs + warp * D, D, W(F2G), W(F2B), true, lane);
   __syncthreads();
 }
 
+// Block i runs the query rows order[8 i .. 8 i + 7] (b N + n, a permutation
+// of the B N rows). o = layout(d), computed on the host: its offsets are
+// read from the parameter bank and hold no registers.
 __global__ void __launch_bounds__(kThreads, 1) fused_stack_kernel(
-    const float* __restrict__ x_in, float* __restrict__ x_out, const Site a, const Site mp,
-    const float* __restrict__ fc, const Dims d) {
-  extern __shared__ float sm[];
-  const int D = d.D, I = d.I;
-  Smem m;
-  m.ldv = max(I, D);
-  m.ldb = max(4 * D, 2 * I);
-  m.xs = sm;                              // [kRows][D]      the residual stream
-  m.cat = m.xs + kRows * D;               // [kRows][I + D]  agg | xn
-  m.vec = m.cat + kRows * (I + D);        // [kRows][ldv]
-  m.big = m.vec + kRows * m.ldv;          // [kRows][ldb]
-  m.qa = m.big + kRows * m.ldb;           // [kRows][H][D + P]
-  m.red = m.qa + kRows * d.H * (D + d.P); // [kThreads * kRows]
-  m.any = m.red + kThreads * kRows;       // [kRows]
-  m.list = reinterpret_cast<int2*>(m.any + 2 * kRows);  // [kWarps][kChunk], 8-byte aligned
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = row0 + i / D;
-    m.xs[i] = r < d.N ? x_in[((size_t)b * d.N + r) * D + i % D] : 0.f;
+    const float* __restrict__ x_in, float* __restrict__ x_out, const int* __restrict__ order,
+    const Site a, const Site mp, const float* __restrict__ fc, const Dims d, const Layout o) {
+  extern __shared__ __align__(16) float sm[];
+  const int D = d.D;
+  int* rowid = reinterpret_cast<int*>(sm + o.rowid);
+  if (threadIdx.x < kRows) {
+    const int slot = blockIdx.x * kRows + threadIdx.x;
+    rowid[threadIdx.x] = slot < d.R ? order[slot] : -1;
   }
   __syncthreads();
+  // the rel-PE of both sites, once for all layers
+  expand_pe(a, rowid, d, fc);
+  expand_pe(mp, rowid, d, fc);
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int g = rowid[i / D];
+    sm[o.xs + i] = g >= 0 ? x_in[(size_t)g * D + i % D] : 0.f;
+  }
+  __syncthreads();  // the block's z rows are written before any layer reads them
   for (int l = 0; l < d.L; ++l) {
-    site_layer(a, l, b, row0, d, fc, m);
-    site_layer(mp, l, b, row0, d, fc, m);
+    site_layer(a, l, rowid, d, o, sm);
+    site_layer(mp, l, rowid, d, o, sm);
   }
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = row0 + i / D;
-    if (r < d.N) x_out[((size_t)b * d.N + r) * D + i % D] = m.xs[i];
+    const int g = rowid[i / D];
+    if (g >= 0) x_out[(size_t)g * D + i % D] = sm[o.xs + i];
   }
 }
 
 Site make_site(const float* src, const int* idx, const float* feats, const unsigned char* valid,
-               const void* const* w, int S, int K) {
+               float* z, const void* const* w, int S, int K) {
   Site s;
   s.src = src;
   s.idx = idx;
   s.feats = feats;
   s.valid = valid;
+  s.z = z;
   for (int f = 0; f < kFields; ++f) s.w[f] = static_cast<const float*>(w[f]);
   s.S = S;
   s.K = K;
   return s;
 }
 
+Dims make_dims(int R, int N, int L, int D, int H, int hd, int F, int P, float scale) {
+  Dims d{};
+  d.R = R;
+  d.N = N;
+  d.L = L;
+  d.D = D;
+  d.H = H;
+  d.hd = hd;
+  d.I = H * hd;
+  d.F = F;
+  d.P = P;
+  d.Pz = up4(P);
+  d.vec = false;
+  d.scale = scale;
+  return d;
+}
+
+size_t smem_bytes(const Dims& d) { return sizeof(float) * (size_t)layout(d).total; }
+
 }  // namespace
 
+// order [B N] int32: the query rows (b N + n) in the order the blocks take
+// them, 8 a block (any permutation; the result does not depend on it).
 // w_a, w_m: host arrays of the kFields device pointers of each site's packed
-// fields. fconst [2][P]: the Fourier frequency and phase of each rel-PE column.
+// fields. z_a, z_m: scratch [B, N, K, round_up(P, 4)] f32 of each site, no
+// initial contents needed. fconst [2][P]: the Fourier frequency and phase
+// of each rel-PE column.
 extern "C" int fused_stack_launch(
-    const float* x, float* out,
+    const float* x, float* out, const int* order,
     const float* src_a, const int* idx_a, const float* feats_a, const unsigned char* valid_a,
     const float* src_m, const int* idx_m, const float* feats_m, const unsigned char* valid_m,
-    const void* const* w_a, const void* const* w_m, const float* fconst,
+    float* z_a, float* z_m, const void* const* w_a, const void* const* w_m, const float* fconst,
     int B, int N, int Sa, int Ka, int Sm, int Km, int L, int D, int H, int hd, int F, int P,
     float scale, void* stream) {
   const int I = H * hd;
@@ -544,13 +763,12 @@ extern "C" int fused_stack_launch(
       D < 1 || D > 32 * kMaxJ || P < 1 || P > 32 * kMaxJ || F < 1 || P % F != 0 || Ka < 0 ||
       Km < 0)
     return (int)cudaErrorInvalidValue;
-  Dims d{N, L, D, H, hd, I, F, P, scale};
-  const Site a = make_site(src_a, idx_a, feats_a, valid_a, w_a, Sa, Ka);
-  const Site m = make_site(src_m, idx_m, feats_m, valid_m, w_m, Sm, Km);
-  const size_t floats = (size_t)kRows * (D + (I + D) + (I > D ? I : D) + (4 * D > 2 * I ? 4 * D : 2 * I) +
-                                         H * (D + P)) +
-                        (size_t)kThreads * kRows + 2 * kRows + 2 * kWarps * kChunk;
-  const size_t smem = floats * sizeof(float);
+  Dims d = make_dims(B * N, N, L, D, H, hd, F, P, scale);
+  d.vec = D % 4 == 0 &&
+          ((reinterpret_cast<uintptr_t>(src_a) | reinterpret_cast<uintptr_t>(src_m)) & 15) == 0;
+  const Site a = make_site(src_a, idx_a, feats_a, valid_a, z_a, w_a, Sa, Ka);
+  const Site m = make_site(src_m, idx_m, feats_m, valid_m, z_m, w_m, Sm, Km);
+  const size_t smem = smem_bytes(d);
   static size_t smem_allowed = 48 * 1024;
   if (smem > smem_allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -558,7 +776,25 @@ extern "C" int fused_stack_launch(
     if (err != cudaSuccess) return (int)err;
     smem_allowed = smem;
   }
-  const dim3 grid((N + kRows - 1) / kRows, B);
-  fused_stack_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, out, a, m, fconst, d);
+  const int blocks = (B * N + kRows - 1) / kRows;
+  fused_stack_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(x, out, order, a, m, fconst,
+                                                                         d, layout(d));
   return (int)cudaGetLastError();
+}
+
+// For the record of occupancy: the dynamic shared memory of a block at these
+// widths, and the resident blocks of kThreads threads per SM.
+extern "C" int fused_stack_smem_bytes(int D, int H, int hd, int P) {
+  return (int)smem_bytes(make_dims(1, 1, 1, D, H, hd, 1, P, 1.f));
+}
+
+extern "C" int fused_stack_blocks_per_sm(int D, int H, int hd, int P) {
+  const size_t smem = smem_bytes(make_dims(1, 1, 1, D, H, hd, 1, P, 1.f));
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(fused_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_stack_kernel, kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
 }

@@ -3,16 +3,19 @@
 Port of prosim_tpu/ops/fused_stack.py. One call runs the policy's whole
 interleaved (a2p, m2p) x L stack of GatedNeighborAttention layers for one
 replan step, with the fixed Fourier rel-PE expanded from the edges' raw
-features inside the stack, so the [B, N, K, P] embeddings are never stored.
-`pack_site_weights` stacks one site's layers into the TPU kernel's packed
-field order (the src and rel-PE LayerNorm affines folded into the k|v
-projections), once per forward.
+features inside the stack, once per call. `pack_site_weights` stacks one
+site's layers into the TPU kernel's packed field order (the src and rel-PE
+LayerNorm affines folded into the k|v projections), once per forward.
 
 On a CUDA tensor `fused_two_site_stack` launches csrc/fused_stack.cu, which
-gathers the source rows by idx itself and folds the k|v projections onto
-the query side; on a CPU tensor it runs `fused_two_site_stack_plain`, the
-math of the TPU kernel's `_kernel` / `_site_layer` written plainly, with
-the per-edge k|v projections. Compared with the TPU kernel, queries are not
+writes each valid edge's normalized rel-PE row once into a scratch table
+[B, N, K, P rounded up to 4] per site (allocated here, no initial
+contents), gathers the source rows by idx itself and folds the k|v
+projections onto the query side; its blocks take the query rows 8 at a
+time, heaviest first (`_row_order`), so the rows of a block carry about as
+many edges. On a CPU tensor it runs `fused_two_site_stack_plain`, the math
+of the TPU kernel's `_kernel` / `_site_layer` written plainly, with the
+per-edge k|v projections. Compared with the TPU kernel, queries are not
 padded to a tile and `valid` stays bool [B, N, K] (the TPU kernel's int8
 head broadcast was a Mosaic workaround).
 """
@@ -181,8 +184,9 @@ def fused_two_site_stack_plain(x_p, a2p_tables, m2p_tables, weights_a, weights_m
     pe_dim = weights_a[_FIELDS.index("wkvr")].shape[1]
     sites = []
     for (x_src, idx, feats, valid), w in ((a2p_tables, weights_a), (m2p_tables, weights_m)):
-        sites.append((gather_src_features(x_src, idx), _z_from_feats(feats, pe_dim), valid,
-                      dict(zip(_FIELDS, w))))
+        # idx is arbitrary where an edge is invalid: gather row 0 there
+        xg = gather_src_features(x_src, torch.where(valid, idx, 0))
+        sites.append((xg, _z_from_feats(feats, pe_dim), valid, dict(zip(_FIELDS, w))))
     x = x_p
     for l in range(num_layers):
         for xg, z, valid, w in sites:
@@ -190,10 +194,18 @@ def fused_two_site_stack_plain(x_p, a2p_tables, m2p_tables, weights_a, weights_m
     return x
 
 
+def _row_order(valid_a, valid_m):
+    """The query rows (b * N + n) heaviest first, by valid m2p edges, then
+    valid a2p edges, as int32: the kernel's blocks take them 8 at a time,
+    and a block's rows wait for its longest one at every layer."""
+    key = valid_m.sum(-1) * (valid_a.shape[-1] + 1) + valid_a.sum(-1)
+    return torch.argsort(key.flatten(), descending=True, stable=True).to(torch.int32)
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("fused_stack").fused_stack_launch
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -206,8 +218,9 @@ def fused_two_site_stack(x_p, a2p_tables, m2p_tables, weights_a, weights_m, *,
     x_p [B,N,D] f32; each site's tables are (x_src [B,S,D] f32 source
     tokens, idx [B,N,K] int32, feats [B,N,K,F] f32 raw rel-PE features
     (the reference's 4, rel_ori_vec twice), valid [B,N,K] bool), idx in
-    [0, S) where valid; weights_* are `pack_site_weights` outputs. The two
-    sites may have different S and K. Returns [B,N,D]."""
+    [0, S) where valid (arbitrary elsewhere); weights_* are
+    `pack_site_weights` outputs. The two sites may have different S and K.
+    Returns [B,N,D]."""
     if x_p.device.type == "cpu":
         return fused_two_site_stack_plain(x_p, a2p_tables, m2p_tables, weights_a, weights_m,
                                           num_heads=num_heads, head_dim=head_dim)
@@ -246,11 +259,17 @@ def fused_two_site_stack(x_p, a2p_tables, m2p_tables, weights_a, weights_m, *,
     ptrs = [(ctypes.c_void_p * len(_FIELDS))(*[t.data_ptr() for t in w])
             for w in (weights_a, weights_m)]
     fconst = _fourier_table(F, P, dev)
+    # the kernel's rel-PE tables; rows of invalid edges are never written or read
+    pz = (P + 3) // 4 * 4
+    z_a = torch.empty((B, N, Ka, pz), dtype=f32, device=dev)
+    z_m = torch.empty((B, N, Km, pz), dtype=f32, device=dev)
+    order = _row_order(valid_a, valid_m)
     out = torch.empty_like(x_p)
     err = _launcher()(
-        x_p.data_ptr(), out.data_ptr(),
+        x_p.data_ptr(), out.data_ptr(), order.data_ptr(),
         src_a.data_ptr(), idx_a.data_ptr(), feats_a.data_ptr(), valid_a.data_ptr(),
         src_m.data_ptr(), idx_m.data_ptr(), feats_m.data_ptr(), valid_m.data_ptr(),
+        z_a.data_ptr(), z_m.data_ptr(),
         ctypes.cast(ptrs[0], ctypes.c_void_p), ctypes.cast(ptrs[1], ctypes.c_void_p),
         fconst.data_ptr(), B, N, Sa, Ka, Sm, Km, L, D, H, hd, F, P, float(hd ** -0.5),
         torch.cuda.current_stream(dev).cuda_stream)

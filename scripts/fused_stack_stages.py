@@ -8,14 +8,23 @@ Each variant is the kernel source with one text substitution, built by nvcc
 like the shipped kernel; its output is not checked, only its time (CUDA
 events, 5 launches after a warm-up; the variants run in order and then in
 reverse). The difference to the full kernel is that stage's cost:
-  no_edges   - no edge loop (what is left: norms, dense products, folds)
-  no_dense   - no edge loop and no dense products (rowmat)
-  no_sin     - the rel-PE's sinf replaced by its argument
-  no_pe      - no rel-PE columns at all (no feature loads, no sines)
-  no_zln     - the rel-PE's norm statistics not reduced across the warp
-  no_gather  - a constant in place of the gathered source row
-  no_reduce  - the per-head score sums not reduced across the warp
-  no_acc     - the aggregates' multiply-adds replaced by one add
+  no_edges    - no edge loop (what is left: the rel-PE pass, norms, dense
+                products, folds)
+  no_dense    - no edge loop and no dense products (rowmat)
+  no_pe       - no rel-PE pass (the layers read whatever the table holds)
+  no_edges_pe - no edge loop and no rel-PE pass
+  no_sin      - the rel-PE pass's sinf replaced by its argument
+  no_zln      - the rel-PE pass's norm statistics not reduced across the warp
+  no_copy     - the edge tiles not copied (the edge loop computes on the
+                ring as it stands)
+  no_compute  - the edge tiles copied and not computed
+  no_reduce   - the per-tile score sums not reduced across the warp
+  no_acc      - the aggregates' multiply-adds replaced by one add
+  in_order    - the rows taken in their natural order (b, n), not heaviest
+                first (a negative cost is what the order saves)
+A substitution that no longer matches the source fails the run. The layer
+loop on the same graphs (the FUSED_STACK=False path), the yardstick, is
+timed in device ms (torch.profiler) before and after the variants.
 Run from the repository root:  python3 scripts/fused_stack_stages.py
 """
 
@@ -24,25 +33,30 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SIN = "sinf(__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j]))"
-NO_EDGES = ("  if (live) {\n    const size_t rg", "  if (false) {\n    const size_t rg")
+NO_EDGES = ("  if (row >= 0) {\n    const int stage_floats",
+            "  if (false) {\n    const int stage_floats")
 NO_DENSE = ("  const int tid = threadIdx.x;\n  const int Kd = k1 + k2;",
             "  if (k1 >= 0) { __syncthreads(); return; }\n"
             "  const int tid = threadIdx.x;\n  const int Kd = k1 + k2;")
-PE = ("    float z = 0.f;\n    if (j > 0 &&", "    float z = c < P ? 0.25f * j : 0.f;\n    if (false &&")
+NO_PE = ("  const int P = d.P, F = d.F, K = s.K;\n  const int npf = P / F;",
+         "  const int P = d.P, F = d.F, K = s.K;\n  if (K >= 0) return;\n  const int npf = P / F;")
+SIN = "sinf(__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j]))"
 VARIANTS = {
     "full": [],
     "no_edges": [NO_EDGES],
     "no_dense": [NO_EDGES, NO_DENSE],
+    "no_pe": [NO_PE],
+    "no_edges_pe": [NO_EDGES, NO_PE],
     "no_sin": [(SIN, "__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j])")],
-    "no_pe": [PE, (SIN, "0.f")],
-    "no_zln": [("  s = warp_sum(s);\n  ss = warp_sum(ss);\n  const float mu = s / P;",
-                "  const float mu = s / P;")],
-    "no_gather": [("    t[j] = c < D ? x_row[c] : 0.f;", "    t[j] = c < D ? 0.5f : 0.f;")],
-    "no_reduce": [("reduce_scatter8(p0, lane)", "(p0[0] + p0[7])"),
-                  ("reduce_scatter8(p1, lane)", "(p1[0] + p1[7])")],
-    "no_acc": [("acc[h][j] = fmaf(bb, t1[j], fmaf(a, t0[j], acc[h][j] * c));",
-                "acc[h][j] += a + bb + c;")],
+    "no_zln": [("      sum = warp_sum(sum);\n      ss = warp_sum(ss);\n", "")],
+    "no_copy": [("  for (int e = hh; e < n; e += 2) {\n    const float* xrow",
+                 "  for (int e = hh; e < 0; e += 2) {\n    const float* xrow")],
+    "no_compute": [("        if (nh == 0) continue;", "        if (nh >= 0) continue;")],
+    "no_reduce": [("const float sum = reduce_scatter32(p, lane);",
+                   "const float sum = p[0] + p[31];")],
+    "no_acc": [("for (int t2 = 0; t2 < 8; ++t2) acc[i][t2] = fmaf(w[i], v[t2], acc[i][t2]);",
+                "for (int t2 = 0; t2 < 8; ++t2) acc[i][t2] += w[i];")],
+    "in_order": [("slot < d.R ? order[slot] : -1", "slot < d.R ? slot : -1")],
 }
 
 def main():
@@ -79,7 +93,8 @@ def main():
     _build.CSRC = src_dir
     _build.SOURCES.update({f"fused_stack_{n}": f"fused_stack_{n}.cu" for n in VARIANTS})
     for name, log in _build.build_all().items():
-        regs = [line.split(":", 1)[-1].strip() for line in log.splitlines() if "registers" in line]
+        regs = [line.split(":", 1)[-1].strip() for line in log.splitlines()
+                if "registers" in line or "spill" in line]
         print(f"  {name}: {'; '.join(regs)}")
 
     cfg = get_config(opts=["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"])
@@ -94,17 +109,36 @@ def main():
     with torch.inference_mode():
         scene, emd = model.prepare(batch)
         x = emd["emd"].contiguous()
-        ta, tm = policy.fused_tables(scene, p.pos, p.ori, policy.site_graphs(scene, p.pos, p.mask))
+        graphs = policy.site_graphs(scene, p.pos, p.mask)
+        ta, tm = policy.fused_tables(scene, p.pos, p.ori, graphs)
         wa, wm = policy.pack_fused()
         kw = dict(num_heads=policy.num_heads, head_dim=policy.head_dim)
+        order = fs._row_order(ta[3], tm[3]).long()
+        for site, (_, _, _, valid) in zip(("a2p", "m2p"), (ta, tm)):
+            # a block's teams wait for its longest row: the share of team time
+            # that runs edges, were every edge equally dear, with the rows in
+            # their natural order and in the kernel's
+            n = valid.sum(-1).flatten()
+            busy = []
+            for rows in (n, n[order]):
+                rows = torch.nn.functional.pad(rows, (0, (-rows.numel()) % 8)).view(-1, 8)
+                busy.append(float(rows.sum() / (8 * rows.amax(-1).sum())))
+            print(f"  {site}: {int(n.sum())} valid edges; rows of a block busy "
+                  f"{busy[0]:.3f} of the block's edge time in (b, n) order, "
+                  f"{busy[1]:.3f} heaviest first")
+        loop = lambda: policy.layer_loop(x, scene, p.pos, p.ori, graphs)
+        loop_ms = [chip_smoke.device_ms(torch, loop, 5)]
         for name in list(VARIANTS) + list(VARIANTS)[::-1]:
             _build.SOURCES["fused_stack"] = f"fused_stack_{name}.cu"
             _build._loaded.pop("fused_stack", None)
             fs._launcher.cache_clear()
             times.setdefault(name, []).append(chip_smoke.cuda_ms(
                 torch, lambda: fs.fused_two_site_stack(x, ta, tm, wa, wm, **kw), 5))
+        loop_ms.append(chip_smoke.device_ms(torch, loop, 5))
     for name, ms in times.items():
-        print(f"  {name:9s} " + " ".join(f"{t:.3f}" for t in ms) + " ms")
+        print(f"  {name:11s} " + " ".join(f"{t:.3f}" for t in ms) + " ms")
+    print("  layer loop (device ms, before and after the variants) "
+          + " ".join(f"{t:.3f}" for t in loop_ms) + " ms")
     return 0
 
 

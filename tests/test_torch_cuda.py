@@ -347,19 +347,41 @@ def test_demo_config_runs_its_f32_llama_through_the_kernel(cuda, monkeypatch):
     assert float((traj - traj_ref)[..., :2].abs().max()) <= 1e-3
 
 
-FUSED_CASES = {  # name: (B, N, D, H, head_dim, L, Sa, Ka, Sm, Km)
+FUSED_CASES = {  # name: (B, N, D, H, head_dim, L, Sa, Ka, Sm, Km[, options of _fused_inputs])
     "jax_test_widths": (2, 11, 32, 4, 8, 2, 12, 5, 24, 7),
     "demo_widths": (2, 13, 128, 8, 16, 2, 160, 160, 900, 768),
     "short_rows": (3, 8, 128, 8, 16, 1, 40, 9, 300, 64),
+    # invalid edges' idx out of range (-1 and S + 7): never dereferenced
+    "poisoned_idx": (2, 11, 32, 4, 8, 2, 12, 5, 24, 7, {"poison": True}),
+    "every_edge_valid": (2, 9, 32, 4, 8, 2, 12, 12, 40, 40, {"valid": "all"}),  # K = S
+    "k1": (2, 9, 32, 4, 8, 2, 6, 1, 10, 1),
+    "k_not_multiple_of_8": (2, 9, 64, 4, 8, 2, 30, 13, 100, 37),
+    "h1_hd4": (2, 9, 32, 1, 4, 2, 20, 11, 40, 21),
+    "h1_hd32": (2, 9, 32, 1, 32, 2, 20, 11, 40, 21),
+    "h2_hd4": (2, 9, 32, 2, 4, 2, 20, 11, 40, 21),
+    "h2_hd32": (2, 9, 32, 2, 32, 2, 20, 11, 40, 21),
+    "d_ne_p": (2, 9, 64, 4, 8, 2, 20, 11, 50, 30, {"pe_dim": 96}),
+    # D and P not multiples of 4: 4-byte source copies, padded table rows
+    "odd_widths": (2, 9, 30, 4, 8, 2, 20, 11, 50, 30, {"pe_dim": 30, "num_features": 3}),
+    "n_not_multiple_of_rows": (2, 21, 32, 4, 8, 2, 20, 11, 50, 30),
+    "demo_depth": (1, 16, 128, 8, 16, 6, 160, 160, 2048, 768),
+    # a second call on the same shapes with other features and edges must not
+    # read the first call's rel-PE rows
+    "second_call_new_feats": (2, 13, 128, 8, 16, 2, 160, 160, 900, 768, {"second_call": True}),
 }
 
 
-def _fused_inputs(cuda, B, N, D, H, hd, L, Sa, Ka, Sm, Km, seed):
+def _fused_inputs(cuda, B, N, D, H, hd, L, Sa, Ka, Sm, Km, seed, pe_dim=None, num_features=4,
+                  valid="random", poison=False):
+    """x [B,N,D], both sites' (src, idx, feats, valid) and packed weights;
+    feats are the reference's raw rel-PE features (dist, rel_ori,
+    rel_ori_vec twice), the first num_features of them."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     stack = torch.nn.Module()
     for i in range(L):
         for site in ("a2p", "m2p"):
-            stack.add_module(f"{site}_{i}", GatedNeighborAttention(D, H, hd, bipartite=True))
+            stack.add_module(f"{site}_{i}",
+                             GatedNeighborAttention(D, H, hd, bipartite=True, pe_dim=pe_dim))
     init_params(stack, seed=seed)
     stack.to(cuda)
     with torch.no_grad():  # exercise the norm affines and the biases
@@ -369,32 +391,74 @@ def _fused_inputs(cuda, B, N, D, H, hd, L, Sa, Ka, Sm, Km, seed):
     tables = []
     for S, K in ((Sa, Ka), (Sm, Km)):
         src = torch.randn((B, S, D), generator=gen, device=cuda)
-        idx = torch.randint(0, S, (B, N, K), generator=gen, device=cuda, dtype=torch.int32)
-        valid = torch.rand((B, N, K), generator=gen, device=cuda) > 0.3
-        valid[0, 1] = False  # a row with no valid edge at both sites
-        valid[B - 1, N - 1] = False
-        u = lambda lo, hi: lo + (hi - lo) * torch.rand((B, N, K), generator=gen, device=cuda)
-        ori_vec = u(-3.14159, 3.14159)
-        feats = torch.stack([u(0.0, 200.0), u(-3.14159, 3.14159), ori_vec, ori_vec], -1)
-        tables.append((src, idx, feats, valid))
+        tables.append((src,) + _edges(cuda, gen, B, N, S, K, num_features, valid, poison))
     with torch.no_grad():
         w = pack_site_weights(stack, "a2p"), pack_site_weights(stack, "m2p")
     return x, tables, w
 
 
+def _edges(cuda, gen, B, N, S, K, num_features, valid_mode, poison):
+    """(idx, feats, valid) of one site: random sources and validity (or
+    every edge valid, idx a permutation of the sources), a row with no
+    valid edge at (0, 1) and (B - 1, N - 1)."""
+    if valid_mode == "all":
+        idx = torch.argsort(torch.rand((B, N, S), generator=gen, device=cuda), -1)[..., :K]
+        idx = idx.to(torch.int32).contiguous()
+        valid = torch.ones((B, N, K), dtype=torch.bool, device=cuda)
+    else:
+        idx = torch.randint(0, S, (B, N, K), generator=gen, device=cuda, dtype=torch.int32)
+        valid = torch.rand((B, N, K), generator=gen, device=cuda) > 0.3
+    valid[0, 1] = False  # a row with no valid edge at both sites
+    valid[B - 1, N - 1] = False
+    if poison:
+        bad = torch.where(torch.arange(K, device=cuda) % 2 == 0, -1, S + 7).to(torch.int32)
+        idx = torch.where(valid, idx, bad)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand((B, N, K), generator=gen, device=cuda)
+    ori_vec = u(-3.14159, 3.14159)
+    feats = torch.stack([u(0.0, 200.0), u(-3.14159, 3.14159), ori_vec, ori_vec], -1)
+    return idx, feats[..., :num_features].contiguous(), valid
+
+
 @pytest.mark.parametrize("case", sorted(FUSED_CASES))
 def test_fused_stack_kernel_matches_plain(cuda, case):
-    B, N, D, H, hd, L, Sa, Ka, Sm, Km = FUSED_CASES[case]
-    x, (ta, tm), (wa, wm) = _fused_inputs(cuda, B, N, D, H, hd, L, Sa, Ka, Sm, Km, len(case))
+    B, N, D, H, hd, L, Sa, Ka, Sm, Km, *opts = FUSED_CASES[case]
+    opts = dict(opts[0]) if opts else {}
+    second_call = opts.pop("second_call", False)
+    x, (ta, tm), (wa, wm) = _fused_inputs(cuda, B, N, D, H, hd, L, Sa, Ka, Sm, Km, len(case),
+                                          **opts)
+    calls = [(ta, tm)]
+    if second_call:
+        gen = torch.Generator(device=cuda).manual_seed(len(case) + 1)
+        calls.append(tuple((t[0],) + _edges(cuda, gen, B, N, t[0].shape[1], t[1].shape[-1],
+                                             t[2].shape[-1], "random", False) for t in (ta, tm)))
+    for ta, tm in calls:
+        before = fused_two_site_stack.launches
+        got = fused_two_site_stack(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
+        ref = fused_two_site_stack_plain(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
+        again = fused_two_site_stack(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
+        torch.cuda.synchronize()
+        assert fused_two_site_stack.launches == before + 2
+        assert got.shape == (B, N, D) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, ref, atol=3e-4, rtol=3e-4)
+        assert torch.equal(got, again)  # no atomics: bitwise reproducible
+
+
+@pytest.mark.parametrize("D,H,hd,pe_dim,num_features", [
+    (32, 9, 8, None, 4),     # more than 8 heads
+    (32, 4, 6, None, 4),     # head_dim not a multiple of 4
+    (32, 4, 36, None, 4),    # I = H * head_dim above 128
+    (132, 4, 8, None, 4),    # D above 128
+    (32, 4, 8, 132, 4),      # P above 128
+    (32, 4, 8, 30, 4),       # F does not divide P
+])
+def test_fused_stack_kernel_refuses_other_widths(cuda, D, H, hd, pe_dim, num_features):
+    """Widths the kernel does not take raise before anything is launched."""
+    x, (ta, tm), (wa, wm) = _fused_inputs(cuda, 1, 4, D, H, hd, 1, 6, 3, 8, 5, 0, pe_dim=pe_dim,
+                                          num_features=num_features)
     before = fused_two_site_stack.launches
-    got = fused_two_site_stack(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
-    ref = fused_two_site_stack_plain(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
-    again = fused_two_site_stack(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
-    torch.cuda.synchronize()
-    assert fused_two_site_stack.launches == before + 2
-    assert got.shape == (B, N, D) and bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, ref, atol=3e-4, rtol=3e-4)
-    assert torch.equal(got, again)  # no atomics: bitwise reproducible
+    with pytest.raises(ValueError):
+        fused_two_site_stack(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
+    assert fused_two_site_stack.launches == before
 
 
 def test_wrappers_refuse_cpu_and_cuda_mix(cuda):

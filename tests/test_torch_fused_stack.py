@@ -1,7 +1,8 @@
 """prosim_torch's fused two-site policy stack (ops/fused_stack.py) against
-prosim_tpu's: the packed weights, the Fourier constants, the stack against
-the Pallas kernel run in interpret mode, and the stack against the port's
-own layer loop; on the CPU the wrapper runs its plain version. The
+prosim_tpu's: the packed weights, the Fourier constants, the normalized
+rel-PE table the CUDA kernel stores, the stack against the Pallas kernel
+run in interpret mode, and the stack against the port's own layer loop;
+on the CPU the wrapper runs its plain version. The
 FUSED_STACK=True closed loop against the JAX package is in
 test_torch_model.py.
 
@@ -114,6 +115,23 @@ def test_fourier_consts_match_jax(num_features, pe_dim):
     np.testing.assert_array_equal(phase.numpy(), np.asarray(jphase))
 
 
+@pytest.mark.parametrize("num_features,pe_dim", [(4, 96), (4, 32)])
+def test_z_from_feats_matches_jax(num_features, pe_dim):
+    """The normalized fixed rel-PE table that the CUDA kernel stores once per
+    call, against the TPU kernel's: distances up to 200 m, so the sines'
+    arguments reach several hundred radians."""
+    rng = np.random.default_rng(pe_dim)
+    E = 4096
+    v = rng.uniform(-np.pi, np.pi, E)
+    feats = np.stack([rng.uniform(0, 200, E), rng.uniform(-np.pi, np.pi, E), v, v],
+                     -1)[:, :num_features].astype(np.float32)
+    m1, phase = jfs.fourier_consts(num_features, pe_dim)
+    ref = np.asarray(jfs._z_from_feats(jnp.asarray(feats), m1, phase, jnp.float32))
+    got = tfs._z_from_feats(torch.from_numpy(feats), pe_dim)
+    assert got.shape == (E, pe_dim)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
 CASES = {  # name: (B, N, Sa, Ka, Sm, Km, rows with no valid edge)
     "jax_test_shapes": (2, 8, 12, 5, 24, 7, [(0, 3)]),
     "ragged_n": (2, 11, 12, 5, 24, 9, [(0, 0), (1, 10)]),
@@ -140,6 +158,24 @@ def test_plain_matches_pallas_interpret(stacks, case):
     assert tfs.fused_two_site_stack.launches == before  # the CPU runs the plain version
     assert got.shape == (B, N, D)
     np.testing.assert_allclose(got.numpy(), ref, **PLAIN_TOL)
+
+
+def test_plain_ignores_idx_of_invalid_edges(stacks):
+    """idx is arbitrary where an edge is invalid: out-of-range values there
+    (-1 and S + 7) leave the plain stack's result exactly as it was."""
+    _, module = stacks
+    x, tables = _inputs(5, 2, 8, 12, 5, 24, 7, [(0, 3)])
+    poisoned = []
+    for src, idx, feats, valid in tables:
+        bad = np.where(np.arange(idx.shape[-1]) % 2 == 0, -1, src.shape[1] + 7)
+        poisoned.append((src, np.where(valid, idx, bad).astype(np.int32), feats, valid))
+    w = tfs.pack_site_weights(module, "a2p"), tfs.pack_site_weights(module, "m2p")
+    with torch.inference_mode():
+        got = tfs.fused_two_site_stack(torch.from_numpy(x), *_torch_tables(poisoned), *w,
+                                       num_heads=H, head_dim=HD)
+        ref = tfs.fused_two_site_stack(torch.from_numpy(x), *_torch_tables(tables), *w,
+                                       num_heads=H, head_dim=HD)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
 def test_plain_matches_port_layer_loop(stacks):
