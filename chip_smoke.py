@@ -2,10 +2,12 @@
 """Drive prosim_torch's main path on one NVIDIA GPU and check its kernels.
 
 Run from the repository root:  python3 chip_smoke.py
-(`--kernels-only` stops after phase 3.) Three configurations of the closed
-loop are driven at full width: the default (the policy's a2p/m2p stack as a
-layer loop), FUSED_STACK=True (the stack as one fused kernel per replan
-step), and the text-conditioned loop (configs/waymo_demo.yaml's goal,
+(`--kernels-only` stops after phase 3; `--train-only` runs phases 1, 2 and
+7 and writes phase 7's record to chiprun_out/chip_smoke_train.json.)
+Three configurations of the closed loop are driven at full width: the
+default (the policy's a2p/m2p stack as a layer loop), FUSED_STACK=True
+(the stack as one fused kernel per replan step), and the text-conditioned
+loop (configs/waymo_demo.yaml's goal,
 v_action_tag, drag_point and OneText conditions, the condition transformer
 at policy_decoder, the Llama text path at Llama3-8B width with random bf16
 weights); a fourth, configs/waymo_demo.yaml as shipped (its f32 tiny()
@@ -53,6 +55,23 @@ Llama), at B=2 in phase 5. Phases:
                 (f32 Llama): launches per forward, its rollout within
                 PARITY_TOL_M of its plain path, and one profiled forward.
   6. replicas - parallel_rollout with M=4 on B=2 matches the B=2 rollout.
+  7. train    - configs/no_text.yaml at full width (random weights from a
+                seed, demo padding, TRAIN.BATCH_SIZE 16, REMAT_POLICY full,
+                WARMUP_STEPS 0) through Trainer.setup and Trainer.fit: one
+                warm-up step and three timed (synchronised host clock), peak
+                memory, B1 launches per step (forward and remat recompute;
+                B2 and B3 must not launch: training takes the differentiable
+                branch), every loss term finite, parameters moved, the
+                goal_pred group (GOAL_MODEL_LR_SCALE 0) unchanged. At B=2:
+                one train step with B1's kernel against the same step with
+                the plain top-K (loss within TRAIN_LOSS_RTOL, each gradient
+                leaf within TRAIN_GRAD_TOL of its largest magnitude), the
+                kernel step twice (loss within DETERMINISM_RTOL: the
+                gather's backward adds with atomics, so the gradients are
+                not bitwise repeatable), the B2/B3 wrappers refusing inputs
+                that require grad, and Trainer.evaluate and rollout_callback
+                (M=4) finite through B1 and B2. If B=16 does not fit, B is
+                halved until it does, and the cut is printed and recorded.
 Any failure raises and exits non-zero. The kernels JSON line comes just
 before the last line, which is the device JSON.
 """
@@ -76,6 +95,11 @@ F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor-core peak
 LAYERS = 6
 TEXT_YAML = "configs/waymo_demo.yaml"
+TRAIN_YAML = "configs/no_text.yaml"
+TRAIN_STEPS = 4          # one warm-up step, three timed
+TRAIN_LOSS_RTOL = 1e-5   # B1 kernel step vs plain top-K step: B1 is bit-equal to its plain version
+TRAIN_GRAD_TOL = 1e-4    # of each gradient leaf's largest magnitude
+DETERMINISM_RTOL = 1e-6  # two runs of one train step, in loss
 TEXT_OPTS = ["MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.ARCH", "llama3_8b"]
 
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
@@ -771,6 +795,205 @@ def summarize(name, route, source, replaces, rows, launches, forward, extra=()):
     }
 
 
+def train_phase(torch, root, shape, batch_size=None, steps=TRAIN_STEPS, device="cuda"):
+    """Phase 7: configs/no_text.yaml trained through Trainer.fit at full
+    width, then the B=2 gates (see the module docstring). Returns the
+    phase's record; raises on a failed gate."""
+    import shutil
+
+    import numpy as np
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
+    from prosim_torch.ops.flash_attn import causal_attention_plain
+    from prosim_torch.ops.fused_stack import fused_two_site_stack, fused_two_site_stack_plain
+    from prosim_torch.ops.neighbors import neighbor_topk_plain
+    from prosim_torch.train.losses import paired_mse_k
+    from prosim_torch.train.optim import param_groups
+    from prosim_torch.train.trainer import Trainer, find_latest_checkpoint
+
+    build = os.path.join(root, "build")
+    shutil.rmtree(os.path.join(build, "chip_smoke_train"), ignore_errors=True)
+    cfg = get_config(os.path.join(root, TRAIN_YAML), [
+        "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", "chip_smoke_train",
+        "TRAIN.SCHEDULER.WARMUP_STEPS", "0", "TRAIN.REMAT_POLICY", "full"])
+    B = batch_size or cfg.TRAIN.BATCH_SIZE
+    R = shape["num_replan"]
+    while True:
+        trainer = Trainer(cfg, device=device)
+        trainer.setup()
+        batches = [make_synthetic_batch(cfg, batch_size=B, seed=10 + i, device=device, **shape)
+                   for i in range(steps)]
+        p0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+        for fn in kernel_fns().values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer.fit(batches, max_steps=steps)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if B == 1:
+                raise
+            log(f"train: B={B} does not fit in device memory; halving it")
+            del trainer, batches, p0
+            torch.cuda.empty_cache()
+            B //= 2
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    recs = [json.loads(line) for line in open(trainer.log_path)]
+    train_recs = [r for r in recs if "train/full_loss" in r]
+    walls = [r["wall"] for r in train_recs]
+    step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    terms = {k: v for k, v in train_recs[-1].items() if k.startswith("train/")}
+    if B != cfg.TRAIN.BATCH_SIZE:
+        log(f"train: CUT: B={B} instead of TRAIN.BATCH_SIZE {cfg.TRAIN.BATCH_SIZE}")
+    log(f"train: {TRAIN_YAML} B={B} steps {len(train_recs)}: step ms (synchronised host clock) "
+        f"{['%.1f' % t for t in step_ms]}, median {sorted(step_ms)[len(step_ms) // 2]:.1f}; "
+        f"peak memory {peak / 2**30:.2f} GiB; B1 launches per step "
+        f"{launches['neighbor_topk'] / steps:g}; kernel launches in {steps} steps {launches}")
+    log("train: last step's terms " + ", ".join(f"{k[6:]}={v:.6g}" for k, v in terms.items()))
+    # gates
+    want_topk = steps * 2 * (4 + 2 * R)  # each forward's graphs, again in its recompute
+    if launches["neighbor_topk"] != want_topk:
+        raise AssertionError(f"train: neighbor_topk launched {launches['neighbor_topk']} times, "
+                             f"expected {want_topk}")
+    if launches["edge_attn_core"] or launches["fused_two_site_stack"]:
+        raise AssertionError(f"train: a forward-only kernel ran where gradients are wanted: {launches}")
+    bad = [(r["step"], k) for r in train_recs for k, v in r.items()
+           if k.startswith("train/") and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train: non-finite loss terms {bad}")
+    moved = {n: float((p.detach() - p0[n]).abs().max()) for n, p in trainer.model.named_parameters()}
+    goal_pred = {n for n, p in trainer.model.named_parameters()
+                 if any(p is q for q in param_groups(trainer.model, cfg)["goal_pred"])}
+    if not goal_pred or any(moved[n] != 0.0 for n in goal_pred):
+        raise AssertionError("train: the goal_pred group (GOAL_MODEL_LR_SCALE 0) moved or is empty")
+    if max(v for n, v in moved.items() if n not in goal_pred) == 0.0:
+        raise AssertionError("train: no parameter moved")
+    if find_latest_checkpoint(trainer.run_dir) is None:
+        raise AssertionError("train: fit saved no checkpoint")
+    prof = profile_train_step(torch, trainer, batches[0])
+    log(f"profile[train step, B={B}]: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), "
+        f"{prof['launches']} device operations")
+    for fam, ms in prof["families_ms"].items():
+        log(f"  {fam:22s} {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} %")
+    for name, ms, n in prof["top_kernels"]:
+        log(f"    {ms:9.3f} ms x{n:<6d} {name}")
+    del batches
+    torch.cuda.empty_cache()
+
+    # B=2: B1's kernel against the plain top-K in one train step, determinism
+    model = trainer.model
+    small = make_synthetic_batch(cfg, batch_size=2, seed=1, device=device, **shape)
+
+    def grad_step():
+        model.zero_grad(set_to_none=True)
+        out = model.forward_train(small, seed=7)
+        loss = paired_mse_k(small, out, cfg)["full_loss"]
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    loss_k, g_k = grad_step()
+    loss_k2, g_k2 = grad_step()
+    before = launch_counts()
+    with kernel_calls(neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain,
+                      causal_attention_plain):
+        loss_p, g_p = grad_step()
+    if launch_counts() != before:
+        raise AssertionError("train: the plain path launched a kernel")
+    model.zero_grad(set_to_none=True)
+
+    def leaf_err(a, b):
+        errs = {n: float((a[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for n, g in b.items()}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    loss_dev = abs(loss_k - loss_p) / abs(loss_p)
+    grad_dev = leaf_err(g_k, g_p)
+    rerun_loss_dev = abs(loss_k - loss_k2) / abs(loss_k)
+    rerun_grad_dev = leaf_err(g_k, g_k2)
+    log(f"train parity (B=2): B1 kernel vs plain top-K: loss {loss_k:.8g} vs {loss_p:.8g} "
+        f"(rel {loss_dev:.2e}), worst gradient leaf {grad_dev[1]} at {grad_dev[0]:.2e} of its max; "
+        f"the kernel step twice: loss rel {rerun_loss_dev:.2e}, worst gradient leaf "
+        f"{rerun_grad_dev[1]} at {rerun_grad_dev[0]:.2e}")
+    if set(g_k) != set(g_p) or not loss_dev <= TRAIN_LOSS_RTOL or not grad_dev[0] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"train: B1 kernel step vs plain step: loss {loss_dev}, "
+                             f"gradient {grad_dev}")
+    if not rerun_loss_dev <= DETERMINISM_RTOL:
+        raise AssertionError(f"train: two runs of one step differ in loss by {rerun_loss_dev}")
+
+    # the forward-only kernels refuse inputs that require grad
+    x = torch.randn((1, 4, 16), device=device)
+    idx = torch.zeros((1, 3, 2), dtype=torch.int32, device=device)
+    z = torch.randn((1, 3, 2, 8), device=device)
+    qx = torch.randn((1, 3, 2, 16), device=device, requires_grad=True)
+    qp = torch.randn((1, 3, 2, 8), device=device)
+    ok = torch.ones((1, 3, 2), dtype=torch.bool, device=device)
+    refused = []
+    for name, call in (("edge_attn_core", lambda: edge_attn_core(x, idx, z, qx, qp, ok, 0.5)),
+                       ("fused_two_site_stack", lambda: fused_two_site_stack(
+                           qx, (x, idx, z, ok), (x, idx, z, ok), [], [], num_heads=2,
+                           head_dim=8))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" in str(e):
+                refused.append(name)
+    if refused != ["edge_attn_core", "fused_two_site_stack"]:
+        raise AssertionError(f"train: only {refused} refused inputs that require grad")
+
+    # evaluate and the M-replica validation rollout, through the kernels
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    metrics = trainer.evaluate([small])
+    rollout = trainer.rollout_callback([small], m=4)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    log(f"train eval (B=2): evaluate {metrics}; rollout_callback M=4 {rollout}; "
+        f"kernel launches {eval_launches}")
+    if not all(np.isfinite(v) for v in list(metrics.values()) + list(rollout.values())):
+        raise AssertionError("train: evaluate or rollout_callback gave a non-finite metric")
+    if not (eval_launches["neighbor_topk"] and eval_launches["edge_attn_core"]):
+        raise AssertionError(f"train: evaluate/rollout_callback did not run B1 and B2: {eval_launches}")
+    return {"config": TRAIN_YAML, "batch_size": B, "batch_size_configured": cfg.TRAIN.BATCH_SIZE,
+            "steps": len(train_recs), "step_ms": step_ms, "peak_memory_bytes": peak,
+            "launches": launches, "neighbor_topk_per_step": launches["neighbor_topk"] / steps,
+            "terms": terms, "parity": {"loss_rel": loss_dev, "grad_leaf": grad_dev[0],
+                                       "rerun_loss_rel": rerun_loss_dev,
+                                       "rerun_grad_leaf": rerun_grad_dev[0]},
+            "eval": metrics, "rollout": rollout, "eval_launches": eval_launches,
+            "profile": prof}
+
+
+def profile_train_step(torch, trainer, batch):
+    """One more train step under torch.profiler: its wall time, the device
+    time by kernel family and the busiest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer._train_step(batch, 0)["full_loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("the profiler recorded no device time")
+    by_fam, by_name, count = {}, {}, {}
+    for e in device:
+        ms = e.time_range.elapsed_us() / 1e3
+        by_fam[family(e.name)] = by_fam.get(family(e.name), 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        count[e.name] = count.get(e.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "busy_ms": sum(by_fam.values()), "launches": len(device),
+            "families_ms": dict(sorted(by_fam.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [(n[:110], ms, count[n]) for n, ms in top]}
+
+
 def main(argv):
     import torch
 
@@ -815,11 +1038,18 @@ def main(argv):
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
+    if "--train-only" in argv:
+        train = train_phase(torch, root, shape)
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out", "chip_smoke_train.json"), "w") as f:
+            json.dump({"card": smi, "train": train}, f, indent=1)
+        return 0
+
     # 3. kernels against their plain versions at the rollout's shapes
     cfg = get_config()
     cfg_fused = get_config(opts=["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"])
     cfg_text = get_config(os.path.join(root, TEXT_YAML), TEXT_OPTS)
-    shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
     batch = make_synthetic_batch(cfg, batch_size=B_FULL, seed=0, device="cuda", **shape)
     batch_t = make_synthetic_batch(cfg_text, batch_size=B_FULL, seed=0, device="cuda", **shape)
     sites = site_inputs(torch, cfg, batch)
@@ -962,10 +1192,16 @@ def main(argv):
     if not rep_err <= PARITY_TOL_M:
         raise AssertionError(f"replicas differ from the single rollout by {rep_err}")
 
+    # 7. training (configs/no_text.yaml), its main path counted on its own
+    del model, model_f, out_gpu, outs
+    torch.cuda.empty_cache()
+    train = train_phase(torch, root, shape)
+
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
     by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
-               "demo (B=2)": launches_d}
+               "demo (B=2)": launches_d, f"train ({train['steps']} steps)": train["launches"],
+               "train eval (B=2)": train["eval_launches"]}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
                   "prosim_tpu/ops/pallas_topk.py:95", topk_rows,
@@ -1004,7 +1240,7 @@ def main(argv):
                                "text": {"scenes_per_s": B_FULL / times_t[1], "forward_s": times_t,
                                         "profile": prof_t, "per_site": per_site_t},
                                "demo (B=2)": {"profile": prof_d, "per_site": per_site_d}},
-                   "parity_m": parity, "kernels": kernels}, f, indent=1)
+                   "parity_m": parity, "train": train, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,15 @@ The JAX package `prosim_tpu` is the reference; this package keeps its module
 layout and names so each counterpart sits at the same path. It imports
 neither JAX nor anything of `prosim_tpu`.
 
-The port covers the unconditioned closed-loop rollout in eval mode: the
-scene encoder, prompt encoder, decoder and policy (its a2p/m2p stack as the
-layer loop or, with FUSED_STACK, the fused two-site stack), the replan
-loop, and the three hand-written CUDA kernels on that path
-(`ops/neighbors.py`, `ops/edge_attn.py`, `ops/fused_stack.py`, sources
-under `csrc/`). Entry points run on the card unless the caller passes
-`device="cpu"`. Training and prompt conditions are still to be ported (see
-ROADMAP.md).
+The port covers the closed-loop rollout: the scene encoder, prompt
+encoder, decoder and policy (its a2p/m2p stack as the layer loop or, with
+FUSED_STACK, the fused two-site stack), prompt conditions and the Llama
+text path, the replan loop and the M-replica rollout (`rollout/`), with the
+hand-written CUDA kernels on that path (`ops/neighbors.py`,
+`ops/edge_attn.py`, `ops/fused_stack.py`, `ops/flash_attn.py`, sources
+under `csrc/`); and closed-loop imitation training without the text path
+(`train/`). Entry points run on the card unless the caller passes
+`device="cpu"`. Text training and the rest are listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -123,6 +123,16 @@ class FutObs(_Tensors):
 
 
 @dataclasses.dataclass
+class RoadEdges(_Tensors):
+    """Oriented road-edge segments in the scene frame, the drivable area on
+    the LEFT of each segment direction (the layout the offroad loss reads)."""
+
+    pts: torch.Tensor    # [B, E, 2] segment starts
+    nxt: torch.Tensor    # [B, E, 2] segment ends
+    valid: torch.Tensor  # [B, E] bool
+
+
+@dataclasses.dataclass
 class Condition(_Tensors):
     """One prompt-condition type, fixed-C padded."""
 
@@ -150,6 +160,7 @@ class SceneBatch(_Tensors):
     prompt: Prompt
     io_pairs: Optional[IOPairs] = None
     fut_obs: Optional[FutObs] = None
+    road_edges: Optional[RoadEdges] = None
     conditions: Dict[str, Union[Condition, Dict[str, torch.Tensor]]] = dataclasses.field(
         default_factory=dict)
 
@@ -189,6 +200,7 @@ _NESTED = {
     ("SceneBatch", "prompt"): Prompt,
     ("SceneBatch", "io_pairs"): IOPairs,
     ("SceneBatch", "fut_obs"): FutObs,
+    ("SceneBatch", "road_edges"): RoadEdges,
 }
 
 

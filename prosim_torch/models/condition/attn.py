@@ -61,7 +61,7 @@ def condition_edge_mask(conditions: Dict[str, Condition], cond_types, prompt_mas
 
 class GNNConditionAttn(nn.Module):
     def __init__(self, hidden_dim: int, num_layers: int, num_heads: int, head_dim: int,
-                 pool: str = "mean"):
+                 pool: str = "mean", dropout: float = 0.0):
         super().__init__()
         if pool not in ("mean", "max"):
             raise ValueError(f"unknown condition pool '{pool}'")
@@ -70,10 +70,10 @@ class GNNConditionAttn(nn.Module):
         self.rel_pe = RelPE(hidden_dim, learnable_pe=False, fold_dup=False)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", GatedNeighborAttention(
-                hidden_dim, num_heads, head_dim, bipartite=False))
+                hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout))
 
     def forward(self, cond_embs: Dict[str, torch.Tensor], conditions: Dict[str, Condition],
-                prompt_emb, prompt: Prompt):
+                prompt_emb, prompt: Prompt, deterministic: bool = True, generator=None):
         """cond_embs: type -> [B, C, D] (unary) or [B, C, 2D] (binary);
         prompt_emb [B, N, D] -> [B, N, D]."""
         B, N, D = prompt_emb.shape
@@ -106,5 +106,6 @@ class GNNConditionAttn(nn.Module):
         edge_z = normalize_rel_pe(pooled + self.rel_pe(pe_in), D)  # [B, N, N, D]
         x = prompt_emb
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, x, all_idx, edge_mask, edge_z)
+            x = getattr(self, f"layer_{i}")(x, x, all_idx, edge_mask, edge_z,
+                                            deterministic=deterministic, generator=generator)
         return torch.where(prompt.mask[..., None], prompt_emb + x, prompt_emb)

@@ -1,11 +1,14 @@
 """Condition transformer: dispatcher over condition types (port of
-prosim_tpu/models/condition/transformer.py), eval mode.
+prosim_tpu/models/condition/transformer.py).
 
 The configured types split into non-text types, each encoded and fused
 into the prompt tokens by the GNN condition attention, and text ('*OneText')
 types, whose first one goes through the text attention afterwards
 (reference: prosim/models/condition_transformer/base.py:6-61). Module names
-mirror the flax ones (`encoders_<type>`, `cond_attn`, `text_attn`).
+mirror the flax ones (`encoders_<type>`, `cond_attn`, `text_attn`). With
+deterministic=False the GNN's layers drop out at
+MODEL.CONDITION_TRANSFORMER.DROPOUT; the text attention has no dropout yet
+(its training, LoRA dropout included, is ROADMAP.md's next slice).
 """
 
 from typing import Dict
@@ -32,7 +35,8 @@ class ConditionTransformer(nn.Module):
                  text_attn_type: str = "none", llm_config: LlamaConfig = None,
                  text_prompt_mask_pred: bool = True, replace_agent_token: bool = True,
                  agent_token_mode: str = "none", use_prompt_token: bool = True,
-                 drag_num_points: int = 8, drag_pre_layers: int = 1, drag_mlp_layers: int = 3):
+                 drag_num_points: int = 8, drag_pre_layers: int = 1, drag_mlp_layers: int = 3,
+                 dropout: float = 0.0):
         super().__init__()
         self.cond_types = tuple(cond_types)
         self.text_types = tuple(text_types)
@@ -52,7 +56,8 @@ class ConditionTransformer(nn.Module):
                 raise KeyError(f"unknown condition type '{t}'")
             self.add_module(f"encoders_{t}", enc)
         if self.cond_types:
-            self.cond_attn = GNNConditionAttn(hidden_dim, num_layers, num_heads, head_dim, pool)
+            self.cond_attn = GNNConditionAttn(hidden_dim, num_layers, num_heads, head_dim, pool,
+                                              dropout)
         if self.text_types:
             if text_attn_type == "llama":
                 self.text_attn = LlamaTextAttn(
@@ -64,12 +69,14 @@ class ConditionTransformer(nn.Module):
             else:
                 self.text_attn = NoTextAttn()
 
-    def forward(self, conditions: Dict, prompt_emb, prompt: Prompt):
+    def forward(self, conditions: Dict, prompt_emb, prompt: Prompt, deterministic: bool = True,
+                generator=None):
         """prompt_emb [B, N, D] -> (prompt_emb', text aux losses or None)."""
         cond_embs = {t: getattr(self, f"encoders_{t}")(conditions[t])
                      for t in self.cond_types if t in conditions}
         if cond_embs:
-            prompt_emb = self.cond_attn(cond_embs, conditions, prompt_emb, prompt)
+            prompt_emb = self.cond_attn(cond_embs, conditions, prompt_emb, prompt,
+                                        deterministic, generator)
         aux = None
         if self.text_types:
             t = self.text_types[0]
@@ -118,4 +125,5 @@ def build_condition_transformer(config) -> ConditionTransformer:
         drag_num_points=config.PROMPT.CONDITION.DRAG_POINT.MAX_POINTS,
         drag_pre_layers=ct.CONDITION_ENCODER.DRAG_POINTS.NUM_PRE_LAYERS,
         drag_mlp_layers=ct.CONDITION_ENCODER.DRAG_POINTS.NUM_MLP_LAYERS,
+        dropout=ct.DROPOUT,
     )

@@ -2,7 +2,8 @@
 
 Per layer, prompts self-attend over neighboring prompts (p2p, no
 self-loops) then cross-attend to nearby scene tokens (s2p), with rel-PE;
-optional K-way goal heads.
+optional K-way goal heads. With deterministic=False (training) the
+attention layers drop out at MODEL.DECODER.ATTN.DROPOUT.
 """
 
 import torch
@@ -12,9 +13,9 @@ from prosim_torch.data.batch import Prompt, SceneTokens
 from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
-    _norm_stats,
     normalize_rel_pe,
     rel_pe_features,
+    shared_source,
 )
 from prosim_torch.ops.mlp import MLP
 from prosim_torch.ops.neighbors import neighbor_topk
@@ -23,7 +24,7 @@ from prosim_torch.ops.neighbors import neighbor_topk
 class SymCoordDecoder(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  prompt_radius, scene_radius, edge_func, learnable_pe,
-                 pe_num_freq, goal_pred=False, goal_k=32):
+                 pe_num_freq, goal_pred=False, goal_k=32, dropout=0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
@@ -37,14 +38,15 @@ class SymCoordDecoder(nn.Module):
         self.s2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
         for i in range(num_layers):
             self.add_module(f"p2p_{i}", GatedNeighborAttention(
-                hidden_dim, num_heads, head_dim, bipartite=False))
+                hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout))
             self.add_module(f"s2p_{i}", GatedNeighborAttention(
-                hidden_dim, num_heads, head_dim, bipartite=True))
+                hidden_dim, num_heads, head_dim, bipartite=True, dropout=dropout))
         if goal_pred:
             self.goal_prob_head = MLP([hidden_dim, hidden_dim // 2, goal_k], ret_before_act=True)
             self.goal_point_head = MLP([hidden_dim, hidden_dim // 2, goal_k * 2], ret_before_act=True)
 
-    def forward(self, scene: SceneTokens, prompt: Prompt, prompt_emb) -> dict:
+    def forward(self, scene: SceneTokens, prompt: Prompt, prompt_emb, deterministic: bool = True,
+                generator=None) -> dict:
         """prompt_emb [B, N, D] -> dict with 'emd' [B, N, D] (+ goal heads)."""
         radius = self.edge_func == "radius"
         p2p_idx, p2p_valid = neighbor_topk(
@@ -59,17 +61,19 @@ class SymCoordDecoder(nn.Module):
         )
         s2p_pe = self.s2p_pe(
             rel_pe_features(prompt.pos, prompt.ori, scene.pos, scene.ori, s2p_idx))
-        # scene tokens are layer-constant here: normalize once for the stack
-        s2p_src = _norm_stats(scene.tokens)
+        # scene tokens are layer-constant here: normalize (and in training
+        # gather) them once for the stack
+        s2p_src = shared_source(scene.tokens, s2p_idx, s2p_valid, deterministic)
 
         p2p_z = normalize_rel_pe(p2p_pe, self.hidden_dim)
         s2p_z = normalize_rel_pe(s2p_pe, self.hidden_dim)
         x_p = prompt_emb
+        drop = dict(deterministic=deterministic, generator=generator)
         for i in range(self.num_layers):
             x_p = getattr(self, f"p2p_{i}")(
-                x_p, x_p, p2p_idx, p2p_valid, p2p_z)
+                x_p, x_p, p2p_idx, p2p_valid, p2p_z, **drop)
             x_p = getattr(self, f"s2p_{i}")(
-                x_p, scene.tokens, s2p_idx, s2p_valid, s2p_z, src_normed=s2p_src)
+                x_p, scene.tokens, s2p_idx, s2p_valid, s2p_z, **s2p_src, **drop)
         x_p = torch.where(prompt.mask[..., None], x_p, 0.0)
 
         result = {"emd": x_p}
@@ -97,4 +101,5 @@ def build_decoder(config) -> SymCoordDecoder:
         pe_num_freq=attn.PE_NUM_FREQ,
         goal_pred=mc.DECODER.GOAL_PRED.ENABLE,
         goal_k=mc.DECODER.GOAL_PRED.K,
+        dropout=attn.DROPOUT,
     )

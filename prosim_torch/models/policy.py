@@ -6,11 +6,15 @@ anchor-conditioned context-gating head emits K-mode [steps, state_dim]
 action deltas, cumsum-integrated within the chunk. The a2p/m2p stack runs
 either as the interleaved per-layer loop or, with FUSED_STACK, as one call
 of the fused two-site stack per replan step (ops/fused_stack.py, one CUDA
-kernel on the card), under the JAX package's conditions: fixed rel-PE and
-the map site in use. The port is eval-only, so the JAX package's training
-and TPU-backend terms do not apply. The 'anchor' head and the goal-reconstruction
-head (`pred_mlp`, LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS) are ported; the other
-heads and goal context are still to be ported (ROADMAP.md queue A3).
+kernel on the card), under the JAX package's conditions: fixed rel-PE, the
+map site in use, and a deterministic pass with grad mode off (the kernel
+has no backward, so training, with deterministic=False, takes the layer
+loop and its dropout at
+MODEL.POLICY.ACT_DECODER.ATTN.DROPOUT, as prosim_tpu/models/policy.py:199-206
+does). The JAX package's TPU-backend term does not apply. The 'anchor' head
+and the goal-reconstruction head (`pred_mlp`, LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS)
+are ported; the other heads and goal context are still to be ported
+(ROADMAP.md queue A4).
 """
 
 import torch
@@ -20,9 +24,10 @@ from prosim_torch.data.batch import SceneTokens
 from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
-    _norm_stats,
     normalize_rel_pe,
     rel_pe_features,
+    shared_source,
+    takes_kernel,
 )
 from prosim_torch.ops.fused_stack import fused_two_site_stack, pack_site_weights
 from prosim_torch.ops.mlp import MLP, ContextGating
@@ -34,7 +39,7 @@ class PolicyRelPE(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  agent_radius, map_radius, edge_func, learnable_pe, pe_num_freq,
                  motion_k, pred_steps, state_dim, use_ped_cycl=True, not_use_map=False,
-                 fused_stack=False, goal_recon_head=False):
+                 fused_stack=False, goal_recon_head=False, dropout=0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
@@ -56,7 +61,7 @@ class PolicyRelPE(nn.Module):
         for i in range(num_layers):
             for site in ("a2p", "m2p"):
                 self.add_module(f"{site}_{i}", GatedNeighborAttention(
-                    hidden_dim, num_heads, head_dim, bipartite=True))
+                    hidden_dim, num_heads, head_dim, bipartite=True, dropout=dropout))
         num_types = 3 if use_ped_cycl else 1
         self.motion_anchors = nn.Embedding(motion_k * num_types, hidden_dim)
         self.cg_decode = ContextGating(3, hidden_dim)
@@ -69,10 +74,12 @@ class PolicyRelPE(nn.Module):
             self.pred_mlp = MLP([hidden_dim, hidden_dim, hidden_dim // 2, 2], ret_before_act=True)
 
     def forward(self, policy_emd: dict, scene: SceneTokens, agent_pos, agent_ori,
-                agent_mask, agent_type, packed=None) -> dict:
+                agent_mask, agent_type, packed=None, deterministic: bool = True,
+                generator=None) -> dict:
         """packed: `pack_fused()` of this policy, made once per forward by the
         caller; packed here when it is None and the fused stack runs."""
-        x_p = self._attn_fuse(policy_emd["emd"], scene, agent_pos, agent_ori, agent_mask, packed)
+        x_p = self._attn_fuse(policy_emd["emd"], scene, agent_pos, agent_ori, agent_mask, packed,
+                              deterministic, generator)
         result = self._compute_traj(x_p, agent_type)
         if self.goal_recon_head:
             result["reconst_pred"] = self.pred_mlp(policy_emd["emd"])
@@ -101,13 +108,14 @@ class PolicyRelPE(nn.Module):
                             radius=self.map_radius if radius else None)
         return a2p, m2p
 
-    def _attn_fuse(self, x_p, scene: SceneTokens, pos, ori, mask, packed=None):
+    def _attn_fuse(self, x_p, scene: SceneTokens, pos, ori, mask, packed=None,
+                   deterministic=True, generator=None):
         graphs = self.site_graphs(scene, pos, mask)
-        if self.uses_fused_stack():
+        if self.uses_fused_stack() and takes_kernel(deterministic):
             wa, wm = packed if packed is not None else self.pack_fused()
             return fused_two_site_stack(x_p, *self.fused_tables(scene, pos, ori, graphs), wa, wm,
                                         num_heads=self.num_heads, head_dim=self.head_dim)
-        return self.layer_loop(x_p, scene, pos, ori, graphs)
+        return self.layer_loop(x_p, scene, pos, ori, graphs, deterministic, generator)
 
     def fused_tables(self, scene: SceneTokens, pos, ori, graphs):
         """The fused stack's (x_src, idx, feats, valid) tables of both sites."""
@@ -123,7 +131,8 @@ class PolicyRelPE(nn.Module):
             tables.append((tokens, idx, feats, valid))
         return tables
 
-    def layer_loop(self, x_p, scene: SceneTokens, pos, ori, graphs):
+    def layer_loop(self, x_p, scene: SceneTokens, pos, ori, graphs, deterministic=True,
+                   generator=None):
         """The interleaved per-layer a2p/m2p stack."""
         (a2p_idx, a2p_valid), (m2p_idx, m2p_valid) = graphs
         m = scene.num_map
@@ -131,17 +140,18 @@ class PolicyRelPE(nn.Module):
         map_pos, map_ori = scene.pos[:, :m], scene.ori[:, :m]
         a2p_pe = self.a2p_pe(rel_pe_features(pos, ori, obs_pos, obs_ori, a2p_idx))
         m2p_pe = self.m2p_pe(rel_pe_features(pos, ori, map_pos, map_ori, m2p_idx))
-        # the normalized source rows are layer-constant within a replan step
-        # and shared by every layer of the stack
-        a2p_src = _norm_stats(scene.obs_tokens)
-        m2p_src = _norm_stats(scene.map_tokens)
+        # the normalized (in training, gathered) source rows are
+        # layer-constant within a replan step and shared by every layer
+        a2p_src = shared_source(scene.obs_tokens, a2p_idx, a2p_valid, deterministic)
+        m2p_src = shared_source(scene.map_tokens, m2p_idx, m2p_valid, deterministic)
         a2p_z = normalize_rel_pe(a2p_pe, self.hidden_dim)
         m2p_z = normalize_rel_pe(m2p_pe, self.hidden_dim)
+        drop = dict(deterministic=deterministic, generator=generator)
         for i in range(self.num_layers):
             x_p = getattr(self, f"a2p_{i}")(
-                x_p, scene.obs_tokens, a2p_idx, a2p_valid, a2p_z, src_normed=a2p_src)
+                x_p, scene.obs_tokens, a2p_idx, a2p_valid, a2p_z, **a2p_src, **drop)
             x_m = getattr(self, f"m2p_{i}")(
-                x_p, scene.map_tokens, m2p_idx, m2p_valid, m2p_z, src_normed=m2p_src)
+                x_p, scene.map_tokens, m2p_idx, m2p_valid, m2p_z, **m2p_src, **drop)
             x_p = x_p if self.not_use_map else x_m
         return x_p
 
@@ -174,9 +184,9 @@ def build_policy(config) -> PolicyRelPE:
     attn = ad.ATTN
     if ad.TRAJ.PRED_MODE != "anchor":
         raise NotImplementedError(
-            f"TRAJ.PRED_MODE={ad.TRAJ.PRED_MODE!r} is not ported yet (see ROADMAP.md queue A3)")
+            f"TRAJ.PRED_MODE={ad.TRAJ.PRED_MODE!r} is not ported yet (see ROADMAP.md queue A4)")
     if ad.CONTEXT.GOAL or not ad.CONTEXT.EMD:
-        raise NotImplementedError("goal context is not ported yet (see ROADMAP.md queue A3)")
+        raise NotImplementedError("goal context is not ported yet (see ROADMAP.md queue A4)")
     state_dim = len(config.DATASET.FORMAT.TARGET.ELEMENTS.split(","))
     if ad.TRAJ.PRED_GMM:
         state_dim += 3
@@ -198,4 +208,5 @@ def build_policy(config) -> PolicyRelPE:
         not_use_map=attn.NOT_USE_MAP,
         fused_stack=attn.FUSED_STACK,
         goal_recon_head=config.LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS,
+        dropout=attn.DROPOUT,
     )

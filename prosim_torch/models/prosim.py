@@ -1,5 +1,5 @@
 """ProSim: promptable closed-loop traffic simulation model (port of
-prosim_tpu/models/prosim.py), eval mode.
+prosim_tpu/models/prosim.py).
 
 `prepare` encodes the scene and prompts and builds the per-agent policy
 embeddings once; `rollout` is the closed loop, a Python loop over R replan
@@ -20,14 +20,26 @@ text path and its prompt-mask loss comes out as `prompt_loss_aux`. The
 model is built directly on `device`, so a Llama3-8B text model never passes
 through host memory.
 
-Training (`mode="train"`) is still to be ported (ROADMAP.md queue A7); it
-raises NotImplementedError.
+Modes: the eval modes ('val', 'rollout', ...) run under
+torch.inference_mode, deterministically, through the kernels. `mode="train"`
+(`forward_train`) keeps the autograd graph: dropout in the scene encoder,
+decoder and policy (the condition transformer is called deterministic, as
+the JAX package calls it), `select_k_emd` picks the goal mode nearest the
+logged goal, the mode pick among ROLLOUT.POLICY.TOP_K_TRAIN, the chunk is
+detached unless MODEL.BPTT, and TRAIN.REMAT_POLICY checkpoints `prepare`
+and each replan step ('full': recompute everything, 'dots': keep the matmul
+outputs, 'none'). Each checkpointed region draws its dropout masks from a
+generator it builds from an integer seed, so its recompute draws the same
+masks (checkpoint restores only the default generators).
 """
 
+import contextlib
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from prosim_torch.data.batch import SceneBatch, SceneTokens
 from prosim_torch.models.condition.transformer import build_condition_transformer
@@ -49,6 +61,23 @@ def _topk_stable(x, k: int):
     return torch.sort(-x, dim=-1, stable=True)[1][..., :k]
 
 
+def _grad_mode(mode: str):
+    return contextlib.nullcontext() if mode == "train" else torch.inference_mode()
+
+
+# the matmul ops whose outputs TRAIN.REMAT_POLICY 'dots' keeps (the
+# counterpart of jax.checkpoint_policies.dots_saveable). A bare mm is
+# recomputed: ATen's linear on a 4-D input adds the bias into the mm output
+# in place, and selective checkpointing refuses a kept tensor that changed.
+_DOT_OPS = (torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 class ProSim(nn.Module):
     def __init__(self, config, device="cuda"):
         super().__init__()
@@ -66,6 +95,9 @@ class ProSim(nn.Module):
         self.hist_steps = config.DATASET.FORMAT.HISTORY.STEPS
         self.replan = config.ROLLOUT.POLICY.REPLAN_FREQ
         self.top_k = config.ROLLOUT.POLICY.TOP_K
+        self.top_k_train = config.ROLLOUT.POLICY.TOP_K_TRAIN
+        self.bptt = config.MODEL.BPTT
+        self.remat_policy = config.TRAIN.REMAT_POLICY
         self.dt = config.DATASET.MOTION.DT
         self.pred_vel = config.MODEL.POLICY.ACT_DECODER.TRAJ.PRED_VEL
         self.pred_gmm = config.MODEL.POLICY.ACT_DECODER.TRAJ.PRED_GMM
@@ -73,11 +105,21 @@ class ProSim(nn.Module):
         self.to(device)
         self.eval()
 
+    def _remat(self, fn, *args):
+        """fn(*args) under TRAIN.REMAT_POLICY (prosim_tpu/models/prosim.py:253-264)."""
+        pol = self.remat_policy
+        if pol == "none":
+            return fn(*args)
+        if pol == "full":
+            return ckpt.checkpoint(fn, *args, use_reentrant=False)
+        if pol == "dots":
+            return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+        raise ValueError(f"unknown TRAIN.REMAT_POLICY {pol!r}")
+
     @staticmethod
-    def _check_mode(mode: str):
-        if mode == "train":
-            raise NotImplementedError(
-                "mode='train' is not ported yet (see ROADMAP.md queue A7)")
+    def _seeded(seed: int, device) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(seed)
 
     # ------------------------------------------------------------ traj state
     def init_agent_trajs(self, batch: SceneBatch, total_steps: int):
@@ -109,10 +151,15 @@ class ProSim(nn.Module):
         if "goal_point" not in policy_emd or emd.ndim == 3:
             return policy_emd
         B, N, K, _ = emd.shape
-        k = min(self.top_k, K)
-        topk_idx = _topk_stable(policy_emd["goal_prob"], k)
-        r = torch.randint(0, k, (B, N), generator=generator, device=emd.device)
-        idx = topk_idx.gather(-1, r[..., None])[..., 0]
+        if mode == "train":  # the mode nearest the logged goal
+            gt_goal = batch.io_pairs.goal[:, 0]  # [B, N, 2]
+            idx = torch.linalg.vector_norm(
+                policy_emd["goal_point"] - gt_goal[:, :, None, :], dim=-1).argmin(dim=-1)
+        else:
+            k = min(self.top_k, K)
+            topk_idx = _topk_stable(policy_emd["goal_prob"], k)
+            r = torch.randint(0, k, (B, N), generator=generator, device=emd.device)
+            idx = topk_idx.gather(-1, r[..., None])[..., 0]
         policy_emd = dict(policy_emd)
         policy_emd["select_idx"] = idx
         policy_emd["emd"] = emd.gather(2, idx[..., None, None].expand(B, N, 1, emd.shape[-1]))[:, :, 0]
@@ -121,17 +168,17 @@ class ProSim(nn.Module):
         return policy_emd
 
     # --------------------------------------------------------------- rollout
-    @torch.inference_mode()
     def prepare(self, batch: SceneBatch, mode: str = "val",
                 generator: Optional[torch.Generator] = None):
         """Encode scene + prompts and build per-agent policy embeddings (the
-        once-per-scene half; M replicas reuse it)."""
-        self._check_mode(mode)
-        scene = self.scene_encoder(batch.init_obs, batch.init_map)
-        prompt_emb = self.encode_prompt(batch)
-        policy_emd = self.generate_policy(batch, scene, prompt_emb)
-        policy_emd = self.select_k_emd(policy_emd, batch, mode, generator)
-        return scene, policy_emd
+        once-per-scene half; M replicas reuse it). In train mode `generator`
+        draws the dropout masks."""
+        with _grad_mode(mode):
+            deterministic = mode != "train"
+            scene = self.scene_encoder(batch.init_obs, batch.init_map, deterministic, generator)
+            prompt_emb = self.encode_prompt(batch)
+            policy_emd = self.generate_policy(batch, scene, prompt_emb, deterministic, generator)
+            return scene, self.select_k_emd(policy_emd, batch, mode, generator)
 
     def encode_prompt(self, batch: SceneBatch):
         prompt_emb = self.prompt_encoder(batch.prompt)
@@ -140,10 +187,11 @@ class ProSim(nn.Module):
                 batch.conditions, prompt_emb, batch.prompt)
         return prompt_emb
 
-    def generate_policy(self, batch: SceneBatch, scene: SceneTokens, prompt_emb) -> dict:
+    def generate_policy(self, batch: SceneBatch, scene: SceneTokens, prompt_emb,
+                        deterministic: bool = True, generator=None) -> dict:
         """The decoder's policy embeddings, conditioned at 'policy_decoder';
         the text path's aux losses ride along as 'prompt_loss_aux'."""
-        policy_emd = self.decoder(scene, batch.prompt, prompt_emb)
+        policy_emd = self.decoder(scene, batch.prompt, prompt_emb, deterministic, generator)
         policy_emd["goal"] = batch.prompt.goal_point
         if "policy_decoder" in self.condition_locations:
             emd, aux = self.condition_transformer_policy_decoder(
@@ -153,12 +201,26 @@ class ProSim(nn.Module):
                 policy_emd["prompt_loss_aux"] = aux
         return policy_emd
 
-    @torch.inference_mode()
     def forward(self, batch: SceneBatch, mode: str = "val",
-                generator: Optional[torch.Generator] = None) -> dict:
-        """Full closed-loop pass: prepare, then the replan loop."""
+                generator: Optional[torch.Generator] = None, seed: int = 0) -> dict:
+        """Full closed-loop pass: prepare, then the replan loop. mode="train"
+        is `forward_train(batch, seed)`."""
+        if mode == "train":
+            return self.forward_train(batch, seed)
         scene, policy_emd = self.prepare(batch, mode, generator)
         return self.rollout(batch, scene, policy_emd, mode, generator)
+
+    def forward_train(self, batch: SceneBatch, seed: int = 0) -> dict:
+        """The train-mode closed loop, differentiable. `seed` makes the
+        integer seeds of `prepare` and of each replan step, as the JAX package
+        splits its key (prosim_tpu/models/prosim.py:266-283, 386-389)."""
+        seeds = torch.Generator().manual_seed(seed)
+        R = int(batch.fut_obs.feat.shape[1])
+        prep_seed, *step_seeds = torch.randint(0, 2**62, (R + 1,), generator=seeds).tolist()
+        dev = batch.init_obs.feat.device
+        scene, policy_emd = self._remat(
+            lambda b, s: self.prepare(b, "train", self._seeded(s, dev)), batch, prep_seed)
+        return self._rollout(batch, scene, policy_emd, "train", step_seeds=step_seeds)
 
     def _agent_pose(self, traj, cursor, init_pos, init_heading):
         last = traj[:, :, cursor - 1]
@@ -219,11 +281,16 @@ class ProSim(nn.Module):
             scatter(fo_ori, theta_n),
         )
 
-    @torch.inference_mode()
     def rollout(self, batch: SceneBatch, scene: SceneTokens, policy_emd: dict,
                 mode: str = "val", generator: Optional[torch.Generator] = None) -> dict:
-        """The closed loop over R replan steps from prepared embeddings."""
-        self._check_mode(mode)
+        """The closed loop over R replan steps from prepared embeddings, in an
+        eval mode (training goes through `forward_train`)."""
+        if mode == "train":
+            raise ValueError("the train-mode rollout is forward_train(batch, seed)")
+        with torch.inference_mode():
+            return self._rollout(batch, scene, policy_emd, mode, generator=generator)
+
+    def _rollout(self, batch, scene, policy_emd, mode, generator=None, step_seeds=None):
         Th = self.hist_steps
         R = int(batch.fut_obs.feat.shape[1])
         total = Th + R * self.replan
@@ -234,62 +301,90 @@ class ProSim(nn.Module):
         type_onehot = (prompt.agent_type.long()[..., None] - 1
                        == torch.arange(3, device=dev)).float()
         time_onehot = torch.eye(Th, device=dev)
-        mask = prompt.mask
-
-        packed = self.policy.pack_fused()  # None unless the fused stack runs
-        motion_preds, motion_probs, reconst_preds = [], [], []
+        consts = (init_pos, init_heading, type_onehot, time_onehot)
+        train = mode == "train"
+        packed = None if train else self.policy.pack_fused()  # None unless the fused stack runs
+        carry = (scene.tokens, scene.pos, scene.ori, scene.mask, traj, vel)
+        steps = []
         for r in range(R):
-            cursor = Th + r * self.replan
-            pos_now, theta_now = self._agent_pose(traj, cursor, init_pos, init_heading)
-            if r > 0:
-                scene = self._step_env(batch, scene, traj, vel, r, cursor, init_pos,
-                                       init_heading, type_onehot, time_onehot)
-            out = self.policy(policy_emd, scene, pos_now, theta_now, mask, prompt.agent_type,
-                              packed=packed)
-
-            # mode selection among the top-k (reference: traj_sam.py:301-313)
-            probs = out["motion_prob"]  # [B, N, K]
-            k_eff = min(self.top_k, probs.shape[-1])
-            if k_eff == 1:
-                sel = torch.argmax(probs, dim=-1)  # first maximum, as jnp.argmax
+            if train:
+                carry, ys = self._remat(
+                    lambda c, r_, s: self._step(batch, scene.num_map, policy_emd, consts, c, r_,
+                                                mode, self._seeded(s, dev), None),
+                    carry, r, step_seeds[r])
             else:
-                topk_idx = _topk_stable(probs, k_eff)
-                rand = torch.randint(0, k_eff, probs.shape[:2], generator=generator, device=dev)
-                sel = topk_idx.gather(-1, rand[..., None])[..., 0]
-            mp = out["motion_pred"]
-            chunk = mp.gather(2, sel[:, :, None, None, None].expand(
-                *mp.shape[:2], 1, *mp.shape[3:]))[:, :, 0, : self.replan].float()
-
-            last = traj[:, :, cursor - 1]
-            last_theta = torch.atan2(last[..., 2], last[..., 3])  # [B, N]
-            xy = rotate_2d(chunk[..., :2], last_theta[..., None]) + last[..., None, :2]
-            th = wrap_angle(last_theta[..., None] + chunk[..., 2])
-            new_seg = torch.cat([xy, torch.sin(th)[..., None], torch.cos(th)[..., None]], dim=-1)
-            S = new_seg.shape[2]
-            traj[:, :, cursor : cursor + S] = torch.where(mask[..., None, None], new_seg, 0.0)
-            if self.pred_vel:
-                vch = chunk[..., 6:8] if self.pred_gmm else chunk[..., 3:5]
-                vseg = rotate_2d(vch, last_theta[..., None])
-                vel[:, :, cursor : cursor + S] = torch.where(mask[..., None, None], vseg, 0.0)
-            motion_preds.append(mp)
-            motion_probs.append(probs)
-            if "reconst_pred" in out:
-                reconst_preds.append(out["reconst_pred"])
-
+                carry, ys = self._step(batch, scene.num_map, policy_emd, consts, carry, r, mode,
+                                       generator, packed)
+            steps.append(ys)
+        traj, vel = carry[4], carry[5]
         output = {
             # per-step predictions stacked on a leading replan axis [R, B, N, ...]
-            "motion_pred": torch.stack(motion_preds),
-            "motion_prob": torch.stack(motion_probs),
+            "motion_pred": torch.stack([ys["motion_pred"] for ys in steps]),
+            "motion_prob": torch.stack([ys["motion_prob"] for ys in steps]),
             # final rollout (local frame of each agent's obs origin)
             "rollout_traj": traj[:, :, Th:],
             "rollout_vel": vel[:, :, Th:],
             "init_pos": init_pos,
             "init_heading": init_heading,
-            "agent_mask": mask,
+            "agent_mask": prompt.mask,
         }
-        if reconst_preds:
-            output["reconst_pred"] = torch.stack(reconst_preds)
+        if "reconst_pred" in steps[0]:
+            output["reconst_pred"] = torch.stack([ys["reconst_pred"] for ys in steps])
         for key in ("prompt_loss_aux", "goal_prob", "goal_point", "select_idx", "goal"):
             if key in policy_emd:
                 output[key] = policy_emd[key]
         return output
+
+    def _step(self, batch, num_map, policy_emd, consts, carry, r, mode, generator, packed):
+        """One replan step: (scene tokens, pos, ori, mask, traj, vel) -> the
+        next carry and the step's predictions. In train mode `generator`
+        draws the dropout masks and the mode pick."""
+        Th = self.hist_steps
+        init_pos, init_heading, type_onehot, time_onehot = consts
+        tokens, spos, sori, smask, traj, vel = carry
+        scene = SceneTokens(tokens=tokens, pos=spos, ori=sori, mask=smask, num_map=num_map)
+        prompt = batch.prompt
+        mask = prompt.mask
+        train = mode == "train"
+        cursor = Th + r * self.replan
+        pos_now, theta_now = self._agent_pose(traj, cursor, init_pos, init_heading)
+        if r > 0:
+            scene = self._step_env(batch, scene, traj, vel, r, cursor, init_pos,
+                                   init_heading, type_onehot, time_onehot)
+        out = self.policy(policy_emd, scene, pos_now, theta_now, mask, prompt.agent_type,
+                          packed=packed, deterministic=not train, generator=generator)
+
+        # mode selection among the top-k (reference: traj_sam.py:301-313)
+        probs = out["motion_prob"]  # [B, N, K]
+        k_eff = min(self.top_k_train if train else self.top_k, probs.shape[-1])
+        if k_eff == 1:
+            sel = torch.argmax(probs, dim=-1)  # first maximum, as jnp.argmax
+        else:
+            topk_idx = _topk_stable(probs, k_eff)
+            rand = torch.randint(0, k_eff, probs.shape[:2], generator=generator,
+                                 device=probs.device)
+            sel = topk_idx.gather(-1, rand[..., None])[..., 0]
+        mp = out["motion_pred"]
+        chunk = mp.gather(2, sel[:, :, None, None, None].expand(
+            *mp.shape[:2], 1, *mp.shape[3:]))[:, :, 0, : self.replan].float()
+        if not self.bptt:
+            chunk = chunk.detach()
+
+        last = traj[:, :, cursor - 1]
+        last_theta = torch.atan2(last[..., 2], last[..., 3])  # [B, N]
+        xy = rotate_2d(chunk[..., :2], last_theta[..., None]) + last[..., None, :2]
+        th = wrap_angle(last_theta[..., None] + chunk[..., 2])
+        new_seg = torch.cat([xy, torch.sin(th)[..., None], torch.cos(th)[..., None]], dim=-1)
+        S = new_seg.shape[2]
+        # out of place: a checkpointed step's inputs must not change afterwards
+        traj = traj.slice_scatter(torch.where(mask[..., None, None], new_seg, 0.0),
+                                  dim=2, start=cursor, end=cursor + S)
+        if self.pred_vel:
+            vch = chunk[..., 6:8] if self.pred_gmm else chunk[..., 3:5]
+            vseg = rotate_2d(vch, last_theta[..., None])
+            vel = vel.slice_scatter(torch.where(mask[..., None, None], vseg, 0.0),
+                                    dim=2, start=cursor, end=cursor + S)
+        ys = {"motion_pred": mp, "motion_prob": probs}
+        if "reconst_pred" in out:
+            ys["reconst_pred"] = out["reconst_pred"]
+        return (scene.tokens, scene.pos, scene.ori, scene.mask, traj, vel), ys

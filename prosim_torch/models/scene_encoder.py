@@ -6,7 +6,8 @@ scene token attends over scene neighbors (s2s), on a fixed [B, L + A] grid
 with kNN graphs that keep self-loops. This slice ports the PointNet map/obs
 encoders and the 'replace' obs update of the demo architecture; the MLP
 encoders, the 'mlp' fusion and ATTN_UPDATE are still to be ported
-(ROADMAP.md queue A3).
+(ROADMAP.md queue A4). With deterministic=False (training) the attention
+layers drop out at MODEL.SCENE_ENCODER.ATTN.DROPOUT.
 """
 
 import torch
@@ -46,7 +47,8 @@ class ObsEncoderPointNet(nn.Module):
 class SceneEncoderAttnRelPE(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  learnable_pe, pe_num_freq, map_pre_layers, map_mlp_layers,
-                 obs_pre_layers, obs_mlp_layers, map_in_dim=11, obs_in_dim=24):
+                 obs_pre_layers, obs_mlp_layers, map_in_dim=11, obs_in_dim=24,
+                 dropout=0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
@@ -58,9 +60,10 @@ class SceneEncoderAttnRelPE(nn.Module):
         for i in range(num_layers):
             for site in ("a2a", "s2s"):
                 self.add_module(f"{site}_{i}", GatedNeighborAttention(
-                    hidden_dim, num_heads, head_dim, bipartite=False))
+                    hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout))
 
-    def forward(self, init_obs: ObsInputs, init_map: MapInputs) -> SceneTokens:
+    def forward(self, init_obs: ObsInputs, init_map: MapInputs, deterministic: bool = True,
+                generator=None) -> SceneTokens:
         map_emb, map_tok_mask = self.map_encoder(init_map)
         obs_emb, obs_tok_mask = self.obs_encoder(init_obs.feat, init_obs.mask)
         scene = SceneTokens(
@@ -70,9 +73,9 @@ class SceneEncoderAttnRelPE(nn.Module):
             mask=torch.cat([map_tok_mask, obs_tok_mask], dim=1),
             num_map=map_emb.shape[1],
         )
-        return self._fuse(scene)
+        return self._fuse(scene, deterministic, generator)
 
-    def _fuse(self, scene: SceneTokens) -> SceneTokens:
+    def _fuse(self, scene: SceneTokens, deterministic=True, generator=None) -> SceneTokens:
         """Alternating a2a/s2s attention over the full token grid."""
         m = scene.num_map
         obs_pos, obs_ori, obs_mask = scene.pos[:, m:], scene.ori[:, m:], scene.mask[:, m:]
@@ -90,11 +93,12 @@ class SceneEncoderAttnRelPE(nn.Module):
         a2a_z = normalize_rel_pe(a2a_pe, self.hidden_dim)
         s2s_z = normalize_rel_pe(s2s_pe, self.hidden_dim)
         x = scene.tokens
+        drop = dict(deterministic=deterministic, generator=generator)
         for i in range(self.num_layers):
             x_obs = getattr(self, f"a2a_{i}")(
-                x[:, m:], x[:, m:], a2a_idx, a2a_valid, a2a_z)
+                x[:, m:], x[:, m:], a2a_idx, a2a_valid, a2a_z, **drop)
             x = torch.cat([x[:, :m], x_obs], dim=1)
-            x = getattr(self, f"s2s_{i}")(x, x, s2s_idx, s2s_valid, s2s_z)
+            x = getattr(self, f"s2s_{i}")(x, x, s2s_idx, s2s_valid, s2s_z, **drop)
         return scene.replace(tokens=x)
 
     def update_obs(self, scene: SceneTokens, obs_feat, obs_step_mask, obs_pos,
@@ -106,7 +110,7 @@ class SceneEncoderAttnRelPE(nn.Module):
 
 
 def _unsupported(what):
-    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md queue A3)")
+    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md queue A4)")
 
 
 def build_scene_encoder(config) -> SceneEncoderAttnRelPE:
@@ -130,4 +134,5 @@ def build_scene_encoder(config) -> SceneEncoderAttnRelPE:
         obs_mlp_layers=mc.OBS_ENCODER.POINTNET.NUM_MLP_LAYERS,
         map_in_dim=map_feature_dim(config),
         obs_in_dim=obs_feature_dim(config),
+        dropout=attn.DROPOUT,
     )

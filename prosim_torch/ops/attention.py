@@ -6,14 +6,17 @@ decoder p2p/s2p, policy a2p/m2p). The parameter tree is the flax one, and
 the math is the JAX package's weight-folded form: LayerNorm splits into a
 parameter-free normalization (shared across layers) and a per-layer affine,
 and the k/v/PE projections fold onto the query side, so per layer only the
-score/softmax/aggregate core touches the per-edge tables. That core is
-`ops/edge_attn.py:edge_attn_core`, a CUDA kernel on the card.
+score/softmax/aggregate core touches the per-edge tables. In eval mode that
+core is `ops/edge_attn.py:edge_attn_core`, a CUDA kernel on the card, which
+has no backward; where a gradient may be wanted (grad mode on, or training
+with `deterministic=False`) it is `attend_gathered`, the JAX package's
+differentiable XLA branch with the score bias and attention dropout.
 """
 
 import torch
 from torch import nn
 
-from prosim_torch.ops.edge_attn import edge_attn_core
+from prosim_torch.ops.edge_attn import attend_gathered, edge_attn_core
 from prosim_torch.ops.fourier import FourierEmbedding, FourierEmbeddingFix
 from prosim_torch.ops.mlp import LayerNorm
 from prosim_torch.ops.neighbors import gather_neighbors
@@ -111,17 +114,49 @@ def gather_src_features(x_src, idx):
     return gather_neighbors(_norm_stats(x_src), idx)
 
 
+def dropout(x, rate: float, generator: torch.Generator):
+    """flax's nn.Dropout in training: keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate). The mask is drawn from
+    `generator`, so a checkpointed region that rebuilds its generator from
+    the same seed draws the same masks when it is recomputed."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def takes_kernel(deterministic: bool) -> bool:
+    """Whether the layer's core is the kernel (`edge_attn_core`, no
+    backward): only when the layer is deterministic and grad mode is off."""
+    return deterministic and not torch.is_grad_enabled()
+
+
+def shared_source(x_src, idx, edge_valid, deterministic: bool) -> dict:
+    """The normalized source rows that every layer of a stack shares while
+    x_src is layer-constant, as the layer's keyword: `src_normed` [B,S,D]
+    for the kernel, which gathers its rows itself, or `src_gathered`
+    [B,Q,K,D] for the differentiable branch, one gather (and one backward
+    scatter) per stack, as the JAX package's decoder and policy pass
+    `src_gathered` (prosim_tpu/models/policy.py:236-247)."""
+    x_n = _norm_stats(x_src)
+    if takes_kernel(deterministic):
+        return {"src_normed": x_n}
+    return {"src_gathered": gather_neighbors(x_n, torch.where(edge_valid, idx, 0))}
+
+
 class GatedNeighborAttention(nn.Module):
-    """QCNet gated attention layer (reference: attention_layer.py:87-121),
-    eval mode: dropout is the identity."""
+    """QCNet gated attention layer (reference: attention_layer.py:87-121).
+    `dropout` acts on the attention weights and the FFN's hidden layer when
+    the layer runs with deterministic=False."""
 
     def __init__(self, hidden_dim: int, num_heads: int, head_dim: int,
-                 bipartite: bool = False, pe_dim: int = None):
+                 bipartite: bool = False, pe_dim: int = None, dropout: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.bipartite = bipartite
+        self.dropout = dropout
         D = hidden_dim
         P = pe_dim or hidden_dim  # full reference width of the rel-PE
         inner = num_heads * head_dim
@@ -143,13 +178,19 @@ class GatedNeighborAttention(nn.Module):
         self.ff_dense1 = nn.Linear(hidden_dim * 4, hidden_dim)
         self.ff_postnorm = LayerNorm(hidden_dim)
 
-    def forward(self, x_dst, x_src, idx, edge_valid, pe_normed, src_normed=None):
+    def forward(self, x_dst, x_src, idx, edge_valid, pe_normed, src_normed=None,
+                src_gathered=None, deterministic: bool = True, generator=None):
         """x_dst [B,Q,D], x_src [B,S,D], idx [B,Q,K], edge_valid [B,Q,K],
         pe_normed [B,Q,K,D_pe] = normalize_rel_pe(rel_pe, P) (D_pe < P when
-        folded) -> [B,Q,D].
+        folded) -> [B,Q,D]. The core is the kernel (`edge_attn_core`) when
+        the layer is deterministic and grad mode is off; otherwise it is the
+        differentiable training branch, with dropout drawn from `generator`
+        when deterministic=False.
 
         src_normed: optional [B,S,D] = _norm_stats(x_src), the parameter-free
-        normalized source rows that the edge core gathers by idx. Both tables
+        normalized source rows that the kernel gathers by idx; src_gathered:
+        optional [B,Q,K,D], those rows gathered, for the differentiable
+        branch (`shared_source` makes the one the layer takes). The tables
         are shared across a stack whose inputs they depend on are
         layer-constant.
         The folds (exact math, see prosim_tpu/ops/attention.py:242-262):
@@ -167,7 +208,6 @@ class GatedNeighborAttention(nn.Module):
         g_s, b_s = self.prenorm_src.weight, self.prenorm_src.bias
         norm_dst = self.prenorm_dst if self.bipartite else self.prenorm_src
         x_dst_n = _norm_stats(x_dst) * norm_dst.weight + norm_dst.bias
-        x_src_n = _norm_stats(x_src) if src_normed is None else src_normed
 
         qh = self.to_q(x_dst_n).view(B, Q, H, hd)
         w_k = self.to_k.weight.t()                  # [D_src, inner]
@@ -185,10 +225,23 @@ class GatedNeighborAttention(nn.Module):
 
         q_k = torch.einsum("bqhe,dhe->bqhd", qh, w_k.reshape(D_src, H, hd))
         q_pe = torch.einsum("bqhe,dhe->bqhd", qh, w_kr_g)
-        agg_x, agg_z, attn_sum = edge_attn_core(
-            x_src_n.contiguous(), idx.to(torch.int32).contiguous(), z_r.contiguous(),
-            (q_k * g_s).contiguous(), q_pe.contiguous(), edge_valid.contiguous(), scale,
-        )
+        if takes_kernel(deterministic):
+            x_src_n = _norm_stats(x_src) if src_normed is None else src_normed
+            agg_x, agg_z, attn_sum = edge_attn_core(
+                x_src_n.contiguous(), idx.to(torch.int32).contiguous(), z_r.contiguous(),
+                (q_k * g_s).contiguous(), q_pe.contiguous(), edge_valid.contiguous(), scale,
+            )
+        else:
+            if src_gathered is None:
+                src_gathered = shared_source(x_src, idx, edge_valid, False)["src_gathered"]
+            # the score bias q.(W_k b_s) + q.(W_kr b_r) over all P rows; it
+            # cancels in the softmax, and is kept as the JAX package keeps it
+            bias = torch.einsum("bqhd,d->bqh", q_k, b_s) + torch.einsum(
+                "bqhe,he->bqh", qh, torch.einsum("dhe,d->he", w_kr.reshape(P, H, hd), b_r))
+            drop = None if deterministic else (lambda a: dropout(a, self.dropout, generator))
+            agg_x, agg_z, attn = attend_gathered(
+                src_gathered, z_r, q_k * g_s, q_pe, edge_valid, scale, bias, drop)
+            attn_sum = attn.sum(dim=2)  # not 1 under dropout
         agg_v = torch.einsum("bqhd,dhe->bqhe", agg_x * g_s, w_v.reshape(D_src, H, hd))
         agg_pe = torch.einsum("bqhd,dhe->bqhe", agg_z, w_vr_g)
         const = (b_s @ w_v + c_v + b_r @ w_vr + c_vr).view(H, hd)
@@ -198,5 +251,7 @@ class GatedNeighborAttention(nn.Module):
         s = self.to_s(x_dst_n)
         gated = agg + g * (s - agg)
         x = x_dst + self.postnorm(self.to_out(gated))
-        ff = self.ff_dense1(torch.relu(self.ff_dense0(self.ff_prenorm(x))))
-        return x + self.ff_postnorm(ff)
+        ff = torch.relu(self.ff_dense0(self.ff_prenorm(x)))
+        if not deterministic:
+            ff = dropout(ff, self.dropout, generator)
+        return x + self.ff_postnorm(self.ff_dense1(ff))

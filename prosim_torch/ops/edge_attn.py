@@ -8,7 +8,9 @@ gather_neighbors(x_src_n, idx)). For each destination row and head:
     attn = softmax_K(where(valid, sim, -inf))     (rows with no valid edge -> 0)
     agg_x = sum_k attn * x_g ; agg_z = sum_k attn * z_r ; attn_sum = any(valid)
 The layer's per-query score bias is constant over K and cancels inside the
-softmax, so it is not an input. idx is arbitrary where an edge is invalid.
+softmax, so it is not an input. idx is arbitrary where an edge is invalid. It has
+no backward and refuses inputs that require grad (training takes
+`attend_gathered`, the same block with the bias and attention dropout).
 
 On a CUDA tensor `edge_attn_core` launches csrc/edge_attn.cu, which gathers
 the valid edges' source rows itself (no [B,Q,K,D] table is written), at any
@@ -25,7 +27,7 @@ import functools
 import torch
 
 from prosim_torch.ops import _build
-from prosim_torch.ops.neighbors import _check, gather_neighbors
+from prosim_torch.ops.neighbors import _check, gather_neighbors, refuse_grad
 
 
 @functools.cache
@@ -36,12 +38,16 @@ def _launcher():
     return fn
 
 
-def edge_attn_core_plain(x_src_n, idx, z_r, qx, qp, edge_valid, scale: float):
-    x_g = gather_neighbors(x_src_n, torch.where(edge_valid, idx, 0))
-    sim = (
-        torch.einsum("bqhd,bqkd->bqkh", qx, x_g)
-        + torch.einsum("bqhd,bqkd->bqkh", qp, z_r)
-    ) * scale
+def attend_gathered(x_g, z_r, qx, qp, edge_valid, scale: float, bias=None, drop=None):
+    """The differentiable einsum/softmax block of prosim_tpu/ops/attention.py
+    (:346-366) over gathered source rows x_g [B,Q,K,D] -> (agg_x, agg_z,
+    attn [B,Q,K,H]). The training branch passes the per-query score bias
+    [B,Q,H] and `drop`, the dropout applied to the weights before they
+    aggregate; the plain core passes neither."""
+    sim = torch.einsum("bqhd,bqkd->bqkh", qx, x_g) + torch.einsum("bqhd,bqkd->bqkh", qp, z_r)
+    if bias is not None:
+        sim = sim + bias[:, :, None]
+    sim = sim * scale
     valid = edge_valid[..., None]
     sim = torch.where(valid, sim, -torch.inf)
     sim_max = sim.amax(dim=2, keepdim=True)
@@ -49,8 +55,16 @@ def edge_attn_core_plain(x_src_n, idx, z_r, qx, qp, edge_valid, scale: float):
     expw = torch.where(valid, torch.exp(sim - sim_max), 0.0)
     denom = expw.sum(dim=2, keepdim=True)
     attn = expw / denom.clamp_min(1e-9)  # [B,Q,K,H]
+    if drop is not None:
+        attn = drop(attn)
     agg_x = torch.einsum("bqkh,bqkd->bqhd", attn, x_g)
     agg_z = torch.einsum("bqkh,bqkd->bqhd", attn, z_r)
+    return agg_x, agg_z, attn
+
+
+def edge_attn_core_plain(x_src_n, idx, z_r, qx, qp, edge_valid, scale: float):
+    x_g = gather_neighbors(x_src_n, torch.where(edge_valid, idx, 0))
+    agg_x, agg_z, _ = attend_gathered(x_g, z_r, qx, qp, edge_valid, scale)
     attn_sum = edge_valid.any(-1).to(x_g.dtype)[..., None].expand(*qx.shape[:3])
     return agg_x, agg_z, attn_sum
 
@@ -58,7 +72,9 @@ def edge_attn_core_plain(x_src_n, idx, z_r, qx, qp, edge_valid, scale: float):
 def edge_attn_core(x_src_n, idx, z_r, qx, qp, edge_valid, scale: float):
     """x_src_n [B,S,D] (the normalized source rows), idx [B,Q,K] int32,
     z_r [B,Q,K,Dp], qx [B,Q,H,D], qp [B,Q,H,Dp] f32, edge_valid [B,Q,K]
-    bool -> (agg_x [B,Q,H,D], agg_z [B,Q,H,Dp], attn_sum [B,Q,H])."""
+    bool -> (agg_x [B,Q,H,D], agg_z [B,Q,H,Dp], attn_sum [B,Q,H]).
+    Forward only: refuses inputs that require grad while grad mode is on."""
+    refuse_grad("edge_attn_core", x_src_n, z_r, qx, qp)
     if x_src_n.device.type == "cpu":
         return edge_attn_core_plain(x_src_n, idx, z_r, qx, qp, edge_valid, scale)
     if x_src_n.device.type != "cuda":

@@ -28,7 +28,7 @@ import torch
 
 from prosim_torch.ops import _build
 from prosim_torch.ops.attention import _norm_stats, gather_src_features
-from prosim_torch.ops.neighbors import _check
+from prosim_torch.ops.neighbors import _check, refuse_grad
 
 # packed field order per site, each stacked over the L layers:
 #   wkv  = [diag(g_s) W_k | diag(g_s) W_v]
@@ -220,7 +220,9 @@ def fused_two_site_stack(x_p, a2p_tables, m2p_tables, weights_a, weights_m, *,
     (the reference's 4, rel_ori_vec twice), valid [B,N,K] bool), idx in
     [0, S) where valid (arbitrary elsewhere); weights_* are
     `pack_site_weights` outputs. The two sites may have different S and K.
-    Returns [B,N,D]."""
+    Returns [B,N,D]. Forward only: refuses inputs that require grad while
+    grad mode is on."""
+    refuse_grad("fused_two_site_stack", x_p, a2p_tables, m2p_tables, weights_a, weights_m)
     if x_p.device.type == "cpu":
         return fused_two_site_stack_plain(x_p, a2p_tables, m2p_tables, weights_a, weights_m,
                                           num_heads=num_heads, head_dim=head_dim)

@@ -88,6 +88,23 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_grad(name: str, *inputs):
+    """A kernel has no backward: raise when autograd would want a gradient
+    through any tensor of `inputs` (nested lists and tuples too), where the
+    kernel would silently hand back a result detached from the graph."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(inputs)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif torch.is_tensor(t) and t.requires_grad:
+            raise RuntimeError(
+                f"{name} has no backward: an input requires grad; run it under "
+                "torch.no_grad()/inference_mode, or take the differentiable training branch")
+
+
 def neighbor_topk(dst_pos, src_pos, dst_mask, src_mask, k: int, radius=None,
                   exclude_self: bool = False):
     """Select up to k nearest valid sources for each destination.

@@ -1,16 +1,18 @@
-"""Batched M-replica closed-loop rollout and world-frame conversion (port of
-prosim_tpu/rollout/rollout.py).
+"""Batched M-replica closed-loop rollout, world-frame conversion and the
+validation sim metrics (port of prosim_tpu/rollout/rollout.py).
 
 The scene is encoded once; the M replicas become a batch-axis tile of
 (scene tokens, policy embeddings, fut_obs), so the (B*M) rollout runs as
-one batch. Replicas of scene i occupy rows i*M ... i*M+M-1.
+one batch. Replicas of scene i occupy rows i*M ... i*M+M-1. With a goal
+sampler (`parallel_rollout_with_sampler`) each replica rolls out under its
+own goal, picked among the sampler's top-K goal heads.
 """
 
 from typing import Dict, Optional
 
 import torch
 
-from prosim_torch.data.batch import SceneBatch, SceneTokens
+from prosim_torch.data.batch import Condition, SceneBatch, SceneTokens
 from prosim_torch.utils.geometry import rotate_2d, wrap_angle
 
 
@@ -23,18 +25,18 @@ def tile_batch_for_replicas(batch: SceneBatch, m: int) -> SceneBatch:
     return batch.map_batch_leaves(lambda x: _tile(x, m))
 
 
+def _tile_scene(scene: SceneTokens, m: int) -> SceneTokens:
+    return SceneTokens(tokens=_tile(scene.tokens, m), pos=_tile(scene.pos, m),
+                       ori=_tile(scene.ori, m), mask=_tile(scene.mask, m),
+                       num_map=scene.num_map)
+
+
 def parallel_rollout(model, batch: SceneBatch, m: int, mode: str = "rollout",
                      generator: Optional[torch.Generator] = None) -> Dict:
     """Encode once, tile M x, roll out the (B*M) scenes together. Returns the
     model output dict with leading batch axis B*M."""
     scene, policy_emd = model.prepare(batch, mode, generator)
-    scene_m = SceneTokens(
-        tokens=_tile(scene.tokens, m),
-        pos=_tile(scene.pos, m),
-        ori=_tile(scene.ori, m),
-        mask=_tile(scene.mask, m),
-        num_map=scene.num_map,
-    )
+    scene_m = _tile_scene(scene, m)
     policy_m = {k: _tile(v, m) for k, v in policy_emd.items()}
     batch_m = tile_batch_for_replicas(batch, m)
     return model.rollout(batch_m, scene_m, policy_m, mode, generator)
@@ -86,3 +88,113 @@ def crash_and_goal_metrics(world_xyh, extents, agent_mask, goals_world,
     goal_d = torch.linalg.vector_norm(xy - goals_world[:, :, None], dim=-1).amin(dim=-1)
     goal_rate = ((goal_d < goal_radius) & agent_mask).sum() / n_agents
     return {"crash_rate": crash_rate, "goal_reach_rate": goal_rate}
+
+
+def replica_rollout_metrics(output: Dict, batch: SceneBatch, m: int) -> Dict:
+    """Validation-time sim metrics over an M-replica rollout (the metric set
+    the reference's rollout callback logs, rollout/callbacks.py:229-307 +
+    rollout/metrics.py): per-scene min/mean ADE of the M joint futures vs the
+    logged future, plus crash / goal-reach rates in the scene frame.
+
+    `output` = rollout output on the tiled batch (leading axis B*m);
+    `batch` = the UN-tiled batch (leading axis B). The crash test runs over
+    the T steps as they are: the JAX package pads T to a multiple of 8 with
+    every agent at one point, which reads as a crash (ROADMAP.md queue C).
+    """
+    traj = output["rollout_traj"]                       # [B*m, N, T, 4]
+    BM, N, T, _ = traj.shape
+    B = BM // m
+    mask = batch.prompt.mask                            # [B, N]
+
+    # --- replica ADE vs GT (both live in each agent's init frame)
+    gt_xy = batch.io_pairs.full_traj_xy[:, :, :T]       # [B, N, T, 2]
+    gt_valid = batch.io_pairs.full_traj_valid[:, :, :T] & mask[..., None]
+    pred = traj[..., :2].reshape(B, m, N, T, 2)
+    err = torch.linalg.vector_norm(pred - gt_xy[:, None].to(pred.dtype), dim=-1)
+    w = gt_valid[:, None].to(pred.dtype)                # [B, 1, N, T]
+    ade_r = (err * w).sum((2, 3)) / w.sum((2, 3)).clamp_min(1)  # [B, m]
+    scene_has = gt_valid.any(2).any(1)                  # [B]
+    denom = scene_has.sum().clamp_min(1)
+    min_ade = torch.where(scene_has, ade_r.amin(1), 0.0).sum() / denom
+    mean_ade = torch.where(scene_has, ade_r.mean(1), 0.0).sum() / denom
+
+    # --- crash / goal-reach in the scene frame (rigid transform of world)
+    init_pos = output["init_pos"]                       # [B*m, N, 2]
+    init_h = output["init_heading"]                     # [B*m, N]
+    xy_scene = rotate_2d(traj[..., :2], init_h[..., None]) + init_pos[..., None, :]
+    h_scene = wrap_angle(torch.atan2(traj[..., 2], traj[..., 3]) + init_h[..., None])
+    xyh = torch.cat([xy_scene, h_scene[..., None]], dim=-1)
+
+    goals_scene = batch.prompt.goal_point  # already in the scene frame
+    sim = crash_and_goal_metrics(xyh, _tile(batch.prompt.extent, m), output["agent_mask"],
+                                 _tile(goals_scene, m))
+    return {"min_ade": min_ade, "mean_ade": mean_ade, **sim}
+
+
+def sample_goal_conditions(goal_point, goal_prob, prompt_mask, m: int,
+                           generator: Optional[torch.Generator] = None, top_k: int = 8,
+                           stop_smooth: float = 5.0, horizon: float = 80.0,
+                           picks=None) -> Condition:
+    """Per-replica goal conditions from a goal-sampler model's K-goal heads
+    (reference: gpu_utils.py:125-177 sample_M_goal_cond_to_batch): each of the
+    m replicas independently picks one of every agent's top-K goals; goals
+    within `stop_smooth` metres of the origin snap to (0, 0) (stopping).
+
+    goal_point [B, N, K, 2], goal_prob [B, N, K] -> Condition with feat
+    [B*m, N, 3] = (x, y, horizon), replicas of scene i at rows i*m..i*m+m-1.
+    `picks` [B, m, N] in [0, min(top_k, K)) replaces the random picks (drawn
+    from `generator` otherwise).
+    """
+    B, N, K, _ = goal_point.shape
+    k_eff = min(top_k, K)
+    topk_idx = torch.sort(-goal_prob, dim=-1, stable=True)[1][..., :k_eff]  # [B, N, k]
+    if picks is None:
+        picks = torch.randint(0, k_eff, (B, m, N), generator=generator, device=goal_point.device)
+    sel = topk_idx[:, None].expand(B, m, N, k_eff).gather(-1, picks[..., None].long())[..., 0]
+    goals = goal_point[:, None].expand(B, m, N, K, 2).gather(
+        3, sel[..., None, None].expand(B, m, N, 1, 2))[:, :, :, 0]       # [B, m, N, 2]
+    stop = (goals[..., 0].abs() < stop_smooth) & (goals[..., 1].abs() < stop_smooth)
+    goals = torch.where(stop[..., None], 0.0, goals)
+
+    feat = torch.cat([goals, torch.full((B, m, N, 1), horizon, dtype=goals.dtype,
+                                        device=goals.device)], dim=-1).reshape(B * m, N, 3)
+    mask = prompt_mask[:, None].expand(B, m, N).reshape(B * m, N)
+    prompt_idx = torch.arange(N, dtype=torch.int32, device=goals.device)[None, :, None].expand(
+        B * m, N, 1)
+    return Condition(feat=feat, mask=mask, prompt_idx=prompt_idx, prompt_mask=mask)
+
+
+def parallel_rollout_with_sampler(model, batch: SceneBatch, m: int, sampler_model,
+                                  top_k: int = 8, stop_smooth: float = 5.0,
+                                  mode: str = "rollout",
+                                  generator: Optional[torch.Generator] = None,
+                                  picks=None) -> Dict:
+    """M-replica rollout where a goal-sampler model proposes a distinct goal
+    condition per replica (reference: gpu_utils.py:199-216): encode the scene
+    once, tile, attach sampled goal conditions, then decode per-replica
+    policies and run one batched rollout. `picks` as in
+    `sample_goal_conditions`."""
+    with torch.inference_mode():
+        # the WOSAC protocol evaluates UNPROMPTED realism: dataset conditions
+        # steer neither the sampler's goals nor the policy (the sampled goals
+        # replace them wholesale, reference gpu_utils.py:175)
+        batch = batch.replace(conditions={})
+        _, s_emd = sampler_model.prepare(batch, "val", generator)
+        if "goal_point" not in s_emd:
+            raise ValueError("sampler model has no goal heads (DECODER.GOAL_PRED)")
+        goal_cond = sample_goal_conditions(
+            s_emd["goal_point"], s_emd["goal_prob"], batch.prompt.mask, m, generator,
+            top_k=top_k, stop_smooth=stop_smooth, picks=picks)
+
+        scene_m = _tile_scene(model.scene_encoder(batch.init_obs, batch.init_map), m)
+        batch_m = tile_batch_for_replicas(batch, m).replace(conditions={"goal": goal_cond})
+        # with 'prompt_encoder' a condition location, each replica's prompt is
+        # encoded under its own goal; otherwise the prompt never sees
+        # conditions, so it is encoded once and tiled
+        if "prompt_encoder" in model.condition_locations:
+            prompt_emb_m = model.encode_prompt(batch_m)
+        else:
+            prompt_emb_m = _tile(model.encode_prompt(batch), m)
+        policy_emd = model.generate_policy(batch_m, scene_m, prompt_emb_m)
+        policy_emd = model.select_k_emd(policy_emd, batch_m, mode, generator)
+        return model.rollout(batch_m, scene_m, policy_emd, mode, generator)

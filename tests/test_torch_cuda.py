@@ -477,3 +477,112 @@ def test_wrappers_refuse_cpu_and_cuda_mix(cuda):
     with pytest.raises(ValueError):  # packed weights on the CPU
         fused_two_site_stack(x, ta, tm, [w.cpu() for w in wa], wm, num_heads=4, head_dim=8)
     assert fused_two_site_stack.launches == before
+
+
+# ---------------------------------------------------------------- training
+
+TRAIN_OPTS = [  # configs/no_text.yaml at tests/test_trainer.py's widths
+    "MODEL.SCENE_ENCODER.ATTN.NUM_LAYER", "1", "MODEL.DECODER.ATTN.NUM_LAYER", "1",
+    "MODEL.POLICY.ACT_DECODER.ATTN.NUM_LAYER", "1", "MODEL.HIDDEN_DIM", "16",
+    "MODEL.SCENE_ENCODER.ATTN.FF_DIM", "2", "MODEL.DECODER.ATTN.FF_DIM", "2",
+    "MODEL.POLICY.ACT_DECODER.ATTN.FF_DIM", "2",
+    "TRAIN.SCHEDULER.WARMUP_STEPS", "0",
+]
+TRAIN_SHAPE = dict(num_lanes=64, num_obs_agents=24, num_agents=16, num_replan=3)
+
+
+def _train_model(cuda, opts=()):
+    from prosim_torch.config import get_config
+    from prosim_torch.models.prosim import ProSim
+
+    cfg = get_config(str(ROOT / "configs" / "no_text.yaml"), TRAIN_OPTS + list(opts))
+    model = ProSim(cfg, device=cuda)
+    init_params(model, seed=0)
+    return cfg, model
+
+
+def _grad_step(model, cfg, batch, seed=3):
+    from prosim_torch.train.losses import paired_mse_k
+
+    model.zero_grad(set_to_none=True)
+    out = model.forward_train(batch, seed=seed)
+    loss = paired_mse_k(batch, out, cfg)["full_loss"]
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def test_forward_only_wrappers_refuse_inputs_that_require_grad(cuda):
+    x = torch.randn((1, 4, 16), device=cuda)
+    idx = torch.zeros((1, 3, 2), dtype=torch.int32, device=cuda)
+    z = torch.randn((1, 3, 2, 8), device=cuda)
+    qx = torch.randn((1, 3, 2, 16), device=cuda, requires_grad=True)
+    qp = torch.randn((1, 3, 2, 8), device=cuda)
+    ok = torch.ones((1, 3, 2), dtype=torch.bool, device=cuda)
+    before = edge_attn_core.launches, fused_two_site_stack.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        edge_attn_core(x, idx, z, qx, qp, ok, 0.5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_two_site_stack(qx, (x, idx, z, ok), (x, idx, z, ok), [], [], num_heads=2,
+                             head_dim=8)
+    assert (edge_attn_core.launches, fused_two_site_stack.launches) == before
+    with torch.no_grad():
+        edge_attn_core(x, idx, z, qx, qp, ok, 0.5)
+    assert edge_attn_core.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_train_step_with_topk_kernel_matches_plain(cuda, remat):
+    """One train step (dropout on, one seed) through B1's kernel against the
+    same step with the plain top-K: B1 is bit-equal to its plain version, so
+    only the backward's atomic adds differ. B2 and B3 do not run in
+    training; each forward and its recompute build their graphs with B1."""
+    from prosim_torch.data.synthetic import make_synthetic_batch
+
+    import chip_smoke
+
+    cfg, model = _train_model(cuda, ["TRAIN.REMAT_POLICY", remat])
+    batch = make_synthetic_batch(cfg, batch_size=2, seed=1, device=cuda, **TRAIN_SHAPE)
+    before = chip_smoke.launch_counts()
+    loss_k, g_k = _grad_step(model, cfg, batch)
+    loss_k2, _ = _grad_step(model, cfg, batch)
+    launches = {k: v - before[k] for k, v in chip_smoke.launch_counts().items()}
+    per_forward = 4 + 2 * TRAIN_SHAPE["num_replan"]
+    assert launches == {"neighbor_topk": 2 * per_forward * (2 if remat == "full" else 1),
+                        "edge_attn_core": 0, "fused_two_site_stack": 0, "causal_attention": 0}
+    with chip_smoke.kernel_calls(neighbor_topk_plain, edge_attn_core_plain,
+                                 fused_two_site_stack_plain, causal_attention_plain):
+        loss_p, g_p = _grad_step(model, cfg, batch)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert abs(loss_k - loss_k2) <= 1e-6 * abs(loss_k)
+    assert set(g_k) == set(g_p)
+    for n, g in g_p.items():
+        assert float((g_k[n] - g).abs().max()) <= 1e-4 * float(g.abs().max()), n
+
+
+def test_trainer_fits_evaluates_and_rolls_out_on_the_card(cuda, tmp_path):
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.train.trainer import Trainer
+
+    import chip_smoke
+
+    cfg = get_config(str(ROOT / "configs" / "no_text.yaml"),
+                     TRAIN_OPTS + ["EXPERIMENT_DIR", str(tmp_path)])
+    trainer = Trainer(cfg, device=cuda)
+    trainer.setup()
+    batches = [make_synthetic_batch(cfg, batch_size=2, seed=s, device=cuda, **TRAIN_SHAPE)
+               for s in range(2)]
+    p0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    trainer.fit(batches, max_steps=2)
+    moved = {n: float((p.detach() - p0[n]).abs().max())
+             for n, p in trainer.model.named_parameters()}
+    assert max(moved.values()) > 0
+    assert all(v == 0.0 for n, v in moved.items() if "pred_mlp" in n)
+    before = chip_smoke.launch_counts()
+    metrics = trainer.evaluate(batches[:1])
+    rollout = trainer.rollout_callback(batches[:1], m=4)
+    after = chip_smoke.launch_counts()
+    assert all(np.isfinite(v) for v in list(metrics.values()) + list(rollout.values()))
+    assert after["neighbor_topk"] > before["neighbor_topk"]
+    assert after["edge_attn_core"] > before["edge_attn_core"]

@@ -106,10 +106,19 @@ def test_unported_options_raise(opts):
 
 
 def test_train_mode_raises():
+    """mode="train" runs (tests/test_torch_train.py holds it against JAX) and
+    keeps the autograd graph; it raises where it cannot run: through the
+    eval-only `rollout` entry point, and with an unknown TRAIN.REMAT_POLICY."""
     cfg = get_config(opts=SMALL_OPTS)
     model = ProSim(cfg, device="cpu")
     batch = make_synthetic_batch(cfg, device="cpu", **BATCH_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    out = model(batch, mode="train")
+    assert out["motion_pred"].requires_grad
+    scene, policy_emd = model.prepare(batch)
+    with pytest.raises(ValueError, match="forward_train"):
+        model.rollout(batch, scene, policy_emd, mode="train")
+    model = ProSim(get_config(opts=SMALL_OPTS + ["TRAIN.REMAT_POLICY", "some"]), device="cpu")
+    with pytest.raises(ValueError, match="REMAT_POLICY"):
         model(batch, mode="train")
 
 
