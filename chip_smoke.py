@@ -2,8 +2,8 @@
 """Drive prosim_torch's main path on one NVIDIA GPU and check its kernels.
 
 Run from the repository root:  python3 chip_smoke.py
-(`--kernels-only` stops after phase 3; `--train-only` runs phases 1, 2 and
-7 and writes phase 7's record to chiprun_out/chip_smoke_train.json.)
+(`--kernels-only` stops after phase 3; `--train-only` runs phases 1, 2, 7
+and 8 and writes their records to chiprun_out/chip_smoke_train.json.)
 Three configurations of the closed loop are driven at full width: the
 default (the policy's a2p/m2p stack as a layer loop), FUSED_STACK=True
 (the stack as one fused kernel per replan step), and the text-conditioned
@@ -27,10 +27,16 @@ Llama), at B=2 in phase 5. Phases:
                 flash attention at the Llama's
                 shape on a holed tokenizer-layout mask (bf16 by the 2x rule
                 below; f32 at tiny()'s shape within FLASH_F32_TOL; pad rows
-                exactly zero). Times: device ms per call (torch.profiler,
+                exactly zero), and its backward at the same two shapes on
+                the forward kernel's out and lse (dq/dk/dv: bf16 by the 2x
+                rule against the plain backward in f32, f32 within
+                FLASH_F32_TOL of each tensor's largest magnitude; pad rows'
+                dq and masked keys' dk/dv exactly zero, also with NaN in the
+                pad rows; two launches bitwise equal). Times: device ms per call (torch.profiler,
                 the call's device operations) beside the bound and a
                 one-call PyTorch yardstick where one exists (for the fused
-                stack, the layer loop instead); wall ms per call between
+                stack, the layer loop instead; for the backward, the
+                backward of one scaled_dot_product_attention call); wall ms per call between
                 CUDA events (which at the small sites is the host's time to
                 launch the call) for the kernel and the yardstick.
   4. rollout  - the full-width closed loop of each configuration (lanes
@@ -72,6 +78,29 @@ Llama), at B=2 in phase 5. Phases:
                 that require grad, and Trainer.evaluate and rollout_callback
                 (M=4) finite through B1 and B2. If B=16 does not fit, B is
                 halved until it does, and the cut is printed and recorded.
+  8. text train - configs/with_text.yaml (OneText conditions through the
+                Llama with LoRA on q/k/v and the embedding, the prompt-mask
+                loss at PROMPT_WEIGHT 1000) through Trainer.setup and
+                Trainer.fit in two configurations: as shipped (the f32
+                tiny() Llama) and at Llama3-8B width (TEXT.LLM.ARCH
+                llama3_8b: 32 layers, random bf16 body drawn on the card,
+                per-block remat); demo padding, B=16 (halved until it fits,
+                the cut recorded), REMAT full, WARMUP_STEPS 0; one warm-up
+                step and three timed: step ms, peak memory, B4 forward and
+                backward launches per step (exact: the forward, prepare's
+                recompute and, with block remat, each block's own
+                recompute; one backward per layer), every loss term finite
+                (prompt_mask_pred_loss among them), every layer's q/k/v
+                lora_b gradient non-zero at the first step, the LoRA and
+                adapter leaves moved, the frozen body bitwise unchanged
+                with no .grad. At B=2: the kernel step against the dense
+                plain attention's step (Llama3-8B width: a plain path with
+                f32 attention: the loss within TRAIN_LOSS_RTOL and the
+                LoRA/adapter gradients by the 2x rule against the plain path
+                with bf16 attention; tiny(): the loss within TRAIN_LOSS_RTOL
+                and each leaf within TRAIN_GRAD_TOL), then
+                evaluate and rollout_callback (M=4) finite through B4's eval
+                launch.
 Any failure raises and exits non-zero. The kernels JSON line comes just
 before the last line, which is the device JSON.
 """
@@ -101,8 +130,14 @@ TRAIN_LOSS_RTOL = 1e-5   # B1 kernel step vs plain top-K step: B1 is bit-equal t
 TRAIN_GRAD_TOL = 1e-4    # of each gradient leaf's largest magnitude
 DETERMINISM_RTOL = 1e-6  # two runs of one train step, in loss
 TEXT_OPTS = ["MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.ARCH", "llama3_8b"]
+TEXT_TRAIN_YAML = "configs/with_text.yaml"
+TEXT_KEY = "llm_text_OneText"  # with_text.yaml's text condition
+FLASH_BWD_REPLACES = (  # the library Pallas kernels B4's backward replaces (jax 0.9.0)
+    "jax/experimental/pallas/ops/tpu/flash_attention.py:941",   # _flash_attention_bwd_dkv
+    "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")  # _flash_attention_bwd_dq
 
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
+    ("flash_attn_bwd (ours)", ("flash_bwd_",)),
     ("flash_attn (ours)", ("flash_attn_",)),
     ("fused_stack (ours)", ("fused_stack_kernel",)),
     ("edge_attn (ours)", ("edge_attn_kernel",)),
@@ -114,9 +149,10 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("copy/cat", ("copy", "cat", "Cat")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 ]
-KERNEL_NAMES = {  # a substring of the names of each wrapper's CUDA kernels
+KERNEL_NAMES = {  # a substring of the name of one CUDA kernel each wrapper call launches once
     "neighbor_topk": "neighbor_topk_", "edge_attn_core": "edge_attn_kernel",
-    "fused_two_site_stack": "fused_stack_kernel", "causal_attention": "flash_attn_"}
+    "fused_two_site_stack": "fused_stack_kernel", "causal_attention": "flash_attn_",
+    "causal_attention_bwd": "flash_bwd_delta_kernel"}
 
 
 def log(*a):
@@ -168,12 +204,13 @@ def times(torch, fn, iters):
 def kernel_fns():
     """{name: wrapper} of every kernel of the path; each counts its launches."""
     from prosim_torch.ops.edge_attn import edge_attn_core
-    from prosim_torch.ops.flash_attn import causal_attention
+    from prosim_torch.ops.flash_attn import causal_attention, causal_attention_bwd
     from prosim_torch.ops.fused_stack import fused_two_site_stack
     from prosim_torch.ops.neighbors import neighbor_topk
 
     return {"neighbor_topk": neighbor_topk, "edge_attn_core": edge_attn_core,
-            "fused_two_site_stack": fused_two_site_stack, "causal_attention": causal_attention}
+            "fused_two_site_stack": fused_two_site_stack, "causal_attention": causal_attention,
+            "causal_attention_bwd": causal_attention_bwd}
 
 
 def launch_counts():
@@ -469,6 +506,113 @@ def check_flash(torch, cfg_llm, B, text_len, block, site):
     log(f"  causal_attention[{site}] B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} {row['dtype']}: err "
         f"{err:.3e} ({note}); device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, sdpa {lib_ms:.4f} "
         f"({lib_ms / ms:.2f}x the kernel); wall ms: kernel {wall_ms:.4f}, sdpa {lib_wall_ms:.4f}")
+    return [row]
+
+
+def flash_bwd_cost(token_mask, Hq, D, Hkv, dtype):
+    """Bytes the attention's backward must move (in the inputs' dtype, once
+    each: q, o and dO rows of valid tokens, k and v rows of valid keys, their
+    f32 lse, and the mask; dq, dk and dv written whole) and its operations:
+    the five products per valid causal (query, key) pair and query head
+    (q.k, dO.v, P^T dO, dS^T q, dS k), 10 D multiply-add operations, at the
+    peak of the path's units (bf16: the tensor cores; f32: FMA)."""
+    import torch
+
+    size, peak = (2, BF16_FLOPS) if dtype == torch.bfloat16 else (4, F32_FLOPS)
+    B, T = token_mask.shape
+    n = token_mask.sum(dim=1).long()
+    pairs = int((n * (n + 1) // 2).sum())
+    valid = int(n.sum())
+    read = size * D * valid * (3 * Hq + 2 * Hkv) + 4 * valid * Hq + B * T
+    write = size * D * B * T * (Hq + 2 * Hkv)
+    return {"bytes": read + write, "ops": 10 * Hq * D * pairs, "peak": peak}
+
+
+def check_flash_bwd(torch, cfg_llm, B, text_len, block, site):
+    """B4's backward at a Llama's shape and dtype, on the forward kernel's
+    out and lse, with an upstream gradient zero on pad rows. bf16: the
+    kernel's max dq/dk/dv error against the plain backward in f32 on the
+    same inputs at most 2x the bf16 plain backward's, plus 1e-5 (valid rows
+    and keys). f32: within FLASH_F32_TOL of each tensor's largest magnitude.
+    Pad rows' dq and masked keys' dk/dv exactly zero, also with NaN in every
+    pad row of q, k, v, out and dO; two launches bitwise equal. Times beside
+    the backward of scaled_dot_product_attention (bool mask, GQA)."""
+    import torch.nn.functional as F
+    from prosim_torch.ops.flash_attn import (
+        _flash_fwd,
+        causal_attention_bwd,
+        causal_attention_bwd_plain,
+    )
+
+    T, Hq, Hkv, D = text_len + block, cfg_llm.num_heads, cfg_llm.num_kv_heads, cfg_llm.head_dim
+    dtype = cfg_llm.dtype
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
+    mask = text_layout_mask(torch, B, text_len, block, seed=5)
+    scale = 1.0 / D ** 0.5
+    out, lse = _flash_fwd(q, k, v, mask, scale, with_lse=True)
+    do = (torch.randn(q.shape, generator=gen, device="cuda") * mask[:, :, None, None]).to(dtype)
+    got = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    again = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    ref = causal_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                     do.float(), mask, scale)
+    torch.cuda.synchronize()
+
+    def err_of(xs):
+        return max(float((x.float() - r)[mask].abs().max()) for x, r in zip(xs, ref))
+
+    err = err_of(got)
+    extra = {}
+    if dtype == torch.bfloat16:
+        err_bf16 = err_of(causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale))
+        bar = BF16_RULE[0] * err_bf16 + BF16_RULE[1]
+        extra = {"plain_bf16_err": err_bf16}
+        note = f"plain in bf16 {err_bf16:.3e}"
+        ok = err <= bar
+    else:
+        rel = max(float((x - r).abs().max()) / float(r.abs().max()) for x, r in zip(got, ref))
+        extra = {"max_rel_err": rel}
+        note = f"{rel:.3e} of each tensor's largest, bar {FLASH_F32_TOL:.0e}"
+        ok = rel <= FLASH_F32_TOL
+    if not ok:
+        raise AssertionError(f"causal_attention_bwd[{site}] max abs err {err} ({note})")
+    del ref
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"causal_attention_bwd[{site}]: two launches differ")
+    poisoned = []
+    for x, val in ((q, "nan"), (k, "nan"), (v, "inf"), (out, "nan"), (do, "nan")):
+        x = x.clone()
+        x[~mask] = float(val)
+        poisoned.append(x)
+    dirty = causal_attention_bwd(*poisoned[:4], lse, poisoned[4], mask, scale)
+    if not all(torch.equal(a, b) and float(a[~mask].float().abs().max()) == 0.0
+               for a, b in zip(dirty, got)):
+        raise AssertionError(f"causal_attention_bwd[{site}]: pad rows are not exactly zero, or "
+                             "NaN in pad rows reached a gradient")
+    del poisoned, dirty, again
+    bwd = lambda: causal_attention_bwd(q, k, v, out, lse, do, mask, scale)  # noqa: E731
+    ms, wall_ms = times(torch, bwd, 20)
+    plain_ms = device_ms(
+        torch, lambda: causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale), 3)
+    # yardstick: the backward of one SDPA call, the same boolean mask, GQA
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    causal = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    bmask = (causal[None] & mask[:, None, :])[:, None]
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask, scale=scale,
+                                           enable_gqa=True)
+    do_lib = do.transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_lib, retain_graph=True)  # noqa: E731
+    lib_ms, lib_wall_ms = times(torch, lib, 20)
+    del o_lib
+    row = dict(site=site, B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, dtype=str(dtype).split(".")[-1],
+               valid_tokens=int(mask.sum()), ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_wall_ms=lib_wall_ms, max_abs_err=err, **extra,
+               **flash_bwd_cost(mask, Hq, D, Hkv, dtype))
+    log(f"  causal_attention_bwd[{site}] B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} {row['dtype']}: "
+        f"err {err:.3e} ({note}); device ms: kernel {ms:.4f}, bound {bound_ms(row):.4f}, plain "
+        f"{plain_ms:.4f}, sdpa backward {lib_ms:.4f} ({lib_ms / ms:.2f}x the kernel); wall ms: "
+        f"kernel {wall_ms:.4f}, sdpa backward {lib_wall_ms:.4f}")
     return [row]
 
 
@@ -970,6 +1114,231 @@ def train_phase(torch, root, shape, batch_size=None, steps=TRAIN_STEPS, device="
             "profile": prof}
 
 
+def text_train_phase(torch, root, shape, label, opts, steps=TRAIN_STEPS, device="cuda"):
+    """Phase 8: configs/with_text.yaml trained through Trainer.setup and
+    Trainer.fit at full width (see the module docstring). Returns the
+    phase's record; raises on a failed gate."""
+    import shutil
+
+    import numpy as np
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.llm import llama
+    from prosim_torch.ops.flash_attn import causal_attention_plain
+    from prosim_torch.train.losses import paired_mse_k
+    from prosim_torch.train.optim import param_groups
+    from prosim_torch.train.trainer import Trainer
+
+    build = os.path.join(root, "build")
+    name = f"chip_smoke_text_train_{label}"
+    shutil.rmtree(os.path.join(build, name), ignore_errors=True)
+    cfg = get_config(os.path.join(root, TEXT_TRAIN_YAML), list(opts) + [
+        "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", name,
+        "TRAIN.SCHEDULER.WARMUP_STEPS", "0", "TRAIN.REMAT_POLICY", "full"])
+    B = cfg.TRAIN.BATCH_SIZE
+    R = shape["num_replan"]
+    while True:
+        trainer = Trainer(cfg, device=device)
+        trainer.setup()
+        model = trainer.model
+        text_attn = model.condition_transformer_policy_decoder.text_attn
+        llm = text_attn.llm
+        with torch.no_grad():
+            # At the seeded init (zero biases) an agent the text names but the
+            # batch does not hold is injected as an exactly zero row, which
+            # stays zero through every block; each RMSNorm's backward then
+            # scales its gradient by 1/sqrt(eps), so 32 layers overflow to NaN,
+            # in the JAX package as in the port (PERF.md §6). A drawn
+            # ln_prompt bias makes no injected row zero.
+            gen = torch.Generator(device=device).manual_seed(2)
+            text_attn.ln_prompt.bias.copy_(
+                torch.randn(text_attn.ln_prompt.bias.shape, generator=gen, device=device) * 0.02)
+        groups = param_groups(model, cfg)
+        names = {id(p): n for n, p in model.named_parameters()}
+        frozen = [names[id(p)] for p in groups["llm_frozen"]]
+        trained = [names[id(p)] for g in ("lora", "adapter") for p in groups[g]]
+        batches = [make_synthetic_batch(cfg, batch_size=B, seed=10 + i, device=device, **shape)
+                   for i in range(steps)]
+        # the frozen body, bitwise, on the host (15 GB at Llama3-8B width)
+        body = {n: model.get_parameter(n).detach().cpu() for n in frozen}
+        p0 = {n: model.get_parameter(n).detach().clone() for n in trained}
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer.fit(batches[:1], max_steps=1)  # the warm-up step
+            torch.cuda.synchronize()
+            first = {n: model.get_parameter(n).grad for n in trained if n.endswith("lora_b")}
+            qkv_zero = [n for n, g in first.items() if "_proj." in n and not bool(g.any())]
+            for fn in kernel_fns().values():
+                fn.launches = 0
+            trainer.fit(batches[1:], max_steps=steps)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if B == 1:
+                raise
+            log(f"text train[{label}]: B={B} does not fit in device memory; halving it")
+            del trainer, model, text_attn, llm, batches, body, p0, groups
+            torch.cuda.empty_cache()
+            B //= 2
+    timed = steps - 1
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    recs = [json.loads(line) for line in open(trainer.log_path)]
+    train_recs = [r for r in recs if "train/full_loss" in r]
+    walls = [r["wall"] for r in train_recs[1:]]  # the second fit's clock starts at its own t0
+    step_ms = [1e3 * w for w in walls[:1]] + [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    terms = {k: v for k, v in train_recs[-1].items() if k.startswith("train/")}
+    L = llm.cfg.num_layers
+    per_fwd = 3 if llm.cfg.remat else 2  # forward, prepare's recompute (+ the block's own)
+    want = {"neighbor_topk": timed * 2 * (4 + 2 * R), "edge_attn_core": 0,
+            "fused_two_site_stack": 0, "causal_attention": timed * per_fwd * L,
+            "causal_attention_bwd": timed * L}
+    if B != cfg.TRAIN.BATCH_SIZE:
+        log(f"text train[{label}]: CUT: B={B} instead of TRAIN.BATCH_SIZE {cfg.TRAIN.BATCH_SIZE}")
+    log(f"text train[{label}]: {TEXT_TRAIN_YAML} {llm.cfg.dtype} Llama ({L} layers, remat "
+        f"{llm.cfg.remat}) B={B} timed steps {len(step_ms)}: step ms (synchronised host clock) "
+        f"{['%.1f' % t for t in step_ms]}, median {sorted(step_ms)[len(step_ms) // 2]:.1f}; "
+        f"peak memory {peak / 2**30:.2f} GiB; per step B4 forward "
+        f"{launches['causal_attention'] / timed:g}, B4 backward "
+        f"{launches['causal_attention_bwd'] / timed:g}; launches in {timed} steps {launches}")
+    log(f"text train[{label}]: last step's terms " + ", ".join(
+        f"{k[6:]}={v:.6g}" for k, v in terms.items()))
+    if launches != want:
+        raise AssertionError(f"text train[{label}]: kernel launches {launches} != {want}")
+    bad = [(r["step"], k) for r in train_recs for k, v in r.items()
+           if k.startswith("train/") and not np.isfinite(v)]
+    if bad or "train/prompt_mask_pred_loss" not in terms:
+        raise AssertionError(f"text train[{label}]: non-finite or missing loss terms {bad}")
+    if qkv_zero or len(first) != 3 * L:
+        raise AssertionError(f"text train[{label}]: first-step q/k/v lora_b gradients zero or "
+                             f"missing: {qkv_zero}, {len(first)} of {3 * L}")
+    still = [n for n in trained if torch.equal(model.get_parameter(n).detach(), p0[n])]
+    if still:
+        raise AssertionError(f"text train[{label}]: LoRA/adapter leaves did not move: {still[:5]}")
+    for n in frozen:
+        prm = model.get_parameter(n)
+        if prm.requires_grad or prm.grad is not None or not torch.equal(prm.detach().cpu(), body[n]):
+            raise AssertionError(f"text train[{label}]: frozen {n} has a gradient or moved")
+    del body, p0
+    prof = profile_train_step(torch, trainer, batches[0])
+    log(f"profile[text train {label}, B={B}]: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), "
+        f"{prof['launches']} device operations")
+    for fam, ms in prof["families_ms"].items():
+        log(f"  {fam:22s} {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} %")
+    for kname, ms, n in prof["top_kernels"]:
+        log(f"    {ms:9.3f} ms x{n:<6d} {kname}")
+    tmask = batches[0].conditions[TEXT_KEY]["token_mask"]
+    q_heads, kv_heads, hd = llm.cfg.num_heads, llm.cfg.num_kv_heads, llm.cfg.head_dim
+    step_bwd = {"launches": L,
+                "ms": prof["families_ms"].get("flash_attn_bwd (ours)", 0.0),
+                "bound_ms": L * bound_ms(flash_bwd_cost(tmask, q_heads, hd, kv_heads,
+                                                        llm.cfg.dtype))}
+    del batches
+    torch.cuda.empty_cache()
+
+    # B=2: the kernel step against plain steps (the dense attention, autograd)
+    small = make_synthetic_batch(cfg, batch_size=2, seed=1, device=device, **shape)
+    with torch.no_grad():  # adapters that do work in both factors
+        gen = torch.Generator(device=device).manual_seed(1)
+        for n in trained:
+            if n.endswith(("lora_b", "lora_embed_b")):
+                prm = model.get_parameter(n)
+                prm.copy_(torch.randn(prm.shape, generator=gen, device=device) * 0.02)
+
+    def grad_step():
+        model.zero_grad(set_to_none=True)
+        loss = paired_mse_k(small, model.forward_train(small, seed=7), cfg)["full_loss"]
+        loss.backward()
+        return float(loss.detach()), {n: model.get_parameter(n).grad.detach().clone()
+                                      for n in trained}
+
+    def f32_attention(q, k, v, token_mask, scale):
+        return causal_attention_plain(q.float(), k.float(), v.float(), token_mask,
+                                      scale).to(q.dtype)
+
+    loss_k, g_k = grad_step()
+    before = launch_counts()
+    saved = llama.causal_attention
+    try:
+        llama.causal_attention = f32_attention if llm.cfg.dtype == torch.bfloat16 \
+            else causal_attention_plain
+        loss_p, g_p = grad_step()
+        if llm.cfg.dtype == torch.bfloat16:
+            llama.causal_attention = causal_attention_plain
+            loss_b, g_b = grad_step()
+    finally:
+        llama.causal_attention = saved
+    if launch_counts()["causal_attention"] != before["causal_attention"] or \
+            launch_counts()["causal_attention_bwd"] != before["causal_attention_bwd"]:
+        raise AssertionError(f"text train[{label}]: the plain path launched B4")
+    model.zero_grad(set_to_none=True)
+
+    def leaf_errs(a):
+        return {n: float((a[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for n, g in g_p.items()}
+
+    errs_k = leaf_errs(g_k)
+    worst = max(errs_k, key=errs_k.get)
+    loss_dev = abs(loss_k - loss_p) / abs(loss_p)
+    parity = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": loss_dev,
+              "grad_leaf": errs_k[worst], "grad_leaf_name": worst}
+    if llm.cfg.dtype == torch.bfloat16:
+        errs_b = leaf_errs(g_b)
+        worst_b = max(errs_b.values())
+        loss_dev_b = abs(loss_b - loss_p) / abs(loss_p)
+        parity.update(loss_plain_bf16=loss_b, loss_rel_plain_bf16=loss_dev_b,
+                      grad_leaf_plain_bf16=worst_b)
+        log(f"text train parity[{label}] (B=2): kernel vs plain with f32 attention: loss "
+            f"{loss_k:.8g} vs {loss_p:.8g} (rel {loss_dev:.2e}; plain with bf16 attention "
+            f"{loss_dev_b:.2e}); worst LoRA/adapter leaf {worst} at {errs_k[worst]:.2e} of its "
+            f"max (plain with bf16 attention: worst {worst_b:.2e})")
+        bar = BF16_RULE[0] * worst_b + BF16_RULE[1]
+        if not (loss_dev <= TRAIN_LOSS_RTOL and errs_k[worst] <= bar):
+            raise AssertionError(f"text train[{label}]: kernel step vs plain step: loss {loss_dev} "
+                                 f"(bar {TRAIN_LOSS_RTOL}), worst leaf {errs_k[worst]} (bar {bar})")
+    else:
+        log(f"text train parity[{label}] (B=2): kernel vs plain: loss {loss_k:.8g} vs "
+            f"{loss_p:.8g} (rel {loss_dev:.2e}); worst LoRA/adapter leaf {worst} at "
+            f"{errs_k[worst]:.2e} of its max")
+        if not (loss_dev <= TRAIN_LOSS_RTOL and errs_k[worst] <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"text train[{label}]: kernel step vs plain step: loss "
+                                 f"{loss_dev}, worst leaf {errs_k[worst]}")
+
+    # evaluate and the M-replica validation rollout, through B4's eval launch
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    metrics = trainer.evaluate([small])
+    rollout = trainer.rollout_callback([small], m=4)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    log(f"text train eval[{label}] (B=2): evaluate {metrics}; rollout_callback M=4 {rollout}; "
+        f"kernel launches {eval_launches}")
+    if not all(np.isfinite(v) for v in list(metrics.values()) + list(rollout.values())):
+        raise AssertionError(f"text train[{label}]: evaluate or rollout_callback non-finite")
+    if not eval_launches["causal_attention"] or eval_launches["causal_attention_bwd"]:
+        raise AssertionError(f"text train[{label}]: eval launches {eval_launches}")
+    rec = {"config": TEXT_TRAIN_YAML, "label": label, "opts": list(opts),
+           "llama": {"dtype": str(llm.cfg.dtype), "layers": L, "remat": llm.cfg.remat},
+           "batch_size": B, "batch_size_configured": cfg.TRAIN.BATCH_SIZE,
+           "timed_steps": len(step_ms), "step_ms": step_ms, "peak_memory_bytes": peak,
+           "launches": launches, "per_step": {k: v / timed for k, v in launches.items()},
+           "terms": terms, "parity": parity, "eval": metrics, "rollout": rollout,
+           "eval_launches": eval_launches, "profile": prof, "flash_bwd_per_step": step_bwd}
+    del trainer, model, text_attn, llm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def text_train_phases(torch, root, shape):
+    """Phase 8 in both configurations: configs/with_text.yaml as shipped
+    (ARCH auto without weights: the f32 tiny() Llama) and at Llama3-8B width
+    (random bf16 body drawn on the card)."""
+    return {"as_shipped": text_train_phase(torch, root, shape, "as_shipped", []),
+            "llama3_8b": text_train_phase(torch, root, shape, "llama3_8b", TEXT_OPTS)}
+
+
 def profile_train_step(torch, trainer, batch):
     """One more train step under torch.profiler: its wall time, the device
     time by kernel family and the busiest kernels."""
@@ -1040,10 +1409,11 @@ def main(argv):
 
     shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
     if "--train-only" in argv:
-        train = train_phase(torch, root, shape)
+        rec = {"card": smi, "train": train_phase(torch, root, shape),
+               "text_train": text_train_phases(torch, root, shape)}
         os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
         with open(os.path.join(root, "chiprun_out", "chip_smoke_train.json"), "w") as f:
-            json.dump({"card": smi, "train": train}, f, indent=1)
+            json.dump(rec, f, indent=1)
         return 0
 
     # 3. kernels against their plain versions at the rollout's shapes
@@ -1077,6 +1447,9 @@ def main(argv):
     llm_tiny = LlamaConfig.tiny(
         lora_rank=ct_cfg.TEXT_ATTN.LORA.R if ct_cfg.TEXT_ATTN.LORA.ENABLE else 0)
     flash_rows_f32 = check_flash(torch, llm_tiny, B_FULL, text_len, AGENTS, "tiny_f32")
+    # B4's backward at the same two shapes
+    flash_bwd_rows = check_flash_bwd(torch, llm_cfg, B_FULL, text_len, AGENTS, "llama")
+    flash_bwd_rows_f32 = check_flash_bwd(torch, llm_tiny, B_FULL, text_len, AGENTS, "tiny_f32")
     torch.cuda.empty_cache()
     model_f = ProSim(cfg_fused, device="cuda")
     init_params(model_f, seed=0)
@@ -1092,7 +1465,7 @@ def main(argv):
     init_params(model, seed=0)
     steps = 2 + 2 + 2 * REPLAN  # graph builds: scene encoder, decoder, policy per step
     want = {"neighbor_topk": steps, "edge_attn_core": LAYERS * steps, "fused_two_site_stack": 0,
-            "causal_attention": 0}
+            "causal_attention": 0, "causal_attention_bwd": 0}
     launches, times = run_rollout(torch, cfg, model, batch, want, "layer loop")
     per_site, prof = profile_forward(torch, model, batch, topk_rows, edge_rows)
     log_profile("layer loop", per_site, prof)
@@ -1197,11 +1570,17 @@ def main(argv):
     torch.cuda.empty_cache()
     train = train_phase(torch, root, shape)
 
+    # 8. text training (configs/with_text.yaml), as shipped and at Llama3-8B width
+    text_train = text_train_phases(torch, root, shape)
+
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
     by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
                "demo (B=2)": launches_d, f"train ({train['steps']} steps)": train["launches"],
-               "train eval (B=2)": train["eval_launches"]}
+               "train eval (B=2)": train["eval_launches"],
+               **{f"text train {k} ({v['timed_steps']} steps)": v["launches"]
+                  for k, v in text_train.items()}}
+    bwd_path = {k: f"text train {k} ({v['timed_steps']} steps)" for k, v in text_train.items()}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
                   "prosim_tpu/ops/pallas_topk.py:95", topk_rows,
@@ -1222,11 +1601,25 @@ def main(argv):
         summarize("causal_attention_f32", "cuda", "prosim_torch/csrc/flash_attn.cu",
                   "prosim_tpu/models/llm/llama.py:134", flash_rows_f32,
                   launches_d["causal_attention"], per_site_d["causal_attention"]),
+        # B4's backward (the library kernel's dkv and dq), read from phase 8;
+        # its forward_* fields are per train step
+        summarize("causal_attention_bwd", "cuda", "prosim_torch/csrc/flash_attn_bwd.cu",
+                  FLASH_BWD_REPLACES[0], flash_bwd_rows,
+                  text_train["llama3_8b"]["launches"]["causal_attention_bwd"],
+                  {"llama": text_train["llama3_8b"]["flash_bwd_per_step"]}),
+        summarize("causal_attention_bwd_f32", "cuda", "prosim_torch/csrc/flash_attn_bwd.cu",
+                  FLASH_BWD_REPLACES[0], flash_bwd_rows_f32,
+                  text_train["as_shipped"]["launches"]["causal_attention_bwd"],
+                  {"tiny_f32": text_train["as_shipped"]["flash_bwd_per_step"]}),
     ]
+    for k in kernels[-2:]:
+        k["replaces_also"] = FLASH_BWD_REPLACES[1]
     # B4's one launch count covers both instantiations: bf16 in the text
     # configuration, f32 in the shipped demo one
-    paths = {"causal_attention": ("layer loop", "fused", "text"),
-             "causal_attention_f32": ("demo (B=2)",)}
+    paths = {"causal_attention": ("layer loop", "fused", "text", bwd_path["llama3_8b"]),
+             "causal_attention_f32": ("demo (B=2)", bwd_path["as_shipped"]),
+             "causal_attention_bwd": (bwd_path["llama3_8b"],),
+             "causal_attention_bwd_f32": (bwd_path["as_shipped"],)}
     for k in kernels:
         wrapper = k["name"].removesuffix("_f32")
         k["launches_per_path"] = {p: by_path[p][wrapper] for p in paths.get(k["name"], by_path)}
@@ -1240,7 +1633,8 @@ def main(argv):
                                "text": {"scenes_per_s": B_FULL / times_t[1], "forward_s": times_t,
                                         "profile": prof_t, "per_site": per_site_t},
                                "demo (B=2)": {"profile": prof_d, "per_site": per_site_d}},
-                   "parity_m": parity, "train": train, "kernels": kernels}, f, indent=1)
+                   "parity_m": parity, "train": train, "text_train": text_train,
+                   "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

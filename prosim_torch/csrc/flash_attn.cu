@@ -9,7 +9,12 @@
 // with no valid key get zeros; masked keys are skipped by selection (never
 // weighted by p = 0), so a non-finite value in a pad row cannot reach a
 // valid row. No atomics: results are bitwise reproducible. Rows are
-// [B, T, H, D], D a multiple of 16 up to 128, any T. Two instantiations:
+// [B, T, H, D], D a multiple of 16 up to 128, any T. Given an `lse` pointer
+// (training; csrc/flash_attn_bwd.cu reads it) it also writes each row's
+// natural-log log-sum-exp of its scaled scores, f32 [B, Hq, T], -inf on pad
+// rows; with a null pointer (eval) the kernel runs its instantiation
+// without those stores (kLse false), so the eval path issues none.
+// Two instantiations by dtype:
 //
 // bf16 (flash_attn_kernel; the Llama3-8B text path). Bound on the H100: the
 // work depends on the mask. It writes every output row and reads q of the
@@ -66,6 +71,7 @@ constexpr int kKeys = 64;    // keys per k/v tile
 constexpr int kStages = 2;   // k/v ring
 constexpr int kMinBlocks = 2;  // blocks per SM the register budget is set for
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -108,12 +114,12 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_attn_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const unsigned char* __restrict__ mask,
-    __nv_bfloat16* __restrict__ out, int B, int T, int Hq, int Hkv, int HB, int WPH,
-    float scale_log2) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int B, int T, int Hq, int Hkv,
+    int HB, int WPH, float scale_log2) {
   constexpr int DP = D + 8;  // 16 bytes of row padding: ldmatrix rows hit distinct banks
   constexpr int KD = D / 16;  // k-steps of q.k^T
   constexpr int ND = D / 8;   // n-tiles of p.v
@@ -164,6 +170,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_attn_kernel(
         __nv_bfloat16* dst = out + ((size_t)b * T + row0 + r) * q_stride + (size_t)h0 * D + c;
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
       }
+      if (kLse)
+        for (int i = tid; i < rows * HB; i += blockDim.x)
+          lse[((size_t)b * Hq + h0 + i / rows) * T + row0 + i % rows] = -INFINITY;
       continue;
     }
     const int last_kt = (min(T, row0 + R) - 1) / kKeys;
@@ -314,6 +323,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_attn_kernel(
     }
     const bool w_lo = ok_lo && l_lo > 0.f, w_hi = ok_hi && l_hi > 0.f;
     const float inv_lo = w_lo ? 1.f / l_lo : 0.f, inv_hi = w_hi ? 1.f / l_hi : 0.f;
+    if (kLse && t4 == 0) {  // ln(sum exp(s)) = ln 2 (m + log2 l), m in the log2 domain
+      float* lb = lse + ((size_t)b * Hq + h) * T;
+      if (r_lo < T) lb[r_lo] = w_lo ? (m_lo + log2f(l_lo)) * kLn2 : -INFINITY;
+      if (r_hi < T) lb[r_hi] = w_hi ? (m_hi + log2f(l_hi)) * kLn2 : -INFINITY;
+    }
     __nv_bfloat16* ob = out + (size_t)b * T * q_stride + (size_t)h * D;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
@@ -328,9 +342,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_attn_kernel(
   }  // items
 }
 
-template <int D>
+template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, const unsigned char* mask, void* out,
-           int B, int T, int Hq, int Hkv, float scale_log2, cudaStream_t stream) {
+           float* lse, int B, int T, int Hq, int Hkv, float scale_log2, cudaStream_t stream) {
   const int G = Hq / Hkv;
   int HB = G < kWarps ? G : kWarps;  // heads per block: a divisor of G
   while (G % HB) --HB;
@@ -341,32 +355,32 @@ int launch(const void* q, const void* k, const void* v, const unsigned char* mas
       sizeof(__nv_bfloat16) * (D + 8) * (size_t)(HB * WPH * 16 + 2 * kStages * kKeys) +
       sizeof(u64) * (size_t)((T + kKeys - 1) / kKeys);
   if (smem > 227 * 1024 || items > (1ll << 31) - 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_attn_kernel<D>, threads,
-                                                           smem)) != cudaSuccess)
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, flash_attn_kernel<D, kLse>, threads, smem)) != cudaSuccess)
     return (int)err;
   const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int grid = (int)(items < slots ? items : slots);  // persistent blocks
-  flash_attn_kernel<D><<<grid, threads, smem, stream>>>(
+  flash_attn_kernel<D, kLse><<<grid, threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), B, T, Hq,
-      Hkv, HB, WPH, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), lse, B, T,
+      Hq, Hkv, HB, WPH, scale_log2);
   return (int)cudaGetLastError();
 }
 
 constexpr int kF32Rows = 32;  // query rows per block, four lanes per row
 constexpr int kF32Threads = 4 * kF32Rows;
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kF32Threads) flash_attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const unsigned char* __restrict__ mask, float* __restrict__ out, int T, int Hq, int Hkv,
-    float scale_log2) {
+    const unsigned char* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse,
+    int T, int Hq, int Hkv, float scale_log2) {
   constexpr int DL = D / 4;  // dims per lane: d = 4 i + part
   __shared__ float ks[kF32Rows][D];
   __shared__ float vs[kF32Rows][D];
@@ -441,25 +455,27 @@ __global__ void __launch_bounds__(kF32Threads) flash_attn_f32_kernel(
     float* orow = out + (((size_t)b * T + t) * Hq + h) * D;
 #pragma unroll
     for (int i = 0; i < DL; ++i) orow[4 * i + part] = w ? o[i] / l : 0.f;
+    if (kLse && part == 0)
+      lse[((size_t)b * Hq + h) * T + t] = w ? (m + log2f(l)) * kLn2 : -INFINITY;
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 int launch_f32(const void* q, const void* k, const void* v, const unsigned char* mask, void* out,
-               int B, int T, int Hq, int Hkv, float scale_log2, cudaStream_t stream) {
+               float* lse, int B, int T, int Hq, int Hkv, float scale_log2, cudaStream_t stream) {
   const dim3 grid((T + kF32Rows - 1) / kF32Rows, Hq, B);
-  flash_attn_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+  flash_attn_f32_kernel<D, kLse><<<grid, kF32Threads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      mask, static_cast<float*>(out), T, Hq, Hkv, scale_log2);
+      mask, static_cast<float*>(out), lse, T, Hq, Hkv, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 bf16, 1 f32
+// dtype: 0 bf16, 1 f32; lse may be null (no log-sum-exp is written)
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 const unsigned char* mask, void* out, int B, int T, int Hq,
-                                 int Hkv, int D, float scale, int dtype, void* stream) {
+                                 const unsigned char* mask, void* out, float* lse, int B, int T,
+                                 int Hq, int Hkv, int D, float scale, int dtype, void* stream) {
   if (Hkv < 1 || Hq < 1 || Hq % Hkv != 0 || B > 65535 || Hq > 65535 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (B < 1 || T < 1) return (int)cudaSuccess;
@@ -467,8 +483,11 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   const cudaStream_t st = (cudaStream_t)stream;
 #define PROSIM_FLASH_CASE(DD)                                                  \
   case DD:                                                                     \
-    return dtype ? launch_f32<DD>(q, k, v, mask, out, B, T, Hq, Hkv, sl2, st)  \
-                 : launch<DD>(q, k, v, mask, out, B, T, Hq, Hkv, sl2, st);
+    if (dtype)                                                                 \
+      return lse ? launch_f32<DD, true>(q, k, v, mask, out, lse, B, T, Hq, Hkv, sl2, st)   \
+                 : launch_f32<DD, false>(q, k, v, mask, out, lse, B, T, Hq, Hkv, sl2, st); \
+    return lse ? launch<DD, true>(q, k, v, mask, out, lse, B, T, Hq, Hkv, sl2, st)         \
+               : launch<DD, false>(q, k, v, mask, out, lse, B, T, Hq, Hkv, sl2, st);
   switch (D) {
     PROSIM_FLASH_CASE(16)
     PROSIM_FLASH_CASE(32)

@@ -7,8 +7,10 @@ types, whose first one goes through the text attention afterwards
 (reference: prosim/models/condition_transformer/base.py:6-61). Module names
 mirror the flax ones (`encoders_<type>`, `cond_attn`, `text_attn`). With
 deterministic=False the GNN's layers drop out at
-MODEL.CONDITION_TRANSFORMER.DROPOUT; the text attention has no dropout yet
-(its training, LoRA dropout included, is ROADMAP.md's next slice).
+MODEL.CONDITION_TRANSFORMER.DROPOUT; the text attention has no dropout, as
+in the JAX package. ProSim calls the transformer deterministic in training
+too, the JAX package's quirk (ROADMAP.md C), and its text branch trains
+through the Llama's LoRA leaves and the text adapters.
 """
 
 from typing import Dict

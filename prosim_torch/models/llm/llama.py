@@ -1,5 +1,5 @@
-"""Llama3 decoder with LoRA (port of prosim_tpu/models/llm/llama.py), eval
-mode.
+"""Llama3 decoder with LoRA (port of prosim_tpu/models/llm/llama.py), for
+inference and for LoRA training through a frozen body.
 
 Architecture: RMSNorm, rotary embeddings (HF half-split), grouped-query
 attention, SwiGLU; LoRA adapters on q/k/v and on the token embedding
@@ -13,11 +13,21 @@ RMSNorm's f32 scale promotes its output to f32, so after the first norm the
 residual stream, the norms, RoPE and the softmax statistics are f32, and
 every product multiplies f32 activations by weights rounded to cfg.dtype
 (on a TPU at default precision: bf16 inputs, f32 accumulation). Here:
-  - projection weights, LoRA factors and the embedding are stored in
+  - the frozen projection weights and the embedding are stored in
     cfg.dtype, norm scales in f32;
+  - the trainable LoRA factors (lora_a/lora_b, lora_embed_a/lora_embed_b)
+    are stored in f32, as the flax params are, and cast to cfg.dtype at the
+    product (LoraDense's `a.astype(dtype)`), so AdamW updates them in f32;
+    the embedding's LoRA delta take(A) @ B is computed in f32 and added to
+    the gathered row in f32 before the cast (llama.py:252-265);
   - GEMM inputs, and the q/k/v handed to the attention kernel, are cast to
     cfg.dtype; products accumulate in f32 and come back as f32;
   - residual, norms, RoPE angles and softmax statistics stay f32.
+Training: `causal_attention` is differentiable (its backward is
+csrc/flash_attn_bwd.cu on the card), and with `LlamaConfig.remat` (set by
+`llama3_8b()`, as in the JAX package) each block runs under
+torch.utils.checkpoint while grad mode is on, as `nn.remat(LlamaBlock)`
+does: the backward recomputes one block at a time from its input.
 At `tiny()` (cfg.dtype float32) this is the JAX CPU computation. On the
 card the attention is csrc/flash_attn.cu (ops/flash_attn.py) in cfg.dtype:
 its bf16 instantiation at the Llama3-8B widths, its f32 one at `tiny()`.
@@ -32,6 +42,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from prosim_torch.ops.flash_attn import causal_attention
 
@@ -50,6 +61,9 @@ class LlamaConfig:
     lora_rank: int = 0
     lora_alpha: float = 0.1
     dtype: torch.dtype = torch.bfloat16
+    # recompute each block in the backward (LlamaModel.forward); forward-only
+    # use is unaffected
+    remat: bool = False
 
     @property
     def head_dim(self):
@@ -61,7 +75,7 @@ class LlamaConfig:
 
     @classmethod
     def llama3_8b(cls, lora_rank=16):
-        return cls(lora_rank=lora_rank)
+        return cls(lora_rank=lora_rank, remat=True)
 
     @classmethod
     def tiny(cls, lora_rank=4):
@@ -99,7 +113,8 @@ class RMSNorm(nn.Module):
 
 class LoraLinear(nn.Module):
     """y = x W^T + (alpha / r) (x A) B (the flax LoraDense, no bias); the
-    inputs are cast to the weights' dtype, the result is f32."""
+    inputs are cast to W's dtype, the f32 LoRA factors too at the product,
+    the result is f32."""
 
     def __init__(self, in_dim: int, out_dim: int, lora_rank: int = 0, lora_alpha: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16):
@@ -108,14 +123,15 @@ class LoraLinear(nn.Module):
         self.lora_scale = lora_alpha / lora_rank if lora_rank else 0.0
         self.weight = nn.Parameter(torch.empty((out_dim, in_dim), dtype=dtype))
         if lora_rank:
-            self.lora_a = nn.Parameter(torch.empty((in_dim, lora_rank), dtype=dtype))
-            self.lora_b = nn.Parameter(torch.zeros((lora_rank, out_dim), dtype=dtype))
+            self.lora_a = nn.Parameter(torch.empty((in_dim, lora_rank)))
+            self.lora_b = nn.Parameter(torch.zeros((lora_rank, out_dim)))
 
     def forward(self, x):
         xc = x.to(self.weight.dtype)
         y = F.linear(xc, self.weight).float()
         if self.lora_rank:
-            y = y + ((xc @ self.lora_a) @ self.lora_b).float() * self.lora_scale
+            dt = xc.dtype
+            y = y + ((xc @ self.lora_a.to(dt)) @ self.lora_b.to(dt)).float() * self.lora_scale
         return y
 
 
@@ -164,8 +180,8 @@ class LlamaModel(nn.Module):
         dt = c.dtype
         self.embed_tokens = nn.Parameter(torch.empty((c.total_vocab, c.hidden_size), dtype=dt))
         if c.lora_rank:
-            self.lora_embed_a = nn.Parameter(torch.empty((c.total_vocab, c.lora_rank), dtype=dt))
-            self.lora_embed_b = nn.Parameter(torch.zeros((c.lora_rank, c.hidden_size), dtype=dt))
+            self.lora_embed_a = nn.Parameter(torch.empty((c.total_vocab, c.lora_rank)))
+            self.lora_embed_b = nn.Parameter(torch.zeros((c.lora_rank, c.hidden_size)))
         for i in range(c.num_layers):
             self.add_module(f"layer_{i}", LlamaBlock(c))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, dt)
@@ -197,14 +213,15 @@ class LlamaModel(nn.Module):
 
     def lookup(self, ids):
         """Token embeddings [B, T, H] in cfg.dtype. The LoRA delta is applied
-        per gathered row (A[ids] @ B), never as a dense [V, H] table."""
+        per gathered row (A[ids] @ B, in f32), never as a dense [V, H]
+        table."""
         c = self.cfg
         ids = ids.long()
         base = self.embed_tokens[ids]
         if not c.lora_rank:
             return base
         delta = self.lora_embed_a[ids] @ self.lora_embed_b
-        return (base.float() + (c.lora_alpha / c.lora_rank) * delta.float()).to(c.dtype)
+        return (base.float() + (c.lora_alpha / c.lora_rank) * delta).to(c.dtype)
 
     def forward(self, input_ids, attention_mask, agent_embs=None, agent_slot_ids=None,
                 agent_add_mode: bool = False):
@@ -219,8 +236,13 @@ class LlamaModel(nn.Module):
                                         add_mode=agent_add_mode)
         x = x.to(c.dtype)
         positions = attention_mask.long().cumsum(dim=-1) - 1
+        remat = c.remat and torch.is_grad_enabled()
         for i in range(c.num_layers):
-            x = getattr(self, f"layer_{i}")(x, positions, attention_mask)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                x = checkpoint(block, x, positions, attention_mask, use_reentrant=False)
+            else:
+                x = block(x, positions, attention_mask)
         return self.final_norm(x)
 
 

@@ -1,5 +1,5 @@
 """Llama text conditioning: natural-language prompts -> per-agent residuals
-(port of prosim_tpu/models/llm/text_attn.py:LlamaTextAttn), eval mode.
+(port of prosim_tpu/models/llm/text_attn.py:LlamaTextAttn).
 
   1. project the policy embeddings D -> hidden with `prompt_to_llm` + LN;
   2. token embeddings with each <A{i}> token replaced by (or, in 'add'
@@ -12,8 +12,15 @@
   5. the `prompt_mask_pred` head's BCE against the addressed-agent mask,
      returned as {'prompt_mask_pred_loss': ...}.
 
+The same forward serves training: under autograd the gradients reach
+`prompt_to_llm`, `ln_prompt`, `llm_to_cond`, `mask_pred_head` and the
+Llama's LoRA leaves (its body is frozen by the optimizer), and the
+prompt-mask loss rides along in the aux dict. Like the JAX module it has no
+dropout (TEXT_ATTN.LORA.DROPOUT is read by neither package).
+
 The QA probe (the JAX package's LlamaTextAttnQA) is training-only and is
-left for later (ROADMAP.md queue A8).
+left for later (ROADMAP.md queue A); the condition transformer never builds
+it.
 """
 
 from typing import Dict, Optional, Tuple

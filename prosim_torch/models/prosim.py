@@ -31,6 +31,15 @@ and each replan step ('full': recompute everything, 'dots': keep the matmul
 outputs, 'none'). Each checkpointed region draws its dropout masks from a
 generator it builds from an integer seed, so its recompute draws the same
 masks (checkpoint restores only the default generators).
+
+With a text condition the Llama runs inside the checkpointed `prepare`, as
+in the JAX package (prosim_tpu/models/prosim.py:271-276). With
+LlamaConfig.remat (Llama3-8B width) each of its blocks is also
+checkpointed, so under REMAT_POLICY 'full' or 'dots' a train step runs each
+block forward three times: in the forward, in `prepare`'s recompute (which
+keeps only the block's input) and in the block's own recompute during the
+backward. Without block remat (tiny()) it is twice; under 'none' it is
+once, or twice with block remat.
 """
 
 import contextlib

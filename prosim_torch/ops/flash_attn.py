@@ -1,4 +1,5 @@
-"""Causal self-attention with a key-padding mask, with its CUDA kernel.
+"""Causal self-attention with a key-padding mask, with its CUDA kernels
+(forward and backward).
 
 Port of the attention of prosim_tpu/models/llm/llama.py:_causal_attention,
 which on a TPU calls the library Pallas flash-attention kernel (key padding
@@ -22,6 +23,20 @@ for every query, so valid rows are the same in both. Masked keys are
 skipped, never weighted by p = 0, so a non-finite value in a pad row cannot
 reach a valid row. On a CPU tensor it runs `causal_attention_plain`, the
 dense path written in torch.
+
+Gradients. With grad mode on and any of q/k/v requiring grad,
+`causal_attention` goes through `CausalAttention`, whose forward also keeps
+each row's log-sum-exp `lse [B, Hq, T]` (f32; -inf on pad rows) and whose
+backward is csrc/flash_attn_bwd.cu on the card (the counterpart of the
+library kernel's backward, which the JAX package reaches under
+jax.value_and_grad) and `causal_attention_bwd_plain` on the CPU. Its
+semantics: pad query rows get dq = 0 and contribute nothing; pad keys get
+dk = dv = 0; dk and dv sum over each group's Hq/Hkv query heads. That is the
+dense path's gradient on every valid row: the upstream gradient of a pad
+row is zero (no reader looks at one, as above), so in the dense path a pad
+row's dq is zero and it adds nothing to any key, and a pad key's
+probability is exactly 0 in every valid row. Outside grad mode (eval) the
+forward launch is the one without `lse`.
 """
 
 import ctypes
@@ -39,10 +54,30 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}  # the kernel's instantiatio
 @functools.cache
 def _launcher():
     fn = _build.load("flash_attn").flash_attn_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    fn = _build.load("flash_attn_bwd").flash_attn_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _masked_logits(q, k, token_mask, scale: float):
+    """[B, Hq, T, T] logits of the dense path in the inputs' dtype, -1e30
+    off the causal valid keys; k repeated per query head group."""
+    T, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    k = k.repeat_interleave(Hq // Hkv, dim=2)
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    mask = causal[None] & token_mask[:, None, :]
+    att = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    return torch.where(mask[:, None], att, -1e30)
 
 
 def causal_attention_plain(q, k, v, token_mask, scale: float):
@@ -50,25 +85,55 @@ def causal_attention_plain(q, k, v, token_mask, scale: float):
     logits in the inputs' dtype, masked with -1e30, softmax in f32, the
     probabilities cast back to the inputs' dtype; k/v repeated per query
     head group."""
-    T, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
-    k = k.repeat_interleave(Hq // Hkv, dim=2)
+    Hq, Hkv = q.shape[2], k.shape[2]
+    att = torch.softmax(_masked_logits(q, k, token_mask, scale).float(), dim=-1).to(q.dtype)
     v = v.repeat_interleave(Hq // Hkv, dim=2)
-    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-    mask = causal[None] & token_mask[:, None, :]
-    att = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    att = torch.where(mask[:, None], att, -1e30)
-    att = torch.softmax(att.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", att, v)
 
 
-def causal_attention(q, k, v, token_mask, scale: float):
-    """q [B,T,Hq,D], k/v [B,T,Hkv,D], token_mask [B,T] bool -> [B,T,Hq,D].
-    On the card: bf16 or f32 q/k/v (never cast), Hq a multiple of Hkv, D a
-    multiple of 16 up to 128, any T."""
-    if q.device.type == "cpu":
-        return causal_attention_plain(q, k, v, token_mask, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"causal_attention: unsupported device {q.device}")
+def causal_attention_fwd_plain(q, k, v, token_mask, scale: float):
+    """(out, lse): the dense path with pad query rows zeroed, as the kernel
+    writes them, and each row's natural-log log-sum-exp of its scaled
+    logits over its valid keys, f32 [B, Hq, T], -inf on pad rows."""
+    out = causal_attention_plain(q, k, v, token_mask, scale)
+    lse = torch.logsumexp(_masked_logits(q, k, token_mask, scale).float(), dim=-1)
+    lse = torch.where(token_mask[:, None, :], lse, float("-inf"))
+    return torch.where(token_mask[:, :, None, None], out, 0.0), lse
+
+
+def causal_attention_bwd_plain(q, k, v, o, lse, do, token_mask, scale: float):
+    """(dq, dk, dv) of the causal attention, the flash backward step by step
+    in torch: products in the inputs' dtype with P and dS rounded to it as
+    product inputs (as the kernel rounds them), statistics in f32:
+      P = exp(S scale - lse) over the valid causal pairs (0 elsewhere, by
+          selection), D = rowsum(dO o), dV = P^T dO, dS = P (dO V^T - D),
+      dQ = dS K scale, dK = dS^T Q scale,
+    dK and dV summed over each group's Hq/Hkv query heads. Pad rows of
+    every input are selected out before any product, so a non-finite value
+    there reaches no gradient; pad query rows' dq and pad keys' dk/dv are
+    exactly zero."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    dt = q.dtype
+    rows = token_mask[:, :, None, None]
+    q, o, do = (torch.where(rows, x, 0.0) for x in (q, o, do))
+    k, v = (torch.where(rows, x, 0.0).repeat_interleave(G, dim=2) for x in (k, v))
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    valid = (causal[None] & token_mask[:, None, :] & token_mask[:, :, None])[:, None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)  # [B, Hq, T]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt), do).float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v).float()
+    ds = (p * (dp - delta[..., None])).to(dt)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k).float() * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q).float() * scale
+    group = lambda x: x.view(B, T, Hkv, G, D).sum(dim=3).to(dt)  # noqa: E731
+    return dq.to(dt), group(dk), group(dv)
+
+
+def _check_inputs(q, k, v, token_mask):
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
@@ -84,15 +149,91 @@ def causal_attention(q, k, v, token_mask, scale: float):
                          f"up to 128, got Hq={Hq}, Hkv={Hkv}, D={D}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attn kernel needs 16-byte aligned q/k/v")
+
+
+def _flash_fwd(q, k, v, token_mask, scale: float, with_lse: bool):
+    """One launch of csrc/flash_attn.cu: out, and lse when asked for."""
+    _check_inputs(q, k, v, token_mask)
+    B, T, Hq, D = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device) if with_lse else None
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), token_mask.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, D, float(scale), _DTYPE_CODE[dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        lse.data_ptr() if with_lse else None, B, T, Hq, k.shape[2], D, float(scale),
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error {err}")
     causal_attention.launches += 1
-    return out
+    return out, lse
+
+
+def causal_attention_bwd(q, k, v, o, lse, do, token_mask, scale: float):
+    """(dq, dk, dv). On a CUDA tensor one call of csrc/flash_attn_bwd.cu
+    (its delta, dkv and dq kernels); on a CPU tensor
+    `causal_attention_bwd_plain`. o, do [B,T,Hq,D] in q's dtype, lse f32
+    [B,Hq,T] from the forward."""
+    if q.device.type == "cpu":
+        return causal_attention_bwd_plain(q, k, v, o, lse, do, token_mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"causal_attention_bwd: unsupported device {q.device}")
+    _check_inputs(q, k, v, token_mask)
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    _check("o", o, q.dtype, (B, T, Hq, D), q.device)
+    _check("do", do, q.dtype, (B, T, Hq, D), q.device)
+    _check("lse", lse, torch.float32, (B, Hq, T), q.device)
+    if any(t.data_ptr() % 16 for t in (o, do)):
+        raise ValueError("flash_attn_bwd kernel needs 16-byte aligned o/do")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)  # scratch
+    err = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        token_mask.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, Hq, Hkv, D, float(scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error {err}")
+    causal_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class CausalAttention(torch.autograd.Function):
+    """causal_attention with a gradient: the forward keeps q, k, v, out and
+    lse; the backward is `causal_attention_bwd` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, token_mask, scale: float):
+        if q.device.type == "cpu":
+            out, lse = causal_attention_fwd_plain(q, k, v, token_mask, scale)
+        elif q.device.type == "cuda":
+            out, lse = _flash_fwd(q, k, v, token_mask, scale, with_lse=True)
+        else:
+            raise ValueError(f"causal_attention: unsupported device {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse, token_mask)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, token_mask = ctx.saved_tensors
+        dq, dk, dv = causal_attention_bwd(q, k, v, out, lse, do.contiguous(), token_mask,
+                                          ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def causal_attention(q, k, v, token_mask, scale: float):
+    """q [B,T,Hq,D], k/v [B,T,Hkv,D], token_mask [B,T] bool -> [B,T,Hq,D].
+    On the card: bf16 or f32 q/k/v (never cast), Hq a multiple of Hkv, D a
+    multiple of 16 up to 128, any T. Differentiable through
+    `CausalAttention` when grad mode is on and q, k or v requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return CausalAttention.apply(q, k, v, token_mask, scale)
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v, token_mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"causal_attention: unsupported device {q.device}")
+    return _flash_fwd(q, k, v, token_mask, scale, with_lse=False)[0]
 
 
 causal_attention.launches = 0
+causal_attention_bwd.launches = 0

@@ -16,8 +16,19 @@ The update is optax's, step for step:
   * `clip_grad_norm` is optax.clip_by_global_norm: g / |g| * max only where
     |g| >= max (torch's clip_grad_norm_ adds 1e-6 to the norm);
   * a group at scale 0 (GOAL_MODEL_LR_SCALE 0.0) has lr 0, so neither the
-    Adam step nor the decay moves it; the frozen Llama body ('llm_frozen',
-    optax.set_to_zero) is in no group at all.
+    Adam step nor the decay moves it; the LoRA leaves ('lora') train at
+    TEXT.LLM.LORA_LR_SCALE and the text adapters ('adapter') at
+    TEXT.LLM.ADAPTER_LR_SCALE times the base LR;
+  * the frozen Llama body ('llm_frozen', optax.set_to_zero in the JAX
+    package) is in no group, and `build_optimizer` sets requires_grad False
+    on it, as the reference does (reference: base.py:94): its gradients are
+    never computed and so never counted in the clip norm. The JAX package
+    chains clip_by_global_norm before multi_transform, so its norm counts
+    the body's gradients (only their update is dropped); at Llama3-8B width
+    those are ~7.5 B values computed only to be counted. This divergence of
+    the frozen JAX package is stated in ROADMAP.md (C); the port's tests
+    hold it to a JAX oracle that zeroes the 'llm_frozen' gradients before
+    the JAX package's own update.
 """
 
 import math
@@ -130,9 +141,12 @@ def param_groups(model: torch.nn.Module, config) -> Dict[str, List[torch.nn.Para
 def build_optimizer(config, model: torch.nn.Module):
     """(optimizer, scheduler): one param group per non-empty group, its
     'lr' driven by the scheduler from that group's schedule; step the
-    scheduler after each optimizer step."""
+    scheduler after each optimizer step. Freezes the 'llm_frozen'
+    parameters (requires_grad False)."""
     lrs = group_lrs(config)
     groups = param_groups(model, config)
+    for p in groups["llm_frozen"]:
+        p.requires_grad_(False)
     names = [g for g in GROUPS if groups[g]]
     # initial lr 1: LambdaLR's factor is then the group's schedule value itself
     pg = [{"params": groups[g], "lr": 1.0, "name": g} for g in names]
@@ -155,7 +169,9 @@ def build_optimizer(config, model: torch.nn.Module):
 def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm over the .grad of `params`, in place and
     without a host sync; returns the global norm (optax.global_norm) before
-    clipping."""
+    clipping. A parameter without a .grad (the frozen Llama body, which has
+    requires_grad False) is not counted: the norm is the JAX package's with
+    the 'llm_frozen' gradients taken as zero (module docstring)."""
     grads = [p.grad for p in params if p.grad is not None]
     norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
     if max_norm and max_norm > 0:

@@ -9,7 +9,8 @@ from prosim_torch.train.optim import clip_grad_norm
 def make_train_step(model, optimizer, scheduler, config):
     """Returns train_step(batch, seed) -> losses: the train-mode forward, the
     loss times TASK.MOTION_PRED.WEIGHT, backward, the global gradient norm
-    (reported before clipping, over every parameter that has a gradient),
+    (reported before clipping, over every parameter that has a gradient;
+    the frozen Llama body, requires_grad False, has none),
     clipping at TRAIN.GRAD_CLIP, one optimizer update and one scheduler step.
     A parameter the loss does not reach gets a zero gradient, so it decays
     as optax decays every leaf."""

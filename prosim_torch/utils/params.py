@@ -10,7 +10,9 @@ of numpy arrays) maps leaf by leaf onto a `state_dict`:
   embed_tokens, lora_embed_a/b and each LoraDense's lora_a/lora_b) keep
   their name and flax layout.
 A boxed leaf (flax's `Partitioned`, for the Llama's sharded weights) is
-unboxed first.
+unboxed first. Each leaf takes its torch parameter's dtype: the Llama's
+frozen weights cfg.dtype, its LoRA leaves (lora_a/lora_b,
+lora_embed_a/lora_embed_b) f32, as in the flax tree.
 
 `init_params` draws seeded random weights; a submodule that has its own
 initialiser (the Llama's `init_weights`, which draws on the model's device,

@@ -13,7 +13,11 @@ flash attention in bf16 by the flash-attention rule: its max error against
 the plain version in f32 on the same bf16 inputs is at most twice the plain
 version's own error in bf16, plus 1e-5, on valid rows; in f32 within 1e-5
 of the f32 plain version on valid rows (the order of the sums is the only
-difference); pad rows exactly zero in both.
+difference); pad rows exactly zero in both. The flash backward (dq, dk,
+dv) by the same rules against the plain backward: bf16 within twice the
+bf16 plain backward's own error, plus 1e-5, of the f32 plain backward on
+the same inputs; f32 within 1e-5 of each tensor's largest magnitude; pad
+rows' dq and masked keys' dk/dv exactly zero; two launches bitwise equal.
 """
 
 from pathlib import Path
@@ -25,7 +29,14 @@ import torch
 
 from prosim_torch.ops.attention import GatedNeighborAttention
 from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
-from prosim_torch.ops.flash_attn import causal_attention, causal_attention_plain
+from prosim_torch.ops.flash_attn import (
+    _flash_fwd,
+    causal_attention,
+    causal_attention_bwd,
+    causal_attention_bwd_plain,
+    causal_attention_fwd_plain,
+    causal_attention_plain,
+)
 from prosim_torch.ops.fused_stack import (
     fused_two_site_stack,
     fused_two_site_stack_plain,
@@ -316,6 +327,167 @@ def test_flash_attn_refuses_other_inputs(cuda):
     assert causal_attention.launches == before
 
 
+# (B, T, Hq, Hkv, D) of the backward: the Llama3-8B text shape, tiny()'s,
+# and T off the 32/64-row tiles with Hq/Hkv of 1, 2 and 4
+FLASH_BWD_CASES = [
+    (2, 384, 32, 8, 128), (3, 384, 4, 2, 16), (3, 100, 8, 2, 64), (2, 77, 4, 4, 32),
+    (2, 150, 8, 1, 16), (2, 129, 8, 8, 128), (2, 45, 2, 2, 16), (2, 333, 8, 4, 48),
+]
+
+
+def _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, dtype, seed):
+    """q/k/v/mask, the kernel forward's out and lse, and an upstream
+    gradient do (random, zero on pad rows)."""
+    q, k, v, mask = _flash_inputs(cuda, B, T, Hq, Hkv, D, seed=seed, dtype=dtype)
+    out, lse = _flash_fwd(q, k, v, mask, D ** -0.5, with_lse=True)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    do = (torch.randn(q.shape, generator=gen, device=cuda) * mask[:, :, None, None]).to(dtype)
+    return q, k, v, mask, out, lse, do
+
+
+def _bwd_err(got, ref, mask):
+    """Max abs error of (dq, dk, dv) on valid rows / valid keys."""
+    return max(float((g.float() - r.float())[mask].abs().max()) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
+    """bf16: the kernel's dq/dk/dv deviation from the plain backward run in
+    f32 on the same bf16 inputs is at most twice the bf16 plain backward's,
+    plus 1e-5. The forward's lse against the plain forward's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask, out, lse, do = _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, torch.bfloat16, T + D)
+    scale = D ** -0.5
+    before = causal_attention_bwd.launches
+    got = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    again = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    f32 = [x.float() for x in (q, k, v, out)]
+    ref = causal_attention_bwd_plain(*f32, lse, do.float(), mask, scale)
+    ref_bf16 = causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale)
+    torch.cuda.synchronize()
+    assert causal_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    assert [x.dtype for x in got] == [torch.bfloat16] * 3
+    err = _bwd_err(got, ref, mask)
+    err_bf16 = _bwd_err(ref_bf16, ref, mask)
+    assert err <= 2 * err_bf16 + 1e-5, (err, err_bf16)
+    assert all(bool(torch.isfinite(x).all()) and float(x[~mask].float().abs().max()) == 0.0
+               for x in got)
+    _, lse_ref = causal_attention_fwd_plain(*f32[:3], mask, scale)
+    lm = mask[:, None, :].expand_as(lse)
+    assert float((lse - lse_ref)[lm].abs().max()) <= 2e-2
+    assert bool((lse[~lm] == float("-inf")).all())
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", FLASH_BWD_CASES)
+def test_flash_bwd_f32_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
+    """f32: dq/dk/dv within 1e-5 of each tensor's largest magnitude; lse
+    within 1e-5 of the plain forward's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask, out, lse, do = _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, torch.float32,
+                                                    T + D + 1)
+    scale = D ** -0.5
+    got = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    again = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    ref = causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+        assert float(g[~mask].abs().max()) == 0.0
+    _, lse_ref = causal_attention_fwd_plain(q, k, v, mask, scale)
+    lm = mask[:, None, :].expand_as(lse)
+    assert float((lse - lse_ref)[lm].abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_reads_no_pad_row(cuda, dtype):
+    """NaN or inf in the pad rows of q, k, v, out and do leaves dq/dk/dv
+    bitwise unchanged, pad rows and masked keys zero."""
+    q, k, v, mask, out, lse, do = _flash_bwd_inputs(cuda, 3, 150, 8, 2, 128, dtype, 5)
+    clean = causal_attention_bwd(q, k, v, out, lse, do, mask, 0.1)
+    pads = []
+    for x, val in ((q, "nan"), (k, "nan"), (v, "inf"), (out, "nan"), (do, "nan")):
+        x = x.clone()
+        x[~mask] = float(val)
+        pads.append(x)
+    got = causal_attention_bwd(*pads[:4], lse, pads[4], mask, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(got, clean))
+    assert all(float(x[~mask].float().abs().max()) == 0.0 for x in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_causal_attention_has_a_gradient_on_the_card(cuda, dtype):
+    """With q requiring grad the output has a grad_fn (CausalAttention): the
+    forward launches with lse, the backward launches the backward kernel
+    once, and the gradients are the plain backward's on the same forward
+    (bitwise) and the dense path's autograd within the backward rules;
+    outside grad mode the launch is the eval one, bitwise the same output."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = _flash_inputs(cuda, 2, 200, 8, 2, 64, seed=9, dtype=dtype)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    g = (torch.randn(q.shape, generator=gen, device=cuda) * mask[:, :, None, None]).to(dtype)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    f0, b0 = causal_attention.launches, causal_attention_bwd.launches
+    out = causal_attention(*xs, mask, 0.125)
+    assert type(out.grad_fn).__name__ == "CausalAttentionBackward"
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (causal_attention.launches - f0, causal_attention_bwd.launches - b0) == (1, 1)
+    with torch.no_grad():
+        assert torch.equal(causal_attention(q, k, v, mask, 0.125), out.detach())
+    o2, lse = _flash_fwd(q, k, v, mask, 0.125, with_lse=True)
+    assert torch.equal(o2, out.detach())
+    ref = causal_attention_bwd(q, k, v, o2, lse, g, mask, 0.125)
+    assert all(torch.equal(x.grad, r) for x, r in zip(xs, ref))
+    ys = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    (causal_attention_plain(*ys, mask, 0.125) * g.float()).sum().backward()
+    plain_lo = causal_attention_bwd_plain(q, k, v, o2, lse, g, mask, 0.125)
+    bar = (2 * _bwd_err(plain_lo, [y.grad for y in ys], mask) + 1e-5 if dtype == torch.bfloat16
+           else 1e-5 * max(float(y.grad.abs().max()) for y in ys))
+    assert _bwd_err([x.grad for x in xs], [y.grad for y in ys], mask) <= bar
+
+
+def test_text_train_step_lora_grads_match_plain_on_the_card(cuda, monkeypatch):
+    """configs/with_text.yaml at small widths (the f32 tiny() Llama): one
+    train step through B4 and its backward against the same step with the
+    dense plain attention: the loss within 1e-5 relative and every layer's
+    q/k/v lora_b gradient within 1e-4 of its largest magnitude; the frozen
+    body gets no gradient."""
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.llm import llama
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.train.optim import build_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(str(ROOT / "configs" / "with_text.yaml"), TRAIN_OPTS)
+    model = ProSim(cfg, device=cuda)
+    init_params(model, seed=0)
+    build_optimizer(cfg, model)
+    with torch.no_grad():  # the LoRA B factors start at zero; make the adapters do work
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        for n, p in model.named_parameters():
+            if n.endswith(("lora_b", "lora_embed_b")):
+                p.copy_(torch.randn(p.shape, generator=gen, device=cuda) * 0.05)
+    batch = make_synthetic_batch(cfg, batch_size=2, seed=1, device=cuda, **TRAIN_SHAPE)
+    f0, b0 = causal_attention.launches, causal_attention_bwd.launches
+    loss_k, g_k = _grad_step(model, cfg, batch)
+    layers = model.condition_transformer_policy_decoder.text_attn.llm.cfg.num_layers
+    assert causal_attention_bwd.launches - b0 == layers
+    assert causal_attention.launches - f0 == 2 * layers  # the forward and prepare's recompute
+    monkeypatch.setattr(llama, "causal_attention", causal_attention_plain)
+    loss_p, g_p = _grad_step(model, cfg, batch)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert set(g_k) == set(g_p)
+    qkv = [n for n in g_p if n.endswith(("q_proj.lora_b", "k_proj.lora_b", "v_proj.lora_b"))]
+    assert len(qkv) == 3 * layers
+    for n in qkv:
+        assert float(g_p[n].abs().max()) > 0
+        assert float((g_k[n] - g_p[n]).abs().max()) <= 1e-4 * float(g_p[n].abs().max()), n
+    assert not any(".llm." in n and "lora" not in n for n in g_k)
+
+
 def test_demo_config_runs_its_f32_llama_through_the_kernel(cuda, monkeypatch):
     """configs/waymo_demo.yaml as shipped (TEXT.LLM.ARCH auto, no weights)
     builds the f32 tiny() Llama; on the card its attention is the f32
@@ -549,7 +721,8 @@ def test_train_step_with_topk_kernel_matches_plain(cuda, remat):
     launches = {k: v - before[k] for k, v in chip_smoke.launch_counts().items()}
     per_forward = 4 + 2 * TRAIN_SHAPE["num_replan"]
     assert launches == {"neighbor_topk": 2 * per_forward * (2 if remat == "full" else 1),
-                        "edge_attn_core": 0, "fused_two_site_stack": 0, "causal_attention": 0}
+                        "edge_attn_core": 0, "fused_two_site_stack": 0, "causal_attention": 0,
+                        "causal_attention_bwd": 0}
     with chip_smoke.kernel_calls(neighbor_topk_plain, edge_attn_core_plain,
                                  fused_two_site_stack_plain, causal_attention_plain):
         loss_p, g_p = _grad_step(model, cfg, batch)
