@@ -11,7 +11,10 @@ loop (configs/waymo_demo.yaml's goal,
 v_action_tag, drag_point and OneText conditions, the condition transformer
 at policy_decoder, the Llama text path at Llama3-8B width with random bf16
 weights); a fourth, configs/waymo_demo.yaml as shipped (its f32 tiny()
-Llama), at B=2 in phase 5. Phases:
+Llama), at B=2 in phase 5. The layer loop, the fused loop and the shipped
+demo also run with the network body in bf16 (`ProSim(cfg, dtype=bf16)`,
+the configuration bench.py measures), which runs B2's and B3's bf16
+instantiations. Phases:
   1. device   - card name and power limit (nvidia-smi); TF32 and reduced-
                 precision bf16 reductions off.
   2. build    - nvcc builds every CUDA kernel of the path from prosim_torch/csrc.
@@ -32,7 +35,17 @@ Llama), at B=2 in phase 5. Phases:
                 rule against the plain backward in f32, f32 within
                 FLASH_F32_TOL of each tensor's largest magnitude; pad rows'
                 dq and masked keys' dk/dv exactly zero, also with NaN in the
-                pad rows; two launches bitwise equal). Times: device ms per call (torch.profiler,
+                pad rows; two launches bitwise equal), and at a head width
+                of 40 (the wrapper pads it to 48) in both dtypes, forward
+                and backward, by the same gates. The bf16 instantiations:
+                B2 on the same real graphs and B3 on the same real tables,
+                values rounded to bf16, weights packed in bf16: the
+                kernel's max error against the f32 plain version on the same
+                values at most BF16_RULE's 2x the bf16 plain version's,
+                plus 1e-5; empty rows zero, two launches bitwise equal;
+                beside their times the f32 instantiation's, the bf16 SDPA
+                yardstick (B2) and the bf16 layer loop (B3).
+                Times: device ms per call (torch.profiler,
                 the call's device operations) beside the bound and a
                 one-call PyTorch yardstick where one exists (for the fused
                 stack, the layer loop instead; for the backward, the
@@ -47,7 +60,10 @@ Llama), at B=2 in phase 5. Phases:
                 launch's inputs recorded: each kernel's device ms, launches
                 and bound per forward and per site, and the device time by
                 kernel family (written to chip_smoke_kernels.json in the
-                output directory).
+                output directory). The layer loop and the fused loop again
+                in bf16, with the same launch counts; every B2 and B3
+                launch of a profiled forward must be the instantiation of
+                the model's dtype (the template argument in its name).
   5. parity   - each configuration's kernel path against its plain path (the
                 model with its kernel calls pointed at the plain versions),
                 and the fused rollout against the layer-loop rollout, all on
@@ -60,6 +76,12 @@ Llama), at B=2 in phase 5. Phases:
                 rollout deviation is logged. The shipped demo configuration
                 (f32 Llama): launches per forward, its rollout within
                 PARITY_TOL_M of its plain path, and one profiled forward.
+                In bf16 (layer loop, fused, and the shipped demo built in
+                bf16 with its f32 Llama): the kernel path's rollout sits
+                no further from the f32 plain rollout than 2x the bf16
+                plain rollout does, plus PARITY_TOL_M, over the first
+                replan step (before random weights' drift compounds to
+                metres) and over the whole rollout; launches as in f32.
   6. replicas - parallel_rollout with M=4 on B=2 matches the B=2 rollout.
   7. train    - configs/no_text.yaml at full width (random weights from a
                 seed, demo padding, TRAIN.BATCH_SIZE 16, REMAT_POLICY full,
@@ -101,7 +123,8 @@ Llama), at B=2 in phase 5. Phases:
                 and each leaf within TRAIN_GRAD_TOL), then
                 evaluate and rollout_callback (M=4) finite through B4's eval
                 launch.
-Any failure raises and exits non-zero. The kernels JSON line comes just
+Any failure raises and exits non-zero. Each phase prints its time. The
+kernels JSON line (B2 and B3 in bf16 as entries of their own) comes just
 before the last line, which is the device JSON.
 """
 
@@ -114,7 +137,7 @@ import sys
 import time
 
 EDGE_TOL = 1e-4      # f32, unit-scale inputs; only the summation order differs
-BF16_RULE = (2.0, 1e-5)  # flash attention: err <= 2 * (plain in bf16's err) + 1e-5, both vs f32
+BF16_RULE = (2.0, 1e-5)  # bf16 kernels: err <= 2 * (plain in bf16's err) + 1e-5, both vs f32
 FLASH_F32_TOL = 1e-5  # flash attention in f32: only the order of the sums differs
 FUSED_TOL = 3e-4     # abs and rel; the bar tests/test_fused_stack.py holds the TPU kernel to
 PARITY_TOL_M = 1e-3  # metres, the bar the JAX package was held to
@@ -405,6 +428,85 @@ def check_edge(torch, graphs, H, D, scale):
     return rows
 
 
+def check_edge_bf16(torch, graphs, H, D, scale, f32_rows):
+    """B2's bf16 instantiation on the same real graphs: normalized source
+    rows, z_r and queries drawn as in check_edge and rounded to bf16. The
+    kernel's max error against the f32 plain version on the same values is
+    at most BF16_RULE's 2x the bf16 plain version's, plus 1e-5; rows with no
+    valid edge exactly zero; two launches bitwise equal. Beside its time:
+    the f32 instantiation's (check_edge's row of the site) and the bf16
+    SDPA yardstick with the gather it needs."""
+    import torch.nn.functional as F
+    from prosim_torch.ops import _build
+    from prosim_torch.ops.attention import _norm_stats
+    from prosim_torch.ops.edge_attn import edge_attn_core, edge_attn_core_plain
+    from prosim_torch.ops.neighbors import gather_neighbors
+
+    lib = _build.load("edge_attn")
+    for Dp in sorted({g[3] for g in graphs.values()}):
+        log(f"  edge_attn_core bf16 at D={D} Dp={Dp}: {lib.edge_attn_smem_bytes_bf16(D, Dp)} "
+            f"bytes of dynamic shared memory a block; blocks of 4 warps per SM: short rows "
+            f"{lib.edge_attn_blocks_per_sm_bf16(0, D, Dp)}, long rows "
+            f"{lib.edge_attn_blocks_per_sm_bf16(1, D, Dp)}")
+    f32_ms = {r["site"]: r["ms"] for r in f32_rows}
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, (idx, valid, S, Dp) in graphs.items():
+        B, Q, K = valid.shape
+        valid = valid.clone()
+        valid[:, 0] = False  # at least one row with no valid edge per scene
+        x_src_n = _norm_stats(torch.randn((B, S, D), generator=gen, device="cuda")).to(bf)
+        z_r = torch.randn((B, Q, K, Dp), generator=gen, device="cuda").to(bf)
+        qx = (torch.randn((B, Q, H, D), generator=gen, device="cuda") * 0.1).to(bf)
+        qp = (torch.randn((B, Q, H, Dp), generator=gen, device="cuda") * 0.1).to(bf)
+        args = (x_src_n, idx, z_r, qx, qp, valid, scale)
+        out = edge_attn_core(*args)
+        again = edge_attn_core(*args)
+        torch.cuda.synchronize()
+        ref = edge_attn_core_plain(x_src_n.float(), idx, z_r.float(), qx.float(), qp.float(),
+                                   valid, scale)
+        err = max(float((a.float() - b).abs().max()) for a, b in zip(out, ref))
+        ref16 = edge_attn_core_plain(*args)
+        err16 = max(float((a.float() - b).abs().max()) for a, b in zip(ref16, ref))
+        peak = max(float(b.abs().max()) for b in ref[:2])
+        del ref, ref16
+        bar = BF16_RULE[0] * err16 + BF16_RULE[1]
+        if not err <= bar:
+            raise AssertionError(f"edge_attn_core bf16[{name}] max abs err {err} > {bar} "
+                                 f"(plain in bf16 {err16})")
+        empty = ~valid.any(-1)
+        if any(o.dtype != bf or float(o[empty].float().abs().max()) != 0.0 for o in out):
+            raise AssertionError(f"edge_attn_core bf16[{name}]: outputs not bf16, or rows "
+                                 "without a valid edge not zero")
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"edge_attn_core bf16[{name}]: two launches differ")
+        iters = 5 if B * Q * K > 2_000_000 else 20
+        ms, wall_ms = times(torch, lambda: edge_attn_core(*args), iters)
+        plain_ms = device_ms(torch, lambda: edge_attn_core_plain(*args), iters)
+        q = torch.cat([qx, qp], -1).reshape(B * Q, H, 1, D + Dp)
+        kv_of = lambda: torch.cat([gather_neighbors(x_src_n, idx), z_r], -1).reshape(  # noqa: E731
+            B * Q, 1, K, D + Dp)
+        kv = kv_of()
+        mask = valid.reshape(B * Q, 1, 1, K)
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kv, kv, attn_mask=mask, scale=scale, enable_gqa=True), iters)
+        lib_gather_ms = device_ms(torch, kv_of, iters)
+        del q, kv
+        n_valid = int(valid.sum())
+        rows.append(dict(site=name, B=B, Q=Q, K=K, S=S, Dp=Dp, valid_edges=n_valid, ms=ms,
+                         wall_ms=wall_ms, plain_ms=plain_ms, f32_ms=f32_ms[name],
+                         library_ms=lib_ms, library_gather_ms=lib_gather_ms, max_abs_err=err,
+                         plain_bf16_err=err16, bar=bar, ref_max_abs=peak,
+                         **edge_cost(n_valid, B, Q, K, H, D, Dp, S, size=2)))
+        log(f"  edge_attn_core bf16[{name}] B={B} Q={Q} S={S} K={K} Dp={Dp} valid={n_valid}: "
+            f"err {err:.3e} (plain in bf16 {err16:.3e}; bar {bar:.3e}, the f32 aggregates' "
+            f"largest |value| {peak:.3e}); device ms: kernel {ms:.4f}, f32 "
+            f"kernel {f32_ms[name]:.4f}, plain {plain_ms:.4f}, sdpa bf16 {lib_ms:.4f} + gather "
+            f"{lib_gather_ms:.4f}, bound {bound_ms(rows[-1]):.4f}; wall ms: kernel {wall_ms:.4f}")
+    return rows
+
+
 def topk_cost(B, Q, S, K):
     """Bytes the top-K must move (positions and masks read once, idx and
     valid written once) and its operations (2 sub, 2 mul, 1 add per pair)."""
@@ -412,14 +514,16 @@ def topk_cost(B, Q, S, K):
             "ops": 5 * B * Q * S}
 
 
-def edge_cost(n_valid, B, Q, K, H, D, Dp, S):
+def edge_cost(n_valid, B, Q, K, H, D, Dp, S, size=4):
     """Bytes the edge core must move (per valid edge its idx and its z_r
     row; the mask; each scene's source table x_src_n once; the queries; the
-    outputs) and its operations (a multiply-add for the score and one for
-    the aggregate, per valid edge, head and dim)."""
-    return {"bytes": (n_valid * (4 + Dp * 4) + B * Q * K + B * S * D * 4
-                      + B * Q * H * (D + Dp) * 4 * 2 + B * Q * H * 4),
-            "ops": n_valid * 4 * H * (D + Dp)}
+    outputs; the values `size` bytes each, 4 in f32, 2 in bf16) and its
+    operations (a multiply-add for the score and one for the aggregate, per
+    valid edge, head and dim), at the f32 peak, or in bf16 at the bf16
+    tensor cores' (PERF.md's convention for a bf16 function)."""
+    return {"bytes": (n_valid * (4 + Dp * size) + B * Q * K + B * S * D * size
+                      + B * Q * H * (D + Dp) * size * 2 + B * Q * H * size),
+            "ops": n_valid * 4 * H * (D + Dp), "peak": F32_FLOPS if size == 4 else BF16_FLOPS}
 
 
 def flash_cost(token_mask, Hq, D, Hkv, dtype):
@@ -663,6 +767,7 @@ def check_fused(torch, model, batch):
         path_ms = device_ms(torch, lambda: fused_two_site_stack(
             x, *policy.fused_tables(scene, p.pos, p.ori, graphs), wa, wm, **kw), 5)
         cost = fused_cost(x, (ta, tm), (wa, wm), **kw)
+    ctx = dict(x=x, scene=scene, graphs=graphs, ta=ta, tm=tm, wa=wa, wm=wm)
     B, N, _ = x.shape
     n_valid = [int(t[3].sum()) for t in (ta, tm)]
     row = dict(site="policy", B=B, N=N, Ka=ta[1].shape[-1], Km=tm[1].shape[-1],
@@ -672,6 +777,67 @@ def check_fused(torch, model, batch):
         f"valid={n_valid}: err {err:.2e}, two launches bitwise equal; device ms: kernel "
         f"{ms:.4f}, plain {plain_ms:.4f}, tables + kernel {path_ms:.4f}, layer loop "
         f"{loop_ms:.4f}; wall ms: kernel {wall_ms:.4f}")
+    return [row], ctx
+
+
+def check_fused_bf16(torch, model16, batch, ctx, f32_row):
+    """B3's bf16 instantiation on check_fused's tables (the policy's real
+    a2p/m2p graphs and features), x and the source tokens rounded to bf16,
+    the weights of the same random layers packed in bf16 by the bf16 model.
+    The kernel's max error against the f32 plain version (f32 weights, the
+    same bf16-rounded x and sources) is at most BF16_RULE's 2x the bf16 plain
+    version's, plus 1e-5; two launches bitwise equal. Beside its time: the
+    f32 instantiation's (check_fused's) and the bf16 layer loop's."""
+    from prosim_torch.ops import _build
+    from prosim_torch.ops.fused_stack import fused_two_site_stack, fused_two_site_stack_plain
+
+    policy = model16.policy
+    p = batch.prompt
+    bf = torch.bfloat16
+    lib = _build.load("fused_stack")
+    dims = (policy.hidden_dim, policy.num_heads, policy.head_dim, policy.hidden_dim)
+    log(f"  fused_two_site_stack bf16: {lib.fused_stack_smem_bytes_bf16(*dims)} bytes of dynamic "
+        f"shared memory a block; blocks of 16 warps per SM: "
+        f"{lib.fused_stack_blocks_per_sm_bf16(*dims)}")
+    kw = dict(num_heads=policy.num_heads, head_dim=policy.head_dim)
+    with torch.inference_mode():
+        x = ctx["x"].to(bf)
+        t16 = [(t[0].to(bf),) + tuple(t[1:]) for t in (ctx["ta"], ctx["tm"])]
+        t32 = [(t[0].float(),) + t[1:] for t in t16]
+        wa, wm = policy.pack_fused()
+        if any(w.dtype != bf for w in wa + wm):
+            raise AssertionError("the bf16 model did not pack its fused weights in bf16")
+        out = fused_two_site_stack(x, *t16, wa, wm, **kw)
+        again = fused_two_site_stack(x, *t16, wa, wm, **kw)
+        torch.cuda.synchronize()
+        ref = fused_two_site_stack_plain(x.float(), *t32, ctx["wa"], ctx["wm"], **kw)
+        ref16 = fused_two_site_stack_plain(x, *t16, wa, wm, **kw)
+        err = float((out.float() - ref).abs().max())
+        err16 = float((ref16.float() - ref).abs().max())
+        peak = float(ref.abs().max())
+        del ref, ref16
+        bar = BF16_RULE[0] * err16 + BF16_RULE[1]
+        if not err <= bar:
+            raise AssertionError(f"fused_two_site_stack bf16: max abs err {err} > {bar} (plain "
+                                 f"in bf16 {err16})")
+        if out.dtype != bf or not bool(torch.isfinite(out).all()):
+            raise AssertionError("fused_two_site_stack bf16: output not bf16, or non-finite")
+        if not torch.equal(out, again):
+            raise AssertionError("fused_two_site_stack bf16: two launches on the same inputs differ")
+        ms, wall_ms = times(torch, lambda: fused_two_site_stack(x, *t16, wa, wm, **kw), 5)
+        plain_ms = device_ms(torch, lambda: fused_two_site_stack_plain(x, *t16, wa, wm, **kw), 3)
+        scene16 = ctx["scene"].replace(tokens=ctx["scene"].tokens.to(bf))
+        loop_ms = device_ms(torch, lambda: policy.layer_loop(
+            x, scene16, p.pos.to(bf), p.ori.to(bf), ctx["graphs"]), 5)
+        cost = fused_cost(x, t16, (wa, wm), **kw)
+    row = dict({k: f32_row[k] for k in ("site", "B", "N", "Ka", "Km", "valid_edges")}, ms=ms,
+               wall_ms=wall_ms, plain_ms=plain_ms, f32_ms=f32_row["ms"], library_ms=None,
+               layer_loop_ms=loop_ms, max_abs_err=err, plain_bf16_err=err16, bar=bar,
+               ref_max_abs=peak, **cost)
+    log(f"  fused_two_site_stack bf16[policy]: err {err:.3e} (plain in bf16 {err16:.3e}; bar "
+        f"{bar:.3e}, the f32 output's largest |value| {peak:.3e}), two launches bitwise equal; device ms: kernel {ms:.4f}, f32 kernel {f32_row['ms']:.4f}, "
+        f"plain {plain_ms:.4f}, bf16 layer loop {loop_ms:.4f}, bound {bound_ms(row):.4f}; "
+        f"wall ms: kernel {wall_ms:.4f}")
     return [row]
 
 
@@ -684,20 +850,22 @@ def fused_cost(x_p, tables, weights, num_heads, head_dim):
     layer to layer), the rel-PE expansion at 8 operations per column (the
     argument's multiply-add, one sin, the norm's sum, sum of squares and
     scaling); per query row and layer, the dense products' multiply-adds
-    (to_q, the two folds, to_g, to_s, to_out, the FFN)."""
+    (to_q, the two folds, to_g, to_s, to_out, the FFN). In bf16 the bytes
+    are at the bf16 sizes and the operations at the bf16 peak."""
     from prosim_torch.ops.fused_stack import _FIELDS
 
     B, N, D = x_p.shape
     H, I = num_heads, num_heads * head_dim
     L, P = weights[0][0].shape[0], weights[0][_FIELDS.index("wkvr")].shape[1]
+    es = x_p.element_size()  # x, the sources, the weights and the output; feats are f32
     dense = D * I + 2 * I * (D + P) + (I + D) * I + 2 * D * I + 8 * D * D
-    nbytes = 2 * B * N * D * 4 + 4 * sum(t.numel() for w in weights for t in w)
+    nbytes = 2 * B * N * D * es + es * sum(t.numel() for w in weights for t in w)
     ops = 0
     for x_src, idx, feats, valid in tables:
-        nbytes += 4 * (x_src.numel() + idx.numel() + feats.numel()) + valid.numel()
+        nbytes += es * x_src.numel() + 4 * (idx.numel() + feats.numel()) + valid.numel()
         n_valid = int(valid.sum())
         ops += L * n_valid * 4 * H * (D + P) + n_valid * 8 * P + 2 * L * B * N * dense
-    return {"bytes": nbytes, "ops": ops}
+    return {"bytes": nbytes, "ops": ops, "peak": F32_FLOPS if es == 4 else BF16_FLOPS}
 
 
 def _bound_s(cost):
@@ -742,7 +910,7 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
         out = fns["edge_attn_core"](x_src_n, idx, z_r, qx, qp, edge_valid, scale)
         B, S, D = x_src_n.shape
         Q, K = idx.shape[1:]
-        dims = (B, Q, K, qx.shape[2], D, z_r.shape[-1], S)
+        dims = (B, Q, K, qx.shape[2], D, z_r.shape[-1], S, x_src_n.element_size())
         calls["edge_attn_core"].append((edge_site[Q, K, z_r.shape[-1]], (edge_valid, dims)))
         return out
 
@@ -810,9 +978,14 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
             s["bound_ms"] += bound_ms(cost)
     busy = sum(by_fam.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # which instantiation of B2 and B3 ran: the template argument in the name
+    inst = {k: sorted({"bf16" if "__nv_bfloat16" in e.name else "f32"
+                       for e in device if KERNEL_NAMES[k] in e.name})
+            for k in ("edge_attn_core", "fused_two_site_stack")}
     return per_site, {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(device),
                       "families_ms": dict(sorted(by_fam.items(), key=lambda kv: -kv[1])),
-                      "top_kernels": [(n[:110], ms, count[n]) for n, ms in top]}
+                      "top_kernels": [(n[:110], ms, count[n]) for n, ms in top],
+                      "instantiations": inst}
 
 
 def text_parity(torch, model, small, plain, flash_plain):
@@ -1363,7 +1536,17 @@ def profile_train_step(torch, trainer, batch):
             "top_kernels": [(n[:110], ms, count[n]) for n, ms in top]}
 
 
+def check_instantiations(label, prof, dtype_tag):
+    """Every B2 and B3 launch of a profiled forward ran the instantiation of
+    the model's dtype (f32 or bf16): no upcast to reach the other one."""
+    bad = {k: v for k, v in prof["instantiations"].items() if v and v != [dtype_tag]}
+    if bad:
+        raise AssertionError(f"{label}: kernel instantiations {bad}, expected {dtype_tag} only")
+
+
 def main(argv):
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1388,6 +1571,12 @@ def main(argv):
     from prosim_torch.rollout.rollout import parallel_rollout
     from prosim_torch.utils.params import init_params
 
+    marks = [time.perf_counter()]
+
+    def phase_done(name):
+        marks.append(time.perf_counter())
+        log(f"== {name}: {marks[-1] - marks[-2]:.1f} s (total {marks[-1] - marks[0]:.1f} s)")
+
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1404,8 +1593,9 @@ def main(argv):
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(_build.SOURCES)})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
+    phase_done("phases 1-2, device and build")
 
     shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
     if "--train-only" in argv:
@@ -1439,6 +1629,7 @@ def main(argv):
                      condition_edge_mask(batch_t.conditions, cfg_text.PROMPT.CONDITION.TYPES,
                                          batch_t.prompt.mask), N, D)
     edge_rows = check_edge(torch, graphs, H, D, hd ** -0.5)
+    edge_rows16 = check_edge_bf16(torch, graphs, H, D, hd ** -0.5, edge_rows)
     del graphs
     llm_cfg = LlamaConfig.llama3_8b(lora_rank=ct_cfg.TEXT_ATTN.LORA.R)  # TEXT_OPTS' ARCH
     text_len = ct_cfg.CONDITION_ENCODER.TEXT.LLM.MAX_TEXT_TOKENS
@@ -1450,13 +1641,27 @@ def main(argv):
     # B4's backward at the same two shapes
     flash_bwd_rows = check_flash_bwd(torch, llm_cfg, B_FULL, text_len, AGENTS, "llama")
     flash_bwd_rows_f32 = check_flash_bwd(torch, llm_tiny, B_FULL, text_len, AGENTS, "tiny_f32")
+    # a head width that is not a multiple of 16 (the wrapper pads it), both
+    # dtypes, forward and backward, by the same gates
+    d40_rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(llm_tiny, hidden_size=320, num_heads=8, num_kv_heads=2, dtype=dt)
+        tag = "d40_" + ("bf16" if dt == torch.bfloat16 else "f32")
+        d40_rows += (check_flash(torch, c, 4, 64, 32, tag)
+                     + check_flash_bwd(torch, c, 4, 64, 32, tag))
     torch.cuda.empty_cache()
     model_f = ProSim(cfg_fused, device="cuda")
     init_params(model_f, seed=0)
     if not model_f.policy.uses_fused_stack():
         raise AssertionError("FUSED_STACK=True did not select the fused stack")
-    fused_rows = check_fused(torch, model_f, batch)
+    fused_rows, fused_ctx = check_fused(torch, model_f, batch)
+    # the same configuration and weights in bf16
+    model_f16 = ProSim(cfg_fused, device="cuda", dtype=torch.bfloat16)
+    init_params(model_f16, seed=0)
+    fused_rows16 = check_fused_bf16(torch, model_f16, batch, fused_ctx, fused_rows[0])
+    del fused_ctx
     torch.cuda.empty_cache()
+    phase_done("phase 3, kernels")
     if "--kernels-only" in argv:
         return 0
 
@@ -1473,6 +1678,22 @@ def main(argv):
     launches_f, times_f = run_rollout(torch, cfg_fused, model_f, batch, want_f, "fused")
     per_site_f, prof_f = profile_forward(torch, model_f, batch, topk_rows, edge_rows)
     log_profile("fused", per_site_f, prof_f)
+    for label, pr in (("layer loop", prof), ("fused", prof_f)):
+        check_instantiations(label, pr, "f32")
+    # the bf16 network body: the same two configurations and weights in bf16
+    # launch the same kernels as often, each in its bf16 instantiation
+    t16 = time.perf_counter()
+    model16 = ProSim(cfg, device="cuda", dtype=torch.bfloat16)
+    init_params(model16, seed=0)
+    launches16, times16 = run_rollout(torch, cfg, model16, batch, want, "layer loop bf16")
+    per_site16, prof16 = profile_forward(torch, model16, batch, topk_rows, edge_rows)
+    log_profile("layer loop bf16", per_site16, prof16)
+    launches_f16, times_f16 = run_rollout(torch, cfg_fused, model_f16, batch, want_f, "fused bf16")
+    per_site_f16, prof_f16 = profile_forward(torch, model_f16, batch, topk_rows, edge_rows)
+    log_profile("fused bf16", per_site_f16, prof_f16)
+    for label, pr in (("layer loop bf16", prof16), ("fused bf16", prof_f16)):
+        check_instantiations(label, pr, "bf16")
+    log(f"rollout[bf16]: both configurations in {time.perf_counter() - t16:.1f} s")
     t0 = time.perf_counter()
     model_t = ProSim(cfg_text, device="cuda")
     init_params(model_t, seed=0)
@@ -1490,6 +1711,7 @@ def main(argv):
     launches_t, times_t = run_rollout(torch, cfg_text, model_t, batch_t, want_t, "text")
     per_site_t, prof_t = profile_forward(torch, model_t, batch_t, topk_rows, edge_rows)
     log_profile("text", per_site_t, prof_t)
+    phase_done("phase 4, rollouts")
 
     # 5. kernel path against plain path, both on the card; fused against layer loop
     small = make_synthetic_batch(cfg, batch_size=2, num_lanes=LANES,
@@ -1507,16 +1729,52 @@ def main(argv):
             raise AssertionError(f"{what}: {err_m} m > {PARITY_TOL_M} m")
         return err_m
 
+    def bf16_parity(out, out_plain16, out_plain32, what, mask=m2):
+        """The bf16 kernel path's rollout sits no further from the f32 plain
+        rollout than 2x the bf16 plain rollout does, plus PARITY_TOL_M: over
+        the first replan step, before the random weights' drift compounds
+        (bf16 against f32 reaches metres by the last step, on both paths),
+        and over the whole rollout."""
+        def dev(a):  # max |dxy| from the f32 plain rollout, per replan step
+            d = (a["rollout_traj"] - out_plain32["rollout_traj"])[mask][..., :2].abs()
+            return [float(x) for x in d.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)]
+
+        if not bool(torch.isfinite(out["rollout_traj"][mask]).all()):
+            raise AssertionError(f"{what} bf16: rollout_traj has non-finite values")
+        dk, dp = dev(out), dev(out_plain16)
+        log(f"parity: B=2 rollout {what} bf16, max |dxy| from the f32 plain path per replan "
+            f"step: kernel path {['%.2e' % x for x in dk]} m, bf16 plain path "
+            f"{['%.2e' % x for x in dp]} m")
+        for span, k, p in (("first replan step", dk[0], dp[0]),
+                           ("rollout", max(dk), max(dp))):
+            if not k <= 2 * p + PARITY_TOL_M:
+                raise AssertionError(f"{what} bf16, {span}: the kernel path is {k} m from the "
+                                     f"f32 plain path, more than 2x the bf16 plain path's {p} "
+                                     f"+ {PARITY_TOL_M}")
+        return {"first_step_kernel_vs_f32_plain_m": dk[0],
+                "first_step_bf16_plain_vs_f32_plain_m": dp[0],
+                "kernel_vs_f32_plain_m": max(dk), "bf16_plain_vs_f32_plain_m": max(dp),
+                "per_step_kernel_m": dk, "per_step_bf16_plain_m": dp}
+
     plain = (neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain)
-    outs, parity = {}, {}
+    outs, parity, plain32 = {}, {}, {}
     for label, m in (("layer loop", model), ("fused", model_f)):
         outs[label] = m(small)
         before = launch_counts()
         with kernel_calls(*plain, causal_attention_plain):
-            out_plain = m(small)
+            out_plain = plain32[label] = m(small)
         if launch_counts() != before:
             raise AssertionError(f"{label}: the plain path launched a kernel")
         parity[label] = traj_err(outs[label], out_plain, f"[{label}] kernel path vs plain path")
+    for label, m in (("layer loop", model16), ("fused", model_f16)):
+        out16 = m(small)
+        before = launch_counts()
+        with kernel_calls(*plain, causal_attention_plain):
+            out_plain16 = m(small)
+        if launch_counts() != before:
+            raise AssertionError(f"{label} bf16: the plain path launched a kernel")
+        parity[f"{label} bf16"] = bf16_parity(out16, out_plain16, plain32[label], f"[{label}]")
+    del model16, model_f16, out16, out_plain16, plain32
     parity["fused vs layer loop"] = traj_err(outs["fused"], outs["layer loop"],
                                              "fused stack vs layer loop (kernel paths)")
     out_gpu = outs["layer loop"]
@@ -1554,6 +1812,32 @@ def main(argv):
     per_site_d, prof_d = profile_forward(torch, model_d, small_d, topk_rows, edge_rows)
     log_profile("demo B=2", per_site_d, prof_d)
     del model_d
+    # the shipped demo configuration built in bf16: conditions and text
+    # adapters in bf16, its tiny() Llama f32 as its LlamaConfig says
+    model_d16 = ProSim(cfg_demo, device="cuda", dtype=torch.bfloat16)
+    init_params(model_d16, seed=0)
+    text_attn = model_d16.condition_transformer_policy_decoder.text_attn
+    if text_attn.llm.cfg != llm_tiny or text_attn.ln_prompt.dtype != torch.bfloat16:
+        raise AssertionError("demo bf16: the Llama is not the f32 tiny() one, or the text "
+                             "adapters are not bf16")
+    model_d16(small_d)
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    out_d16 = model_d16(small_d)
+    torch.cuda.synchronize()
+    launches_d16 = launch_counts()
+    log(f"demo bf16 (shipped, f32 Llama): launches per B=2 forward {launches_d16} "
+        f"(expected {want_d})")
+    if launches_d16 != want_d:
+        raise AssertionError(f"demo bf16: kernel launches {launches_d16} != {want_d}")
+    before = launch_counts()
+    with kernel_calls(*plain, causal_attention_plain):
+        out_dp16 = model_d16(small_d)
+    if launch_counts() != before:
+        raise AssertionError("demo bf16: the plain path launched a kernel")
+    parity["demo bf16"] = bf16_parity(out_d16, out_dp16, out_dp, "[demo, f32 Llama]",
+                                      mask=small_d.prompt.mask)
+    del model_d16, out_d16, out_dp16
 
     # 6. M-replica rollout
     M = 4
@@ -1564,19 +1848,24 @@ def main(argv):
         f"max |replica - single| {rep_err:.3e}")
     if not rep_err <= PARITY_TOL_M:
         raise AssertionError(f"replicas differ from the single rollout by {rep_err}")
+    phase_done("phases 5-6, parity and replicas")
 
     # 7. training (configs/no_text.yaml), its main path counted on its own
     del model, model_f, out_gpu, outs
     torch.cuda.empty_cache()
     train = train_phase(torch, root, shape)
+    phase_done("phase 7, training")
 
     # 8. text training (configs/with_text.yaml), as shipped and at Llama3-8B width
     text_train = text_train_phases(torch, root, shape)
+    phase_done("phase 8, text training")
 
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
     by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
-               "demo (B=2)": launches_d, f"train ({train['steps']} steps)": train["launches"],
+               "demo (B=2)": launches_d, "layer loop bf16": launches16, "fused bf16": launches_f16,
+               "demo bf16 (B=2)": launches_d16,
+               f"train ({train['steps']} steps)": train["launches"],
                "train eval (B=2)": train["eval_launches"],
                **{f"text train {k} ({v['timed_steps']} steps)": v["launches"]
                   for k, v in text_train.items()}}
@@ -1594,6 +1883,16 @@ def main(argv):
                   "prosim_tpu/ops/fused_stack.py:260", fused_rows,
                   launches_f["fused_two_site_stack"], per_site_f["fused_two_site_stack"],
                   extra=("layer_loop_ms", "fused_path_ms")),
+        # the bf16 instantiations, read from the bf16 layer loop (B2) and the
+        # bf16 fused loop (B3); beside each, the f32 instantiation's ms
+        summarize("edge_attn_core_bf16", "cuda", "prosim_torch/csrc/edge_attn.cu",
+                  "prosim_tpu/ops/edge_attn.py:91", edge_rows16,
+                  launches16["edge_attn_core"], per_site16["edge_attn_core"],
+                  extra=("f32_ms", "library_gather_ms")),
+        summarize("fused_two_site_stack_bf16", "cuda", "prosim_torch/csrc/fused_stack.cu",
+                  "prosim_tpu/ops/fused_stack.py:260", fused_rows16,
+                  launches_f16["fused_two_site_stack"], per_site_f16["fused_two_site_stack"],
+                  extra=("f32_ms", "layer_loop_ms")),
         summarize("causal_attention", "cuda", "prosim_torch/csrc/flash_attn.cu",
                   "prosim_tpu/models/llm/llama.py:134", flash_rows,
                   launches_t["causal_attention"], per_site_t["causal_attention"]),
@@ -1616,12 +1915,16 @@ def main(argv):
         k["replaces_also"] = FLASH_BWD_REPLACES[1]
     # B4's one launch count covers both instantiations: bf16 in the text
     # configuration, f32 in the shipped demo one
-    paths = {"causal_attention": ("layer loop", "fused", "text", bwd_path["llama3_8b"]),
+    f32_paths = [p for p in by_path if "bf16" not in p]
+    bf16_paths = ("layer loop bf16", "fused bf16", "demo bf16 (B=2)")
+    paths = {"edge_attn_core": f32_paths, "fused_two_site_stack": f32_paths,
+             "edge_attn_core_bf16": bf16_paths, "fused_two_site_stack_bf16": bf16_paths,
+             "causal_attention": ("layer loop", "fused", "text", bwd_path["llama3_8b"]),
              "causal_attention_f32": ("demo (B=2)", bwd_path["as_shipped"]),
              "causal_attention_bwd": (bwd_path["llama3_8b"],),
              "causal_attention_bwd_f32": (bwd_path["as_shipped"],)}
     for k in kernels:
-        wrapper = k["name"].removesuffix("_f32")
+        wrapper = k["name"].removesuffix("_f32").removesuffix("_bf16")
         k["launches_per_path"] = {p: by_path[p][wrapper] for p in paths.get(k["name"], by_path)}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_kernels.json"), "w") as f:
@@ -1632,7 +1935,14 @@ def main(argv):
                                          "profile": prof_f, "per_site": per_site_f},
                                "text": {"scenes_per_s": B_FULL / times_t[1], "forward_s": times_t,
                                         "profile": prof_t, "per_site": per_site_t},
-                               "demo (B=2)": {"profile": prof_d, "per_site": per_site_d}},
+                               "demo (B=2)": {"profile": prof_d, "per_site": per_site_d},
+                               "layer loop bf16": {"scenes_per_s": B_FULL / times16[1],
+                                                   "forward_s": times16, "profile": prof16,
+                                                   "per_site": per_site16},
+                               "fused bf16": {"scenes_per_s": B_FULL / times_f16[1],
+                                              "forward_s": times_f16, "profile": prof_f16,
+                                              "per_site": per_site_f16}},
+                   "flash_d40": d40_rows,
                    "parity_m": parity, "train": train, "text_train": text_train,
                    "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))

@@ -49,10 +49,25 @@
 //    reach every lane through shared memory (float4 broadcasts), and the
 //    lanes, owning columns again, accumulate the weighted rows of the tile.
 //  * No atomics: results are bitwise reproducible from launch to launch.
+//
+// Two instantiations, over the storage type T of x_src_n, z_r, qx, qp and
+// the outputs: float (edge_attn_launch) and __nv_bfloat16
+// (edge_attn_launch_bf16), the TPU kernel's model dtype. idx, valid, the
+// softmax statistics and every accumulator keep their types (f32 for the
+// arithmetic). In bf16 the ring stages bf16 rows (half the bytes a tile,
+// 16-byte copies of 8 values where D and Dp are multiples of 8), a lane
+// reads its 4 columns as 8 bytes, and the values round where the TPU kernel
+// rounds them (prosim_tpu/ops/edge_attn.py:57-78): the scaled score once,
+// each output once. The TPU kernel also rounds exp(s - max) to bf16 against
+// the row's global max; an online softmax only knows the running max, so
+// the weights and the statistics stay f32 here (the plain version, which
+// has the global max, rounds them, and the card's gate holds the kernel to
+// it by the 2x rule). At the demo shapes the bf16 byte bound is about half
+// the f32 one, and the operations, still f32 on the CUDA cores, are as many.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "edge_common.cuh"
 
 namespace {
 
@@ -99,34 +114,10 @@ __device__ __forceinline__ void team_sync(int team) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(kTeamThreads) : "memory");
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// Waits until at most N of this thread's newest copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 struct Shapes {
   int Q, S, K, H, D, Dp;
   int Dx, Cs;  // staged row: x at [0, D), z_r at [Dx, Dx + Dp); Dx = D and Cs = Dx + Dp
-               // rounded up to 4, the padding zero
+               // rounded up to 16 bytes (4 floats, 8 bf16), the padding zero
   int ring;    // floats of both teams' rings, at least the merge state's
   float scale;
   bool vec;    // D and Dp multiples of 4 and the tables 16-byte aligned: 16-byte copies
@@ -134,44 +125,44 @@ struct Shapes {
 
 // Stage the x and z_r rows of list entries [e0, e0 + n) into `st`, edges
 // hh, hh + 2, ... by warp hh of the team, and zero the rows n..kTile-1 (a
-// partial tile is computed in full; its extra edges get no weight).
-__device__ __forceinline__ void stage_tile(float* st, const float* __restrict__ xs_b,
-                                           const float* __restrict__ zr_row,
+// partial tile is computed in full; its extra edges get no weight). Rows go
+// by 16-byte copies (s.vec), else value by value.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* st, const T* __restrict__ xs_b,
+                                           const T* __restrict__ zr_row,
                                            const int* lk, const int* ls, int e0, int n,
                                            const Shapes& s, int hh, int lane) {
+  constexpr int per16 = 16 / sizeof(T);  // values of T in a 16-byte copy
   for (int e = hh; e < n; e += 2) {
-    const float* xrow = xs_b + (size_t)ls[e0 + e] * s.D;
-    const float* zrow = zr_row + (size_t)lk[e0 + e] * s.Dp;
-    float* dst = st + e * s.Cs;
+    const T* xrow = xs_b + (size_t)ls[e0 + e] * s.D;
+    const T* zrow = zr_row + (size_t)lk[e0 + e] * s.Dp;
+    T* dst = st + e * s.Cs;
     if (s.vec) {
-      if (4 * lane < s.D) cp_async16(dst + 4 * lane, xrow + 4 * lane);
-      if (4 * lane < s.Dp) cp_async16(dst + s.Dx + 4 * lane, zrow + 4 * lane);
+      if (per16 * lane < s.D) cp_async16(dst + per16 * lane, xrow + per16 * lane);
+      if (per16 * lane < s.Dp) cp_async16(dst + s.Dx + per16 * lane, zrow + per16 * lane);
     } else {
-      for (int c = lane; c < s.D; c += 32) cp_async4(dst + c, xrow + c);
-      for (int c = lane; c < s.Dp; c += 32) cp_async4(dst + s.Dx + c, zrow + c);
+      for (int c = lane; c < s.D; c += 32) copy_value(dst + c, xrow + c);
+      for (int c = lane; c < s.Dp; c += 32) copy_value(dst + s.Dx + c, zrow + c);
     }
   }
   cp_async_commit();
-  for (int i = 32 * hh + lane; i < (kTile - n) * s.Cs; i += kTeamThreads) st[n * s.Cs + i] = 0.f;
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+  for (int i = 32 * hh + lane; i < (kTile - n) * s.Cs; i += kTeamThreads)
+    st[n * s.Cs + i] = from_f<T>(0.f);
 }
 
 // Block layout of the dynamic shared memory (floats / ints):
-//   stage[2 teams][kStages][kTile][Cs] in `ring` floats (after the edge
-//                                        loop: the merge state, kMergeFloats)
+//   stage[2 teams][kStages][kTile][Cs] values of T in `ring` floats (after
+//                                        the edge loop: the merge state, kMergeFloats)
 //   list_k[2 teams][kListCap], list_s[2 teams][kListCap], count[2 teams]
 //   wsm[kWarps][kTile][kHH], csm[kWarps][kHH]
 // Lane l owns the columns 4l..4l+3 of both tables: q[i][0..3] and acc[i][0..3]
 // for x, q[i][4..7] and acc[i][4..7] for z_r, i the warp's head.
-template <bool kBlockRow>
+template <typename T, bool kBlockRow>
 __global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
-    const float* __restrict__ xs, const int* __restrict__ idx,
-    const float* __restrict__ zr, const float* __restrict__ qx,
-    const float* __restrict__ qp, const unsigned char* __restrict__ valid,
-    float* __restrict__ aggx, float* __restrict__ aggz, float* __restrict__ asum,
+    const T* __restrict__ xs, const int* __restrict__ idx,
+    const T* __restrict__ zr, const T* __restrict__ qx,
+    const T* __restrict__ qp, const unsigned char* __restrict__ valid,
+    T* __restrict__ aggx, T* __restrict__ aggz, T* __restrict__ asum,
     int rows, Shapes s) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
@@ -181,15 +172,15 @@ __global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
   const size_t row = kBlockRow ? blockIdx.x : (size_t)blockIdx.x * 2 + team;
   if (!kBlockRow && row >= (size_t)rows) return;  // the whole team leaves
 
-  const int stage_floats = kStages * kTile * s.Cs;
-  float* stage = smem + team * stage_floats;
+  const int stage_floats = kStages * kTile * s.Cs;  // values of T
+  T* stage = reinterpret_cast<T*>(smem) + team * stage_floats;
   int* list_k = reinterpret_cast<int*>(smem + s.ring) + team * kListCap;
   int* list_s = reinterpret_cast<int*>(smem + s.ring) + (2 + team) * kListCap;
   int* count = reinterpret_cast<int*>(smem + s.ring) + 4 * kListCap;
   float* wsm = smem + s.ring + 4 * kListCap + 4 + warp * (kTile * kHH + kHH);
   float* csm = wsm + kTile * kHH;
   // the padding columns are never copied into: zero the ring once
-  for (int i = 32 * hh + lane; i < stage_floats; i += kTeamThreads) stage[i] = 0.f;
+  for (int i = 32 * hh + lane; i < stage_floats; i += kTeamThreads) stage[i] = from_f<T>(0.f);
 
   const int HH = (s.H + 1) >> 1;
   const int h0 = hh * HH;
@@ -205,8 +196,8 @@ __global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
     const size_t qrow = row * s.H + h0 + i;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      q[i][t] = (i < nh && c0 + t < D) ? qx[qrow * D + c0 + t] : 0.f;
-      q[i][4 + t] = (i < nh && c0 + t < Dp) ? qp[qrow * Dp + c0 + t] : 0.f;
+      q[i][t] = (i < nh && c0 + t < D) ? to_f(qx[qrow * D + c0 + t]) : 0.f;
+      q[i][4 + t] = (i < nh && c0 + t < Dp) ? to_f(qp[qrow * Dp + c0 + t]) : 0.f;
     }
 #pragma unroll
     for (int t = 0; t < 8; ++t) acc[i][t] = 0.f;
@@ -215,8 +206,8 @@ __global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
   float l = 0.f;
 
   const size_t b = row / s.Q;
-  const float* xs_b = xs + b * s.S * D;
-  const float* zr_row = zr + row * K * Dp;
+  const T* xs_b = xs + b * s.S * D;
+  const T* zr_row = zr + row * K * Dp;
   const int* idx_row = idx + row * K;
   const unsigned char* v_row = valid + row * K;
   const int nteams = kBlockRow ? 2 : 1;
@@ -273,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
       else
         cp_async_commit();
       if (nh == 0) continue;  // warp-uniform: a warp without heads only stages
-      const float* st = stage + (t % kStages) * kTile * s.Cs;
+      const T* st = stage + (t % kStages) * kTile * s.Cs;
       const int nt = min(kTile, n - t * kTile);
       float p[kTile * kHH];
 #pragma unroll
@@ -295,7 +286,8 @@ __global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
       // lane l now scores edge l / kHH for head l % kHH; the 8 lanes of a
       // head (lane % kHH) run its online softmax over the tile together
       const float sum = reduce_scatter32(p, lane);
-      const float sc = (lane >> 2) < nt ? sum * s.scale : -INFINITY;
+      // the score rounds through T once, as the TPU kernel's sim
+      const float sc = (lane >> 2) < nt ? round_to<T>(sum * s.scale) : -INFINITY;
       float mt = sc;  // edge 0 is valid: finite
 #pragma unroll
       for (int w = 4; w < 32; w <<= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, w));
@@ -372,15 +364,17 @@ __global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel(
       const size_t orow = row * s.H + h0 + i;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        if (c0 + t < D) aggx[orow * D + c0 + t] = inv_ok ? acc[i][t] / L : 0.f;
-        if (c0 + t < Dp) aggz[orow * Dp + c0 + t] = inv_ok ? acc[i][4 + t] / L : 0.f;
+        if (c0 + t < D) aggx[orow * D + c0 + t] = from_f<T>(inv_ok ? acc[i][t] / L : 0.f);
+        if (c0 + t < Dp) aggz[orow * Dp + c0 + t] = from_f<T>(inv_ok ? acc[i][4 + t] / L : 0.f);
       }
-      if (lane == 0) asum[orow] = inv_ok ? 1.f : 0.f;
+      if (lane == 0) asum[orow] = from_f<T>(inv_ok ? 1.f : 0.f);
     }
   }
 }
 
+template <typename T>
 Shapes make_shapes(int Q, int S, int K, int H, int D, int Dp, float scale) {
+  constexpr int per16 = 16 / sizeof(T);  // values of T in 16 bytes
   Shapes s;
   s.Q = Q;
   s.S = S;
@@ -388,9 +382,9 @@ Shapes make_shapes(int Q, int S, int K, int H, int D, int Dp, float scale) {
   s.H = H;
   s.D = D;
   s.Dp = Dp;
-  s.Dx = (D + 3) & ~3;
-  s.Cs = s.Dx + ((Dp + 3) & ~3);
-  s.ring = 2 * kStages * kTile * s.Cs;
+  s.Dx = (D + per16 - 1) / per16 * per16;
+  s.Cs = s.Dx + (Dp + per16 - 1) / per16 * per16;
+  s.ring = (2 * kStages * kTile * s.Cs * (int)sizeof(T) + 3) / 4;
   if (s.ring < kMergeFloats) s.ring = kMergeFloats;
   s.scale = scale;
   s.vec = false;
@@ -401,49 +395,84 @@ size_t smem_bytes(const Shapes& s) {
   return sizeof(float) * ((size_t)s.ring + 4 * kListCap + 4 + kWarps * (kTile * kHH + kHH));
 }
 
+template <typename T>
+int launch(const T* xs, const int* idx, const T* zr, const T* qx, const T* qp,
+           const unsigned char* valid, T* aggx, T* aggz, T* asum, int B, int Q, int S, int K,
+           int H, int D, int Dp, float scale, void* stream) {
+  if (H < 1 || H > kMaxH || D < 1 || Dp < 1 || D > 128 || Dp > 128 || K < 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * Q;
+  if (rows == 0) return 0;
+  constexpr int per16 = 16 / sizeof(T);
+  Shapes s = make_shapes<T>(Q, S, K, H, D, Dp, scale);
+  s.vec = (D % per16 == 0) && (Dp % per16 == 0) &&
+          ((reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(zr)) & 15) == 0;
+  const size_t smem = smem_bytes(s);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(edge_attn_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    cudaFuncSetAttribute(edge_attn_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  if (K <= kShortK)
+    edge_attn_kernel<T, false><<<(rows + 1) / 2, kThreads, smem, st>>>(
+        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
+  else
+    edge_attn_kernel<T, true><<<rows, kThreads, smem, st>>>(
+        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int blocks_per_sm(int block_row, int D, int Dp) {
+  const size_t smem = smem_bytes(make_shapes<T>(1, 1, 1, 1, D, Dp, 1.f));
+  int n = 0;
+  cudaError_t err = block_row
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel<T, true>, kThreads,
+                                                      smem)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel<T, false>, kThreads,
+                                                      smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 }  // namespace
 
+// The f32 instantiation; edge_attn_launch_bf16 takes the same arguments with
+// xs, zr, qx, qp and the outputs in bf16.
 extern "C" int edge_attn_launch(const float* xs, const int* idx, const float* zr,
                                 const float* qx, const float* qp,
                                 const unsigned char* valid, float* aggx, float* aggz,
                                 float* asum, int B, int Q, int S, int K, int H, int D,
                                 int Dp, float scale, void* stream) {
-  if (H < 1 || H > kMaxH || D < 1 || Dp < 1 || D > 128 || Dp > 128 || K < 0)
-    return (int)cudaErrorInvalidValue;
-  const int rows = B * Q;
-  if (rows == 0) return 0;
-  Shapes s = make_shapes(Q, S, K, H, D, Dp, scale);
-  s.vec = (D % 4 == 0) && (Dp % 4 == 0) &&
-          ((reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(zr)) & 15) == 0;
-  const size_t smem = smem_bytes(s);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(edge_attn_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    cudaFuncSetAttribute(edge_attn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
-  if (K <= kShortK)
-    edge_attn_kernel<false><<<(rows + 1) / 2, kThreads, smem, st>>>(
-        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
-  else
-    edge_attn_kernel<true><<<rows, kThreads, smem, st>>>(
-        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
-  return (int)cudaGetLastError();
+  return launch<float>(xs, idx, zr, qx, qp, valid, aggx, aggz, asum, B, Q, S, K, H, D, Dp, scale,
+                       stream);
+}
+
+extern "C" int edge_attn_launch_bf16(const bf16* xs, const int* idx, const bf16* zr,
+                                     const bf16* qx, const bf16* qp,
+                                     const unsigned char* valid, bf16* aggx, bf16* aggz,
+                                     bf16* asum, int B, int Q, int S, int K, int H, int D,
+                                     int Dp, float scale, void* stream) {
+  return launch<bf16>(xs, idx, zr, qx, qp, valid, aggx, aggz, asum, B, Q, S, K, H, D, Dp, scale,
+                      stream);
 }
 
 // For the record of occupancy: the dynamic shared memory of a block at these
 // widths, and the resident blocks of four warps per SM of the short-row
-// (block_row 0) or long-row (1) instantiation.
+// (block_row 0) or long-row (1) instantiation; bf16 != 0 for the bf16 one.
 extern "C" int edge_attn_smem_bytes(int D, int Dp) {
-  return (int)smem_bytes(make_shapes(1, 1, 1, 1, D, Dp, 1.f));
+  return (int)smem_bytes(make_shapes<float>(1, 1, 1, 1, D, Dp, 1.f));
+}
+
+extern "C" int edge_attn_smem_bytes_bf16(int D, int Dp) {
+  return (int)smem_bytes(make_shapes<bf16>(1, 1, 1, 1, D, Dp, 1.f));
 }
 
 extern "C" int edge_attn_blocks_per_sm(int block_row, int D, int Dp) {
-  const size_t smem = smem_bytes(make_shapes(1, 1, 1, 1, D, Dp, 1.f));
-  int n = 0;
-  cudaError_t err = block_row
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel<true>, kThreads, smem)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel<false>, kThreads, smem);
-  return err == cudaSuccess ? n : -(int)err;
+  return blocks_per_sm<float>(block_row, D, Dp);
+}
+
+extern "C" int edge_attn_blocks_per_sm_bf16(int block_row, int D, int Dp) {
+  return blocks_per_sm<bf16>(block_row, D, Dp);
 }

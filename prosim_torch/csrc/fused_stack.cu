@@ -70,15 +70,33 @@
 //    13.4 MB at the demo width) serves the whole tile.
 //  * No atomics; every sum runs in a fixed order, so results are bitwise
 //    reproducible, whatever the row order.
-// Helpers copied from csrc/edge_attn.cu (a shared header would change that
-// source): reduce_half / reduce_scatter32 (the transpose reduction),
-// team_sync, the cp.async wrappers, stage_tile, lds4 (its lines 72-160),
-// and the compaction and the tile loop of edge_attn_kernel (its lines
-// 226-333).
+// The cp.async wrappers, lds4 and the storage-type conversions (to_f /
+// from_f / round_to) come from csrc/edge_common.cuh, which edge_attn.cu
+// includes too. Copied from csrc/edge_attn.cu and fitted to this block's
+// layout: reduce_half / reduce_scatter32 (the transpose reduction),
+// team_sync, stage_tile, and the compaction and the tile loop of
+// edge_attn_kernel.
+//
+// Two instantiations, over the storage type T of x, the source tokens, the
+// packed weights, the rel-PE scratch table and the output: float
+// (fused_stack_launch) and __nv_bfloat16 (fused_stack_launch_bf16), the TPU
+// kernel's model dtype; the raw rel-PE features stay f32, and so does every
+// sum and the rows' state in shared memory. In bf16 the values round to
+// bf16 at the TPU kernel's cast points (prosim_tpu/ops/fused_stack.py:
+// 141-226), each once: the rel-PE's sine and its normalized row (stored in
+// bf16), each LayerNorm's normalized row, its product with the scale and
+// the sum with the bias (and the residual sum), q, the aggregate, the gate,
+// s, the gated update's difference, product and sum, out, the FFN's hidden
+// layer and output. The TPU kernel also rounds each edge's k|v, its
+// products with q and the attention weights; with k|v folded onto the
+// queries those values do not exist here, so the folded queries, the
+// scores, the weights and the aggregates stay f32 (the card's gate holds
+// the kernel to the plain version, which rounds them, by the 2x rule). The
+// ring stages bf16 rows, half the bytes a tile.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "edge_common.cuh"
 
 namespace {
 
@@ -104,20 +122,22 @@ enum Field { GD, BD, WQ, BQ, WKV, WKVR, BKV, WG, BG, WS, BS2, WO, BO,
              PNG, PNB, F1G, F1B, W0, B0, W1, B1, F2G, F2B };
 enum Act { kNone, kRelu, kSigmoid };
 
+template <typename T>
 struct Site {
-  const float* src;            // [B, S, D] parameter-free-normalized source tokens
+  const T* src;                // [B, S, D] parameter-free-normalized source tokens
   const int* idx;              // [B, N, K]
   const float* feats;          // [B, N, K, F] raw rel-PE features
   const unsigned char* valid;  // [B, N, K]
-  float* z;                    // [B, N, K, Pz] scratch: the normalized rel-PE
-  const float* w[kFields];     // packed fields, each stacked over L
+  T* z;                        // [B, N, K, Pz] scratch: the normalized rel-PE
+  const T* w[kFields];         // packed fields, each stacked over L
   int S, K;
 };
 
 struct Dims {
   int R, N, L, D, H, hd, I, F, P;  // R = B N query rows
-  int Pz;    // z row stride: P rounded up to 4
-  bool vec;  // D % 4 == 0 and src 16-byte aligned: x rows by 16-byte copies
+  int Pz;    // z row stride: P rounded up to 16 bytes (4 floats, 8 bf16)
+  int tb;    // bytes of the storage type
+  bool vec;  // D a multiple of 16 bytes and src 16-byte aligned: x rows by 16-byte copies
   float scale;
 };
 
@@ -148,7 +168,7 @@ __host__ __device__ inline Layout layout(const Dims& d) {
   o.big = at;   at += up4(kRows * o.ldb);             // [kRows][ldb]
   o.qa = at;    at += up4(kRows * d.H * (d.D + d.P)); // [kRows][H][D + P]
   o.red = at;   at += kThreads * kRows;               // rowmat's split sums
-  o.total = imax(at, o.ring + kTeams * kStages * kTile * kCs);
+  o.total = imax(at, o.ring + (kTeams * kStages * kTile * kCs * d.tb + 3) / 4);
   return o;
 }
 
@@ -166,7 +186,8 @@ __device__ __forceinline__ int field_size(int f, const Dims& d) {
   }
 }
 
-__device__ __forceinline__ const float* weight(const Site& s, int f, int l, const Dims& d) {
+template <typename T>
+__device__ __forceinline__ const T* weight(const Site<T>& s, int f, int l, const Dims& d) {
   return s.w[f] + (size_t)l * field_size(f, d);
 }
 
@@ -178,9 +199,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Parameter-free LayerNorm of one row of n <= 128 values, run by one warp
 // (flax statistics: mean, then the fast variance max(E[x^2] - mean^2, 0),
-// eps 1e-5), then the affine: out = (residual ? out : 0) + norm * g + b.
-__device__ void warp_norm(const float* in, float* out, int n, const float* __restrict__ g,
-                          const float* __restrict__ b, bool residual, int lane) {
+// eps 1e-5), then the affine: out = (residual ? out : 0) + norm * g + b,
+// each step rounded through T.
+template <typename T>
+__device__ void warp_norm(const float* in, float* out, int n, const T* __restrict__ g,
+                          const T* __restrict__ b, bool residual, int lane) {
   float v[kMaxJ];
   float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -198,8 +221,9 @@ __device__ void warp_norm(const float* in, float* out, int n, const float* __res
   for (int j = 0; j < kMaxJ; ++j) {
     const int c = lane + 32 * j;
     if (c < n) {
-      const float y = (v[j] - mu) * r * g[c];
-      out[c] = residual ? (out[c] + y) + b[c] : y + b[c];
+      const float y = round_to<T>(round_to<T>((v[j] - mu) * r) * to_f(g[c]));
+      out[c] = residual ? round_to<T>(round_to<T>(out[c] + y) + to_f(b[c]))
+                        : round_to<T>(y + to_f(b[c]));
     }
   }
 }
@@ -210,6 +234,20 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// The TPU kernel's casts around a product: a plain one rounds, then its
+// bias is added and the sum rounds (`_dot(.).astype(dt) + b`); an activated
+// one adds its bias in f32 and rounds after the activation; one without a
+// bias (the value fold, which its caller rounds) stays f32.
+template <typename T>
+__device__ __forceinline__ float epilogue(float acc, float bj, bool has_bias, int act) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    return activate(acc + bj, act);
+  } else {
+    if (act != kNone) return round_to<T>(activate(acc + bj, act));
+    return has_bias ? round_to<T>(round_to<T>(acc) + bj) : acc;
+  }
+}
+
 // out[t][j] = act(bias[j] + sum_k in_j[t][k] W[k][j]) for the block's kRows
 // rows t and j < Nd. W's Kd = k1 + k2 rows are w1's k1 rows, then w2's k2
 // rows, both with leading dimension ldw. in_j[t] = in + t * ldi + (j / hd) *
@@ -217,10 +255,12 @@ __device__ __forceinline__ float activate(float v, int act) {
 // aggregates of its head. One output column per thread and all kRows rows
 // at once, so each weight is read once per block; when Nd < kThreads the
 // K range is split across thread groups, whose partial sums are added in a
-// fixed order. bias may be null. Ends with __syncthreads().
-__device__ void rowmat(const float* in, int ldi, int ldh, int hd, const float* __restrict__ w1,
-                       int k1, const float* __restrict__ w2, int k2, int ldw, int Nd,
-                       const float* __restrict__ bias, int act, float* out, int ldo, float* red) {
+// fixed order. bias may be null. The results are rounded through T as
+// `epilogue` says. Ends with __syncthreads().
+template <typename T>
+__device__ void rowmat(const float* in, int ldi, int ldh, int hd, const T* __restrict__ w1,
+                       int k1, const T* __restrict__ w2, int k2, int ldw, int Nd,
+                       const T* __restrict__ bias, int act, float* out, int ldo, float* red) {
   const int tid = threadIdx.x;
   const int Kd = k1 + k2;
   const int split = Nd >= kThreads ? 1 : kThreads / Nd;
@@ -235,19 +275,20 @@ __device__ void rowmat(const float* in, int ldi, int ldh, int hd, const float* _
 #pragma unroll
       for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
       for (int k = k0; k < min(kend, k1); ++k) {
-        const float w = w1[(size_t)k * ldw + j];
+        const float w = to_f(w1[(size_t)k * ldw + j]);
 #pragma unroll
         for (int t = 0; t < kRows; ++t) acc[t] = fmaf(inj[t * ldi + k], w, acc[t]);
       }
       for (int k = max(k0, k1); k < kend; ++k) {
-        const float w = w2[(size_t)(k - k1) * ldw + j];
+        const float w = to_f(w2[(size_t)(k - k1) * ldw + j]);
 #pragma unroll
         for (int t = 0; t < kRows; ++t) acc[t] = fmaf(inj[t * ldi + k], w, acc[t]);
       }
       if (split == 1) {
-        const float bj = bias ? bias[j] : 0.f;
+        const float bj = bias ? to_f(bias[j]) : 0.f;
 #pragma unroll
-        for (int t = 0; t < kRows; ++t) out[t * ldo + j] = activate(acc[t] + bj, act);
+        for (int t = 0; t < kRows; ++t)
+          out[t * ldo + j] = epilogue<T>(acc[t], bj, bias != nullptr, act);
       } else {
 #pragma unroll
         for (int t = 0; t < kRows; ++t) red[(part * kRows + t) * Nd + j] = acc[t];
@@ -260,7 +301,7 @@ __device__ void rowmat(const float* in, int ldi, int ldh, int hd, const float* _
       const int t = i / Nd, j = i - t * Nd;
       float s = 0.f;
       for (int p = 0; p < split; ++p) s += red[(p * kRows + t) * Nd + j];
-      out[t * ldo + j] = activate(s + (bias ? bias[j] : 0.f), act);
+      out[t * ldo + j] = epilogue<T>(s, bias ? to_f(bias[j]) : 0.f, bias != nullptr, act);
     }
   }
   __syncthreads();
@@ -269,19 +310,20 @@ __device__ void rowmat(const float* in, int ldi, int ldh, int hd, const float* _
 // Folds each row's query onto the source and rel-PE columns, per head:
 // qa[t][h][c] = sum_{e < hd} W[c][h hd + e] q[t][h hd + e], with W = wkv
 // (its k half) for c < D and W = wkvr for D <= c < D + P. One (column, head)
-// per thread for all rows: the thread reads its weights as float4
-// (hd % 4 == 0), and the queries are shared-memory broadcasts.
-__device__ void fold_queries(const float* q, int ldq, const float* __restrict__ wkv,
-                             const float* __restrict__ wkvr, float* qa, const Dims& d) {
+// per thread for all rows: the thread reads its weights 4 at a time
+// (hd % 4 == 0), and the queries are shared-memory broadcasts. f32 out.
+template <typename T>
+__device__ void fold_queries(const float* q, int ldq, const T* __restrict__ wkv,
+                             const T* __restrict__ wkvr, float* qa, const Dims& d) {
   const int C = d.D + d.P;
   for (int it = threadIdx.x; it < C * d.H; it += kThreads) {
     const int h = it / C, c = it - h * C;
-    const float* wrow = c < d.D ? wkv + (size_t)c * 2 * d.I : wkvr + (size_t)(c - d.D) * 2 * d.I;
+    const T* wrow = c < d.D ? wkv + (size_t)c * 2 * d.I : wkvr + (size_t)(c - d.D) * 2 * d.I;
     float acc[kRows];
 #pragma unroll
     for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
     for (int i = h * d.hd; i < (h + 1) * d.hd; i += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(wrow + i);
+      const float4 w = lds4(wrow + i);
 #pragma unroll
       for (int t = 0; t < kRows; ++t) {
         const float* qt = q + t * ldq + i;
@@ -296,8 +338,10 @@ __device__ void fold_queries(const float* q, int ldq, const float* __restrict__ 
 // Writes the normalized rel-PE row of every valid edge of the block's rows
 // (rowid) at one site into s.z (the padding columns P..Pz zero), one warp
 // per edge, lane l holding the columns l + 32 j. Each warp takes chunks of
-// 32 edges of a row; an invalid edge is skipped.
-__device__ void expand_pe(const Site& s, const int* rowid, const Dims& d,
+// 32 edges of a row; an invalid edge is skipped. The sines round through T
+// before the statistics, and the row rounds once as it is stored.
+template <typename T>
+__device__ void expand_pe(const Site<T>& s, const int* rowid, const Dims& d,
                           const float* __restrict__ fc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int P = d.P, F = d.F, K = s.K;
@@ -327,7 +371,7 @@ __device__ void expand_pe(const Site& s, const int* rowid, const Dims& d,
     const bool ok = e < K && s.valid[rg * K + e] != 0;
     const float* f_row = s.feats + rg * K * F;
     if (ok) asm volatile("prefetch.global.L1 [%0];" ::"l"(f_row + (size_t)e * F));
-    float* z_row = s.z + rg * K * d.Pz;
+    T* z_row = s.z + rg * K * d.Pz;
     for (unsigned bal = __ballot_sync(kFull, ok); bal; bal &= bal - 1) {
       const int k = c0 + __ffs(bal) - 1;
       const float* fe = f_row + (size_t)k * F;
@@ -345,7 +389,7 @@ __device__ void expand_pe(const Site& s, const int* rowid, const Dims& d,
         if (j > 0 && ((twins >> j) & 1u) && fe[fi[j]] == fe[fi[j > 0 ? j - 1 : 0]])
           z = v[j > 0 ? j - 1 : 0];
         else if (lane + 32 * j < P)
-          z = sinf(__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j]));
+          z = round_to<T>(sinf(__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j])));
         v[j] = z;
         sum += z;
         ss = fmaf(z, z, ss);
@@ -354,11 +398,11 @@ __device__ void expand_pe(const Site& s, const int* rowid, const Dims& d,
       ss = warp_sum(ss);
       const float mu = sum / P;
       const float r = rsqrtf(fmaxf(ss / P - mu * mu, 0.f) + 1e-5f);
-      float* zr = z_row + (size_t)k * d.Pz;
+      T* zr = z_row + (size_t)k * d.Pz;
 #pragma unroll
       for (int j = 0; j < kMaxJ; ++j) {
         const int c = lane + 32 * j;
-        if (c < d.Pz) zr[c] = c < P ? (v[j] - mu) * r : 0.f;
+        if (c < d.Pz) zr[c] = from_f<T>(c < P ? (v[j] - mu) * r : 0.f);
       }
     }
   }
@@ -394,57 +438,34 @@ __device__ __forceinline__ void team_sync(int team) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(kTeamThreads) : "memory");
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// Waits until at most N of this thread's newest copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // Stage the x and z rows of list entries [e0, e0 + n) into `st`, edges hh,
 // hh + 2, ... by warp hh of the team, and zero the rows n..kTile-1 (a
-// partial tile is computed in full; its extra edges get no weight). The
-// ring aliases other buffers, so x's padding columns D..up4(D) are zeroed
-// too; z's come zero from the table. Columns past those are never read.
-__device__ __forceinline__ void stage_tile(float* st, const float* __restrict__ xs_b,
-                                           const float* __restrict__ z_row, const int* lk,
+// partial tile is computed in full; its extra edges get no weight). x rows
+// go by 16-byte copies (d.vec), else value by value; z rows (of Pz values,
+// a multiple of 16 bytes) by 16-byte copies. The ring aliases other
+// buffers, so x's padding columns D..up4(D) are zeroed too; z's come zero
+// from the table. Columns past those are never read.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* st, const T* __restrict__ xs_b,
+                                           const T* __restrict__ z_row, const int* lk,
                                            const int* ls, int e0, int n, const Dims& d, int hh,
                                            int lane) {
+  constexpr int per16 = 16 / sizeof(T);  // values of T in a 16-byte copy
   for (int e = hh; e < n; e += 2) {
-    const float* xrow = xs_b + (size_t)ls[e0 + e] * d.D;
-    const float* zrow = z_row + (size_t)lk[e0 + e] * d.Pz;
-    float* dst = st + e * kCs;
+    const T* xrow = xs_b + (size_t)ls[e0 + e] * d.D;
+    const T* zrow = z_row + (size_t)lk[e0 + e] * d.Pz;
+    T* dst = st + e * kCs;
     if (d.vec) {
-      if (4 * lane < d.D) cp_async16(dst + 4 * lane, xrow + 4 * lane);
+      if (per16 * lane < d.D) cp_async16(dst + per16 * lane, xrow + per16 * lane);
     } else {
-      for (int c = lane; c < d.D; c += 32) cp_async4(dst + c, xrow + c);
-      if (d.D + lane < up4(d.D)) dst[d.D + lane] = 0.f;
+      for (int c = lane; c < d.D; c += 32) copy_value(dst + c, xrow + c);
+      if (d.D + lane < up4(d.D)) dst[d.D + lane] = from_f<T>(0.f);
     }
-    if (4 * lane < d.Pz) cp_async16(dst + kDx + 4 * lane, zrow + 4 * lane);
+    if (per16 * lane < d.Pz) cp_async16(dst + kDx + per16 * lane, zrow + per16 * lane);
   }
   cp_async_commit();
-  for (int i = 32 * hh + lane; i < (kTile - n) * kCs; i += kTeamThreads) st[n * kCs + i] = 0.f;
+  for (int i = 32 * hh + lane; i < (kTile - n) * kCs; i += kTeamThreads)
+    st[n * kCs + i] = from_f<T>(0.f);
 }
 
 // The edges of one site and layer: team t runs row rowid[t]. On entry qa
@@ -452,7 +473,8 @@ __device__ __forceinline__ void stage_tile(float* st, const float* __restrict__ 
 // aggregates sum_k a_k [x_g[k] | z[k]] over the row's valid edges (a the
 // masked softmax), and any[t] = 1 if row t has a valid edge. Starts and
 // ends with __syncthreads().
-__device__ __forceinline__ void edge_phase(const Site& s, const int* rowid, const Dims& d,
+template <typename T>
+__device__ __forceinline__ void edge_phase(const Site<T>& s, const int* rowid, const Dims& d,
                                            const Layout& o, float* sm) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -485,16 +507,16 @@ __device__ __forceinline__ void edge_phase(const Site& s, const int* rowid, cons
   __syncthreads();  // every query is in registers: the rings may overwrite qa
 
   if (row >= 0) {
-    const int stage_floats = kStages * kTile * kCs;
-    float* stage = sm + o.ring + team * stage_floats;
+    const int stage_floats = kStages * kTile * kCs;  // values of T
+    T* stage = reinterpret_cast<T*>(sm + o.ring) + team * stage_floats;
     int* list_k = reinterpret_cast<int*>(sm + o.list) + 2 * team * kListCap;
     int* list_s = list_k + kListCap;
     int* count = reinterpret_cast<int*>(sm + o.count);
     float* wsm = sm + o.wsm + warp * (kTile * kHH + kHH);
     float* csm = wsm + kTile * kHH;
     const size_t rg = row;
-    const float* xs_b = s.src + (size_t)(row / d.N) * s.S * D;
-    const float* z_row = s.z + rg * K * d.Pz;
+    const T* xs_b = s.src + (size_t)(row / d.N) * s.S * D;
+    const T* z_row = s.z + rg * K * d.Pz;
     const int* idx_row = s.idx + rg * K;
     const unsigned char* v_row = s.valid + rg * K;
 
@@ -547,7 +569,7 @@ __device__ __forceinline__ void edge_phase(const Site& s, const int* rowid, cons
         else
           cp_async_commit();
         if (nh == 0) continue;  // warp-uniform: a warp without heads only stages
-        const float* st = stage + (t % kStages) * kTile * kCs;
+        const T* st = stage + (t % kStages) * kTile * kCs;
         const int nt = min(kTile, n - t * kTile);
         float p[kTile * kHH];
 #pragma unroll
@@ -627,8 +649,9 @@ __device__ __forceinline__ void edge_phase(const Site& s, const int* rowid, cons
 }
 
 // One GatedNeighborAttention layer of one site on the block's rows.
-__device__ void site_layer(const Site& s, int l, const int* rowid, const Dims& d, const Layout& o,
-                           float* sm) {
+template <typename T>
+__device__ void site_layer(const Site<T>& s, int l, const int* rowid, const Dims& d,
+                           const Layout& o, float* sm) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D = d.D, I = d.I, P = d.P, C = D + P, ldc = I + D, ldv = o.ldv, ldb = o.ldb;
   float *xs = sm + o.xs, *cat = sm + o.cat, *vec = sm + o.vec, *big = sm + o.big;
@@ -639,30 +662,31 @@ __device__ void site_layer(const Site& s, int l, const int* rowid, const Dims& d
   if (warp < kRows) warp_norm(xs + warp * D, cat + warp * ldc + I, D, W(GD), W(BD), false, lane);
   __syncthreads();
   // q = xn Wq + bq, folded onto the source and rel-PE columns per head
-  rowmat(cat + I, ldc, 0, 1, W(WQ), D, nullptr, 0, I, I, W(BQ), kNone, vec, ldv, red);
+  rowmat<T>(cat + I, ldc, 0, 1, W(WQ), D, nullptr, 0, I, I, W(BQ), kNone, vec, ldv, red);
   fold_queries(vec, ldv, W(WKV), W(WKVR), qa, d);
   __syncthreads();
   // the edges: per-head aggregates over [x_g | z] into qa
   edge_phase(s, rowid, d, o, sm);
   // agg = the aggregates through the v halves of wkv / wkvr, + bkv_v * any
-  rowmat(qa, d.H * C, C, d.hd, W(WKV) + I, D, W(WKVR) + I, P, 2 * I, I, nullptr, kNone,
-         cat, ldc, red);
-  const float* bkv = W(BKV);
+  rowmat<T>(qa, d.H * C, C, d.hd, W(WKV) + I, D, W(WKVR) + I, P, 2 * I, I, nullptr, kNone,
+            cat, ldc, red);
+  const T* bkv = W(BKV);
   for (int i = threadIdx.x; i < kRows * I; i += kThreads) {
     const int t = i / I, j = i - t * I;
-    cat[t * ldc + j] += bkv[I + j] * any[t];
+    cat[t * ldc + j] = round_to<T>(cat[t * ldc + j] + to_f(bkv[I + j]) * any[t]);
   }
   __syncthreads();
   // gate g = sigmoid(to_g [agg, xn]) and s = to_s(xn), then the gated update
-  rowmat(cat, ldc, 0, 1, W(WG), I + D, nullptr, 0, I, I, W(BG), kSigmoid, big, ldb, red);
-  rowmat(cat + I, ldc, 0, 1, W(WS), D, nullptr, 0, I, I, W(BS2), kNone, big + I, ldb, red);
+  rowmat<T>(cat, ldc, 0, 1, W(WG), I + D, nullptr, 0, I, I, W(BG), kSigmoid, big, ldb, red);
+  rowmat<T>(cat + I, ldc, 0, 1, W(WS), D, nullptr, 0, I, I, W(BS2), kNone, big + I, ldb, red);
   for (int i = threadIdx.x; i < kRows * I; i += kThreads) {
     const int t = i / I, j = i - t * I;
     const float agg = cat[t * ldc + j];
-    vec[t * ldv + j] = agg + big[t * ldb + j] * (big[t * ldb + I + j] - agg);
+    vec[t * ldv + j] =
+        round_to<T>(agg + round_to<T>(big[t * ldb + j] * round_to<T>(big[t * ldb + I + j] - agg)));
   }
   __syncthreads();
-  rowmat(vec, ldv, 0, 1, W(WO), I, nullptr, 0, D, D, W(BO), kNone, big, ldb, red);
+  rowmat<T>(vec, ldv, 0, 1, W(WO), I, nullptr, 0, D, D, W(BO), kNone, big, ldb, red);
   // x += LN_post(out); ff_in = LN_ff(x) (warp t owns row t in both)
   if (warp < kRows) {
     warp_norm(big + warp * ldb, xs + warp * D, D, W(PNG), W(PNB), true, lane);
@@ -671,8 +695,8 @@ __device__ void site_layer(const Site& s, int l, const int* rowid, const Dims& d
   }
   __syncthreads();
   // FFN, then x += LN_ffpost(ff)
-  rowmat(vec, ldv, 0, 1, W(W0), D, nullptr, 0, 4 * D, 4 * D, W(B0), kRelu, big, ldb, red);
-  rowmat(big, ldb, 0, 1, W(W1), 4 * D, nullptr, 0, D, D, W(B1), kNone, vec, ldv, red);
+  rowmat<T>(vec, ldv, 0, 1, W(W0), D, nullptr, 0, 4 * D, 4 * D, W(B0), kRelu, big, ldb, red);
+  rowmat<T>(big, ldb, 0, 1, W(W1), 4 * D, nullptr, 0, D, D, W(B1), kNone, vec, ldv, red);
   if (warp < kRows)
     warp_norm(vec + warp * ldv, xs + warp * D, D, W(F2G), W(F2B), true, lane);
   __syncthreads();
@@ -681,9 +705,11 @@ __device__ void site_layer(const Site& s, int l, const int* rowid, const Dims& d
 // Block i runs the query rows order[8 i .. 8 i + 7] (b N + n, a permutation
 // of the B N rows). o = layout(d), computed on the host: its offsets are
 // read from the parameter bank and hold no registers.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) fused_stack_kernel(
-    const float* __restrict__ x_in, float* __restrict__ x_out, const int* __restrict__ order,
-    const Site a, const Site mp, const float* __restrict__ fc, const Dims d, const Layout o) {
+    const T* __restrict__ x_in, T* __restrict__ x_out, const int* __restrict__ order,
+    const Site<T> a, const Site<T> mp, const float* __restrict__ fc, const Dims d,
+    const Layout o) {
   extern __shared__ __align__(16) float sm[];
   const int D = d.D;
   int* rowid = reinterpret_cast<int*>(sm + o.rowid);
@@ -697,7 +723,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_kernel(
   expand_pe(mp, rowid, d, fc);
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int g = rowid[i / D];
-    sm[o.xs + i] = g >= 0 ? x_in[(size_t)g * D + i % D] : 0.f;
+    sm[o.xs + i] = g >= 0 ? to_f(x_in[(size_t)g * D + i % D]) : 0.f;
   }
   __syncthreads();  // the block's z rows are written before any layer reads them
   for (int l = 0; l < d.L; ++l) {
@@ -706,25 +732,28 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_kernel(
   }
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int g = rowid[i / D];
-    if (g >= 0) x_out[(size_t)g * D + i % D] = sm[o.xs + i];
+    if (g >= 0) x_out[(size_t)g * D + i % D] = from_f<T>(sm[o.xs + i]);
   }
 }
 
-Site make_site(const float* src, const int* idx, const float* feats, const unsigned char* valid,
-               float* z, const void* const* w, int S, int K) {
-  Site s;
+template <typename T>
+Site<T> make_site(const T* src, const int* idx, const float* feats, const unsigned char* valid,
+                  T* z, const void* const* w, int S, int K) {
+  Site<T> s;
   s.src = src;
   s.idx = idx;
   s.feats = feats;
   s.valid = valid;
   s.z = z;
-  for (int f = 0; f < kFields; ++f) s.w[f] = static_cast<const float*>(w[f]);
+  for (int f = 0; f < kFields; ++f) s.w[f] = static_cast<const T*>(w[f]);
   s.S = S;
   s.K = K;
   return s;
 }
 
+template <typename T>
 Dims make_dims(int R, int N, int L, int D, int H, int hd, int F, int P, float scale) {
+  constexpr int per16 = 16 / sizeof(T);  // values of T in 16 bytes
   Dims d{};
   d.R = R;
   d.N = N;
@@ -735,7 +764,8 @@ Dims make_dims(int R, int N, int L, int D, int H, int hd, int F, int P, float sc
   d.I = H * hd;
   d.F = F;
   d.P = P;
-  d.Pz = up4(P);
+  d.Pz = (P + per16 - 1) / per16 * per16;
+  d.tb = sizeof(T);
   d.vec = false;
   d.scale = scale;
   return d;
@@ -743,14 +773,60 @@ Dims make_dims(int R, int N, int L, int D, int H, int hd, int F, int P, float sc
 
 size_t smem_bytes(const Dims& d) { return sizeof(float) * (size_t)layout(d).total; }
 
+template <typename T>
+int launch(const T* x, T* out, const int* order, const T* src_a, const int* idx_a,
+           const float* feats_a, const unsigned char* valid_a, const T* src_m, const int* idx_m,
+           const float* feats_m, const unsigned char* valid_m, T* z_a, T* z_m,
+           const void* const* w_a, const void* const* w_m, const float* fconst, int B, int N,
+           int Sa, int Ka, int Sm, int Km, int L, int D, int H, int hd, int F, int P, float scale,
+           void* stream) {
+  const int I = H * hd;
+  if (B < 1 || N < 1 || H < 1 || H > kMaxH || hd < 4 || hd % 4 != 0 || I > 32 * kMaxJ ||
+      D < 1 || D > 32 * kMaxJ || P < 1 || P > 32 * kMaxJ || F < 1 || P % F != 0 || Ka < 0 ||
+      Km < 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr int per16 = 16 / sizeof(T);
+  Dims d = make_dims<T>(B * N, N, L, D, H, hd, F, P, scale);
+  d.vec = D % per16 == 0 &&
+          ((reinterpret_cast<uintptr_t>(src_a) | reinterpret_cast<uintptr_t>(src_m)) & 15) == 0;
+  const Site<T> a = make_site<T>(src_a, idx_a, feats_a, valid_a, z_a, w_a, Sa, Ka);
+  const Site<T> m = make_site<T>(src_m, idx_m, feats_m, valid_m, z_m, w_m, Sm, Km);
+  const size_t smem = smem_bytes(d);
+  static size_t smem_allowed = 48 * 1024;  // one per instantiation
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  const int blocks = (B * N + kRows - 1) / kRows;
+  fused_stack_kernel<T><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(x, out, order, a, m,
+                                                                          fconst, d, layout(d));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int blocks_per_sm(int D, int H, int hd, int P) {
+  const size_t smem = smem_bytes(make_dims<T>(1, 1, 1, D, H, hd, 1, P, 1.f));
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(fused_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_stack_kernel<T>, kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 }  // namespace
 
 // order [B N] int32: the query rows (b N + n) in the order the blocks take
 // them, 8 a block (any permutation; the result does not depend on it).
 // w_a, w_m: host arrays of the kFields device pointers of each site's packed
-// fields. z_a, z_m: scratch [B, N, K, round_up(P, 4)] f32 of each site, no
-// initial contents needed. fconst [2][P]: the Fourier frequency and phase
-// of each rel-PE column.
+// fields. z_a, z_m: scratch [B, N, K, Pz] of each site (Pz: P rounded up to
+// 16 bytes), no initial contents needed. fconst [2][P]: the Fourier
+// frequency and phase of each rel-PE column. The f32 instantiation;
+// fused_stack_launch_bf16 takes the same arguments with x, out, the sources,
+// the scratch tables and the packed fields in bf16.
 extern "C" int fused_stack_launch(
     const float* x, float* out, const int* order,
     const float* src_a, const int* idx_a, const float* feats_a, const unsigned char* valid_a,
@@ -758,43 +834,38 @@ extern "C" int fused_stack_launch(
     float* z_a, float* z_m, const void* const* w_a, const void* const* w_m, const float* fconst,
     int B, int N, int Sa, int Ka, int Sm, int Km, int L, int D, int H, int hd, int F, int P,
     float scale, void* stream) {
-  const int I = H * hd;
-  if (B < 1 || N < 1 || H < 1 || H > kMaxH || hd < 4 || hd % 4 != 0 || I > 32 * kMaxJ ||
-      D < 1 || D > 32 * kMaxJ || P < 1 || P > 32 * kMaxJ || F < 1 || P % F != 0 || Ka < 0 ||
-      Km < 0)
-    return (int)cudaErrorInvalidValue;
-  Dims d = make_dims(B * N, N, L, D, H, hd, F, P, scale);
-  d.vec = D % 4 == 0 &&
-          ((reinterpret_cast<uintptr_t>(src_a) | reinterpret_cast<uintptr_t>(src_m)) & 15) == 0;
-  const Site a = make_site(src_a, idx_a, feats_a, valid_a, z_a, w_a, Sa, Ka);
-  const Site m = make_site(src_m, idx_m, feats_m, valid_m, z_m, w_m, Sm, Km);
-  const size_t smem = smem_bytes(d);
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
-  }
-  const int blocks = (B * N + kRows - 1) / kRows;
-  fused_stack_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(x, out, order, a, m, fconst,
-                                                                         d, layout(d));
-  return (int)cudaGetLastError();
+  return launch<float>(x, out, order, src_a, idx_a, feats_a, valid_a, src_m, idx_m, feats_m,
+                       valid_m, z_a, z_m, w_a, w_m, fconst, B, N, Sa, Ka, Sm, Km, L, D, H, hd, F,
+                       P, scale, stream);
+}
+
+extern "C" int fused_stack_launch_bf16(
+    const bf16* x, bf16* out, const int* order,
+    const bf16* src_a, const int* idx_a, const float* feats_a, const unsigned char* valid_a,
+    const bf16* src_m, const int* idx_m, const float* feats_m, const unsigned char* valid_m,
+    bf16* z_a, bf16* z_m, const void* const* w_a, const void* const* w_m, const float* fconst,
+    int B, int N, int Sa, int Ka, int Sm, int Km, int L, int D, int H, int hd, int F, int P,
+    float scale, void* stream) {
+  return launch<bf16>(x, out, order, src_a, idx_a, feats_a, valid_a, src_m, idx_m, feats_m,
+                      valid_m, z_a, z_m, w_a, w_m, fconst, B, N, Sa, Ka, Sm, Km, L, D, H, hd, F,
+                      P, scale, stream);
 }
 
 // For the record of occupancy: the dynamic shared memory of a block at these
-// widths, and the resident blocks of kThreads threads per SM.
+// widths, and the resident blocks of kThreads threads per SM, of each
+// instantiation.
 extern "C" int fused_stack_smem_bytes(int D, int H, int hd, int P) {
-  return (int)smem_bytes(make_dims(1, 1, 1, D, H, hd, 1, P, 1.f));
+  return (int)smem_bytes(make_dims<float>(1, 1, 1, D, H, hd, 1, P, 1.f));
+}
+
+extern "C" int fused_stack_smem_bytes_bf16(int D, int H, int hd, int P) {
+  return (int)smem_bytes(make_dims<bf16>(1, 1, 1, D, H, hd, 1, P, 1.f));
 }
 
 extern "C" int fused_stack_blocks_per_sm(int D, int H, int hd, int P) {
-  const size_t smem = smem_bytes(make_dims(1, 1, 1, D, H, hd, 1, P, 1.f));
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(fused_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  int n = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_stack_kernel, kThreads, smem);
-  return err == cudaSuccess ? n : -(int)err;
+  return blocks_per_sm<float>(D, H, hd, P);
+}
+
+extern "C" int fused_stack_blocks_per_sm_bf16(int D, int H, int hd, int P) {
+  return blocks_per_sm<bf16>(D, H, hd, P);
 }

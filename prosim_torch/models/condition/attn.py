@@ -13,7 +13,8 @@ Several conditions may hit one cell, and a CUDA scatter-add sums with
 atomics in an order that changes from run to run, so here each type's
 matrix is a product of one-hot matrices ([B, C, N] per index, the dropped
 index N giving a zero row): deterministic, and exact wherever one
-condition hits a cell.
+condition hits a cell. The edge matrix and the layers are in `dtype`, as
+the JAX module's (its pooled mean rounds once to `dtype`).
 """
 
 from typing import Dict
@@ -61,16 +62,17 @@ def condition_edge_mask(conditions: Dict[str, Condition], cond_types, prompt_mas
 
 class GNNConditionAttn(nn.Module):
     def __init__(self, hidden_dim: int, num_layers: int, num_heads: int, head_dim: int,
-                 pool: str = "mean", dropout: float = 0.0):
+                 pool: str = "mean", dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if pool not in ("mean", "max"):
             raise ValueError(f"unknown condition pool '{pool}'")
         self.num_layers = num_layers
         self.pool = pool
-        self.rel_pe = RelPE(hidden_dim, learnable_pe=False, fold_dup=False)
+        self.dtype = dtype
+        self.rel_pe = RelPE(hidden_dim, learnable_pe=False, fold_dup=False, dtype=dtype)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", GatedNeighborAttention(
-                hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout))
+                hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout, dtype=dtype))
 
     def forward(self, cond_embs: Dict[str, torch.Tensor], conditions: Dict[str, Condition],
                 prompt_emb, prompt: Prompt, deterministic: bool = True, generator=None):
@@ -79,10 +81,12 @@ class GNNConditionAttn(nn.Module):
         B, N, D = prompt_emb.shape
         if not cond_embs:
             return prompt_emb
+        dt = self.dtype
         acc = None    # sum (mean pool) or running max (max pool) over types
         n_hit = 0.0   # types hitting each cell
         for ctype, emb in sorted(cond_embs.items()):
             s, t, hits = _cell_hits(conditions[ctype], N)
+            s, t = s.to(dt), (None if t is None else t.to(dt))
             if t is None:
                 attr = torch.einsum("bci,bcj,bcd->bijd", s, s, emb[..., :D])
             else:
@@ -96,7 +100,7 @@ class GNNConditionAttn(nn.Module):
                 acc = attr if acc is None else torch.maximum(acc, attr)
             n_hit = n_hit + hit.float()
         if self.pool == "mean":
-            pooled = acc / n_hit.clamp_min(1)[..., None]
+            pooled = (acc / n_hit.clamp_min(1)[..., None]).to(dt)
         else:
             pooled = torch.where((n_hit > 0)[..., None], acc, 0.0)
         edge_mask = condition_edge_mask(conditions, cond_embs, prompt.mask)

@@ -7,6 +7,9 @@ of prosim_tpu/models/condition/encoders.py).
   drag_point   - PointNet over route-sketch points (NaN padded)
 
 Every condition keeps its fixed slot; a tag's vector is gathered by tag id.
+Each encoder computes in `dtype`: the MLPs and PointNet as ops/mlp.py's
+layers, the tag vectors and the f32 Fourier PE cast to `dtype` before they
+are added (prosim_tpu/models/condition/encoders.py:41-43, :62-68).
 """
 
 import torch
@@ -19,28 +22,32 @@ from prosim_torch.ops.pointnet import PointNetPolylineEncoder
 
 
 class GoalConditionEncoder(nn.Module):
-    def __init__(self, hidden_dim: int, use_temporal_pe: bool = True):
+    def __init__(self, hidden_dim: int, use_temporal_pe: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_temporal_pe = use_temporal_pe
+        self.dtype = dtype
         self.goal_encoder = MLP([2, hidden_dim, hidden_dim], ret_before_act=True,
-                                without_norm=True)
+                                without_norm=True, dtype=dtype)
         self.pe = FourierEmbeddingFix(num_pos_feats=hidden_dim)
 
     def forward(self, cond: Condition):
         """cond.feat [B, C, 3] = (rel x, rel y, valid timestep) -> [B, C, D]."""
         emd = self.goal_encoder(cond.feat[..., :2])
         if self.use_temporal_pe:
-            emd = emd + self.pe(cond.feat[..., 2:3])
+            emd = emd + self.pe(cond.feat[..., 2:3]).to(self.dtype)
         return emd
 
 
 class _TagEncoder(nn.Module):
     binary = False
 
-    def __init__(self, hidden_dim: int, num_tags: int, use_temporal_pe: bool = True):
+    def __init__(self, hidden_dim: int, num_tags: int, use_temporal_pe: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_tags = num_tags
         self.use_temporal_pe = use_temporal_pe
+        self.dtype = dtype
         self.tag_params = nn.Parameter(
             torch.empty((num_tags, hidden_dim * 2 if self.binary else hidden_dim)))
         self.pe = FourierEmbeddingFix(num_pos_feats=hidden_dim // 2)
@@ -48,12 +55,12 @@ class _TagEncoder(nn.Module):
     def forward(self, cond: Condition):
         """cond.feat [B, C, 3] = (tag id, start t, end t) -> [B, C, D or 2D]."""
         tag_id = cond.feat[..., 0].to(torch.int32).clamp(0, self.num_tags - 1)
-        emd = self.tag_params[tag_id.long()]
+        emd = self.tag_params[tag_id.long()].to(self.dtype)
         if self.use_temporal_pe:
             pe = self.pe(cond.feat[..., 1:3])
             if self.binary:
                 pe = pe.repeat(1, 1, 2)
-            emd = emd + pe
+            emd = emd + pe.to(self.dtype)
         return emd
 
 
@@ -67,10 +74,11 @@ class V2VTagEncoder(_TagEncoder):
 
 class DragPointEncoder(nn.Module):
     def __init__(self, hidden_dim: int, num_points: int = 8, num_pre_layers: int = 1,
-                 num_mlp_layers: int = 3):
+                 num_mlp_layers: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_points = num_points
-        self.pointnet = PointNetPolylineEncoder(2, hidden_dim, num_pre_layers, num_mlp_layers)
+        self.pointnet = PointNetPolylineEncoder(2, hidden_dim, num_pre_layers, num_mlp_layers,
+                                                dtype)
 
     def forward(self, cond: Condition):
         """cond.feat [B, C, P*2] route-sketch points (NaN padded) -> [B, C, D]."""

@@ -1,6 +1,7 @@
 """Light text attentions (port of prosim_tpu/models/condition/text.py):
 the identity, and a bag-of-tokens conditioner. Each maps
-(text_cond, prompt_cond_emb [B, N, D], prompt) -> (emb', aux or None)."""
+(text_cond, prompt_cond_emb [B, N, D], prompt) -> (emb', aux or None).
+The bag-of-tokens conditioner computes in `dtype`."""
 
 import torch
 from torch import nn
@@ -21,17 +22,19 @@ class BagOfTokensTextAttn(nn.Module):
     one residual for every addressed agent. Inputs are [B, X, L] token
     arrays (X texts per scene)."""
 
-    def __init__(self, hidden_dim: int, vocab_size: int = 128256):
+    def __init__(self, hidden_dim: int, vocab_size: int = 128256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
+        self.dtype = dtype
         self.tok_embed = nn.Embedding(vocab_size, hidden_dim)
-        self.to_cond = MLP([hidden_dim, hidden_dim, hidden_dim], ret_before_act=True)
+        self.to_cond = MLP([hidden_dim, hidden_dim, hidden_dim], ret_before_act=True, dtype=dtype)
 
     def forward(self, text_cond, prompt_cond_emb, prompt: Prompt):
         ids = text_cond["input_ids"]            # [B, X, L]
         tok_mask = text_cond["token_mask"]      # [B, X, L]
         agent_cover = text_cond["prompt_mask"]  # [B, N]
-        emb = self.tok_embed(ids.long().clamp(0, self.vocab_size - 1))
+        emb = self.tok_embed(ids.long().clamp(0, self.vocab_size - 1)).to(self.dtype)
         emb = torch.where(tok_mask[..., None], emb, 0.0)
         denom = tok_mask.sum(dim=-1, keepdim=True).clamp_min(1)
         text_vec = emb.sum(dim=-2) / denom      # [B, X, D]

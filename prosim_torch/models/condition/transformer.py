@@ -10,11 +10,14 @@ deterministic=False the GNN's layers drop out at
 MODEL.CONDITION_TRANSFORMER.DROPOUT; the text attention has no dropout, as
 in the JAX package. ProSim calls the transformer deterministic in training
 too, the JAX package's quirk (ROADMAP.md C), and its text branch trains
-through the Llama's LoRA leaves and the text adapters.
+through the Llama's LoRA leaves and the text adapters. `dtype` goes to
+every encoder, the GNN and the text attention; the Llama keeps the dtype
+of its LlamaConfig, as in the JAX package.
 """
 
 from typing import Dict
 
+import torch
 from torch import nn
 
 from prosim_torch.data.batch import Prompt
@@ -38,36 +41,36 @@ class ConditionTransformer(nn.Module):
                  text_prompt_mask_pred: bool = True, replace_agent_token: bool = True,
                  agent_token_mode: str = "none", use_prompt_token: bool = True,
                  drag_num_points: int = 8, drag_pre_layers: int = 1, drag_mlp_layers: int = 3,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cond_types = tuple(cond_types)
         self.text_types = tuple(text_types)
         for t in self.cond_types:
             if t == "goal":
-                enc = GoalConditionEncoder(hidden_dim, use_temporal_pe)
+                enc = GoalConditionEncoder(hidden_dim, use_temporal_pe, dtype)
             elif t == "v_action_tag":
                 # the bank is indexed by the full enum's tag value, so the id
                 # space stays stable under USED_TAGS subsets
-                enc = VActionTagEncoder(hidden_dim, len(VActionTag), use_temporal_pe)
+                enc = VActionTagEncoder(hidden_dim, len(VActionTag), use_temporal_pe, dtype)
             elif t == "v2v_tag":
-                enc = V2VTagEncoder(hidden_dim, len(V2VTag), use_temporal_pe)
+                enc = V2VTagEncoder(hidden_dim, len(V2VTag), use_temporal_pe, dtype)
             elif t == "drag_point":
                 enc = DragPointEncoder(hidden_dim, drag_num_points, drag_pre_layers,
-                                       drag_mlp_layers)
+                                       drag_mlp_layers, dtype)
             else:
                 raise KeyError(f"unknown condition type '{t}'")
             self.add_module(f"encoders_{t}", enc)
         if self.cond_types:
             self.cond_attn = GNNConditionAttn(hidden_dim, num_layers, num_heads, head_dim, pool,
-                                              dropout)
+                                              dropout, dtype)
         if self.text_types:
             if text_attn_type == "llama":
                 self.text_attn = LlamaTextAttn(
                     hidden_dim, llm_config, replace_agent_token=replace_agent_token,
                     agent_token_mode=agent_token_mode, use_prompt_token=use_prompt_token,
-                    prompt_mask_pred=text_prompt_mask_pred)
+                    prompt_mask_pred=text_prompt_mask_pred, dtype=dtype)
             elif text_attn_type == "bow":
-                self.text_attn = BagOfTokensTextAttn(hidden_dim)
+                self.text_attn = BagOfTokensTextAttn(hidden_dim, dtype=dtype)
             else:
                 self.text_attn = NoTextAttn()
 
@@ -95,7 +98,7 @@ def _resolve_llm_config(arch: str, weights_path: str, lora_rank: int) -> LlamaCo
     return LlamaConfig.llama3_8b(lora_rank=lora_rank)
 
 
-def build_condition_transformer(config) -> ConditionTransformer:
+def build_condition_transformer(config, dtype=torch.float32) -> ConditionTransformer:
     ct = config.MODEL.CONDITION_TRANSFORMER
     llm = ct.CONDITION_ENCODER.TEXT.LLM
     types = list(config.PROMPT.CONDITION.TYPES)
@@ -128,4 +131,5 @@ def build_condition_transformer(config) -> ConditionTransformer:
         drag_pre_layers=ct.CONDITION_ENCODER.DRAG_POINTS.NUM_PRE_LAYERS,
         drag_mlp_layers=ct.CONDITION_ENCODER.DRAG_POINTS.NUM_MLP_LAYERS,
         dropout=ct.DROPOUT,
+        dtype=dtype,
     )

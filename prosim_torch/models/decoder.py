@@ -3,7 +3,8 @@
 Per layer, prompts self-attend over neighboring prompts (p2p, no
 self-loops) then cross-attend to nearby scene tokens (s2p), with rel-PE;
 optional K-way goal heads. With deterministic=False (training) the
-attention layers drop out at MODEL.DECODER.ATTN.DROPOUT.
+attention layers drop out at MODEL.DECODER.ATTN.DROPOUT. The layers and
+heads compute in `dtype`; positions and graphs stay f32.
 """
 
 import torch
@@ -24,7 +25,7 @@ from prosim_torch.ops.neighbors import neighbor_topk
 class SymCoordDecoder(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  prompt_radius, scene_radius, edge_func, learnable_pe,
-                 pe_num_freq, goal_pred=False, goal_k=32, dropout=0.0):
+                 pe_num_freq, goal_pred=False, goal_k=32, dropout=0.0, dtype=torch.float32):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
@@ -34,16 +35,18 @@ class SymCoordDecoder(nn.Module):
         self.edge_func = edge_func
         self.goal_pred = goal_pred
         self.goal_k = goal_k
-        self.p2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
-        self.s2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
+        self.p2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq, dtype=dtype)
+        self.s2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq, dtype=dtype)
         for i in range(num_layers):
             self.add_module(f"p2p_{i}", GatedNeighborAttention(
-                hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout))
+                hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout, dtype=dtype))
             self.add_module(f"s2p_{i}", GatedNeighborAttention(
-                hidden_dim, num_heads, head_dim, bipartite=True, dropout=dropout))
+                hidden_dim, num_heads, head_dim, bipartite=True, dropout=dropout, dtype=dtype))
         if goal_pred:
-            self.goal_prob_head = MLP([hidden_dim, hidden_dim // 2, goal_k], ret_before_act=True)
-            self.goal_point_head = MLP([hidden_dim, hidden_dim // 2, goal_k * 2], ret_before_act=True)
+            self.goal_prob_head = MLP([hidden_dim, hidden_dim // 2, goal_k], ret_before_act=True,
+                                      dtype=dtype)
+            self.goal_point_head = MLP([hidden_dim, hidden_dim // 2, goal_k * 2],
+                                       ret_before_act=True, dtype=dtype)
 
     def forward(self, scene: SceneTokens, prompt: Prompt, prompt_emb, deterministic: bool = True,
                 generator=None) -> dict:
@@ -85,7 +88,7 @@ class SymCoordDecoder(nn.Module):
         return result
 
 
-def build_decoder(config) -> SymCoordDecoder:
+def build_decoder(config, dtype=torch.float32) -> SymCoordDecoder:
     mc = config.MODEL
     attn = mc.DECODER.ATTN
     return SymCoordDecoder(
@@ -102,4 +105,5 @@ def build_decoder(config) -> SymCoordDecoder:
         goal_pred=mc.DECODER.GOAL_PRED.ENABLE,
         goal_k=mc.DECODER.GOAL_PRED.K,
         dropout=attn.DROPOUT,
+        dtype=dtype,
     )

@@ -18,6 +18,11 @@ Llama's LoRA leaves (its body is frozen by the optimizer), and the
 prompt-mask loss rides along in the aux dict. Like the JAX module it has no
 dropout (TEXT_ATTN.LORA.DROPOUT is read by neither package).
 
+The adapters (`prompt_to_llm`, `ln_prompt`, `llm_to_cond`,
+`mask_pred_head`) compute in `dtype`, the Llama in its LlamaConfig's dtype;
+the hidden states are read in f32 and cast back to `dtype` by
+`llm_to_cond`'s first layer (prosim_tpu/models/llm/text_attn.py:99-122).
+
 The QA probe (the JAX package's LlamaTextAttnQA) is training-only and is
 left for later (ROADMAP.md queue A); the condition transformer never builds
 it.
@@ -37,7 +42,7 @@ from prosim_torch.ops.mlp import MLP, LayerNorm
 class LlamaTextAttn(nn.Module):
     def __init__(self, hidden_dim: int, llm_config: LlamaConfig, replace_agent_token: bool = True,
                  agent_token_mode: str = "none", use_prompt_token: bool = True,
-                 prompt_mask_pred: bool = True):
+                 prompt_mask_pred: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.replace_agent_token = replace_agent_token
         self.agent_token_mode = agent_token_mode
@@ -45,11 +50,12 @@ class LlamaTextAttn(nn.Module):
         self.prompt_mask_pred = prompt_mask_pred
         H = llm_config.hidden_size
         self.llm = LlamaModel(llm_config)
-        self.prompt_to_llm = MLP([hidden_dim, hidden_dim, H], ret_before_act=True)
-        self.ln_prompt = LayerNorm(H)
-        self.llm_to_cond = MLP([H, hidden_dim, hidden_dim], ret_before_act=True)
+        self.prompt_to_llm = MLP([hidden_dim, hidden_dim, H], ret_before_act=True, dtype=dtype)
+        self.ln_prompt = LayerNorm(H, dtype=dtype)
+        self.llm_to_cond = MLP([H, hidden_dim, hidden_dim], ret_before_act=True, dtype=dtype)
         if prompt_mask_pred:
-            self.mask_pred_head = MLP([hidden_dim, 1], ret_before_act=True, without_norm=True)
+            self.mask_pred_head = MLP([hidden_dim, 1], ret_before_act=True, without_norm=True,
+                                      dtype=dtype)
 
     def forward(self, text_cond: Dict[str, torch.Tensor], prompt_cond_emb,
                 prompt: Prompt) -> Tuple[torch.Tensor, Optional[Dict]]:

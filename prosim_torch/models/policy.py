@@ -15,6 +15,13 @@ does). The JAX package's TPU-backend term does not apply. The 'anchor' head
 and the goal-reconstruction head (`pred_mlp`, LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS)
 are ported; the other heads and goal context are still to be ported
 (ROADMAP.md queue A4).
+
+The policy computes in `dtype`, as the JAX module does: ProSim hands it
+the agents' poses in `dtype`; the neighbor graphs take them as f32 (the
+JAX top-K promotes them against the f32 scene positions) and the rel-PE
+features are f32; the stack, the anchor embeddings, the context gating, the
+heads and the in-chunk cumsum run in `dtype`, and the fused stack takes
+its weights packed in `dtype`.
 """
 
 import torch
@@ -39,8 +46,10 @@ class PolicyRelPE(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  agent_radius, map_radius, edge_func, learnable_pe, pe_num_freq,
                  motion_k, pred_steps, state_dim, use_ped_cycl=True, not_use_map=False,
-                 fused_stack=False, goal_recon_head=False, dropout=0.0):
+                 fused_stack=False, goal_recon_head=False, dropout=0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.num_heads = num_heads
@@ -56,22 +65,24 @@ class PolicyRelPE(nn.Module):
         self.not_use_map = not_use_map
         self.learnable_pe = learnable_pe
         self.fused_stack = fused_stack
-        self.a2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
-        self.m2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
+        self.a2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq, dtype=dtype)
+        self.m2p_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq, dtype=dtype)
         for i in range(num_layers):
             for site in ("a2p", "m2p"):
                 self.add_module(f"{site}_{i}", GatedNeighborAttention(
-                    hidden_dim, num_heads, head_dim, bipartite=True, dropout=dropout))
+                    hidden_dim, num_heads, head_dim, bipartite=True, dropout=dropout,
+                    dtype=dtype))
         num_types = 3 if use_ped_cycl else 1
         self.motion_anchors = nn.Embedding(motion_k * num_types, hidden_dim)
-        self.cg_decode = ContextGating(3, hidden_dim)
+        self.cg_decode = ContextGating(3, hidden_dim, dtype)
         self.motion_head = MLP(
             [hidden_dim, hidden_dim, hidden_dim // 2, pred_steps * state_dim],
-            ret_before_act=True,
+            ret_before_act=True, dtype=dtype,
         )
         self.goal_recon_head = goal_recon_head
         if goal_recon_head:  # goal reconstruction from the policy embedding
-            self.pred_mlp = MLP([hidden_dim, hidden_dim, hidden_dim // 2, 2], ret_before_act=True)
+            self.pred_mlp = MLP([hidden_dim, hidden_dim, hidden_dim // 2, 2], ret_before_act=True,
+                                dtype=dtype)
 
     def forward(self, policy_emd: dict, scene: SceneTokens, agent_pos, agent_ori,
                 agent_mask, agent_type, packed=None, deterministic: bool = True,
@@ -93,12 +104,13 @@ class PolicyRelPE(nn.Module):
         layer loop runs."""
         if not self.uses_fused_stack():
             return None
-        return pack_site_weights(self, "a2p"), pack_site_weights(self, "m2p")
+        return tuple(pack_site_weights(self, site, self.dtype) for site in ("a2p", "m2p"))
 
     def site_graphs(self, scene: SceneTokens, pos, mask):
         """The a2p and m2p neighbor graphs ((idx, valid) each) at the agents'
-        positions."""
+        positions (taken as f32)."""
         m = scene.num_map
+        pos = pos.float()
         radius = self.edge_func == "radius"
         obs_pos, map_pos = scene.pos[:, m:].contiguous(), scene.pos[:, :m].contiguous()
         obs_mask, map_mask = scene.mask[:, m:].contiguous(), scene.mask[:, :m].contiguous()
@@ -165,7 +177,7 @@ class PolicyRelPE(nn.Module):
         else:
             type_base = torch.zeros_like(agent_type, dtype=torch.long)
         anchor_ids = type_base[..., None] + torch.arange(K, device=pred_feat.device)
-        anchor_emb = self.motion_anchors(anchor_ids)  # [B, N, K, D]
+        anchor_emb = self.motion_anchors(anchor_ids).to(self.dtype)  # [B, N, K, D]
         ones = torch.ones((B, N, K), dtype=torch.bool, device=pred_feat.device)
         pred_emd, _ = self.cg_decode(anchor_emb, pred_feat, ones)
         motion = self.motion_head(pred_emd).reshape(B, N, K, S, self.state_dim)
@@ -178,7 +190,7 @@ class PolicyRelPE(nn.Module):
         return {"motion_pred": motion_pred, "motion_prob": motion_prob}
 
 
-def build_policy(config) -> PolicyRelPE:
+def build_policy(config, dtype=torch.float32) -> PolicyRelPE:
     mc = config.MODEL
     ad = mc.POLICY.ACT_DECODER
     attn = ad.ATTN
@@ -209,4 +221,5 @@ def build_policy(config) -> PolicyRelPE:
         fused_stack=attn.FUSED_STACK,
         goal_recon_head=config.LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS,
         dropout=attn.DROPOUT,
+        dtype=dtype,
     )

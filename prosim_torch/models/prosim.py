@@ -40,6 +40,17 @@ block forward three times: in the forward, in `prepare`'s recompute (which
 keeps only the block's input) and in the block's own recompute during the
 backward. Without block remat (tiny()) it is twice; under 'none' it is
 once, or twice with block remat.
+
+`dtype` is the network's compute dtype (the JAX `ProSim(config, dtype)`;
+like it, the model does not read MODEL.DTYPE). The parameters stay f32,
+and each module casts where its JAX twin does: the scene encoder, prompt
+encoder, decoder, policy and condition transformers compute in `dtype`,
+the type and time one-hots are built in it, `step_env` writes back in the
+logged buffers' dtype (f32), the policy takes the agents' poses in it, and
+the trajectory state is integrated in f32
+(prosim_tpu/models/prosim.py:195-208, :296-297, :346-351, :406-407, :435).
+In bf16 the kernels run their bf16 instantiations. Training is f32 only:
+a model in another dtype refuses mode="train".
 """
 
 import contextlib
@@ -88,18 +99,20 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 class ProSim(nn.Module):
-    def __init__(self, config, device="cuda"):
+    def __init__(self, config, device="cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
+        self.dtype = dtype
         self.condition_locations = (list(config.MODEL.CONDITION_TRANSFORMER.CONDITION_LOCATIONS)
                                     if config.PROMPT.CONDITION.TYPES else [])
         with torch.device(device):
-            self.scene_encoder = build_scene_encoder(config)
-            self.prompt_encoder = build_prompt_encoder(config)
-            self.decoder = build_decoder(config)
-            self.policy = build_policy(config)
+            self.scene_encoder = build_scene_encoder(config, dtype)
+            self.prompt_encoder = build_prompt_encoder(config, dtype)
+            self.decoder = build_decoder(config, dtype)
+            self.policy = build_policy(config, dtype)
             for loc in self.condition_locations:
-                self.add_module(f"condition_transformer_{loc}", build_condition_transformer(config))
+                self.add_module(f"condition_transformer_{loc}",
+                                build_condition_transformer(config, dtype))
 
         self.hist_steps = config.DATASET.FORMAT.HISTORY.STEPS
         self.replan = config.ROLLOUT.POLICY.REPLAN_FREQ
@@ -170,7 +183,7 @@ class ProSim(nn.Module):
             r = torch.randint(0, k, (B, N), generator=generator, device=emd.device)
             idx = topk_idx.gather(-1, r[..., None])[..., 0]
         policy_emd = dict(policy_emd)
-        policy_emd["select_idx"] = idx
+        policy_emd["select_idx"] = idx.to(torch.int32)  # lax.top_k's index dtype
         policy_emd["emd"] = emd.gather(2, idx[..., None, None].expand(B, N, 1, emd.shape[-1]))[:, :, 0]
         policy_emd["goal"] = policy_emd["goal_point"].gather(
             2, idx[..., None, None].expand(B, N, 1, 2))[:, :, 0]
@@ -223,6 +236,10 @@ class ProSim(nn.Module):
         """The train-mode closed loop, differentiable. `seed` makes the
         integer seeds of `prepare` and of each replan step, as the JAX package
         splits its key (prosim_tpu/models/prosim.py:266-283, 386-389)."""
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                f"training a {self.dtype} model is not ported yet; train in float32 "
+                "(bf16 training is queued in ROADMAP.md queue A)")
         seeds = torch.Generator().manual_seed(seed)
         R = int(batch.fut_obs.feat.shape[1])
         prep_seed, *step_seeds = torch.randint(0, 2**62, (R + 1,), generator=seeds).tolist()
@@ -308,8 +325,8 @@ class ProSim(nn.Module):
         dev = traj.device
         # one_hot(type - 1, 3): padding agents (type 0) get all zeros
         type_onehot = (prompt.agent_type.long()[..., None] - 1
-                       == torch.arange(3, device=dev)).float()
-        time_onehot = torch.eye(Th, device=dev)
+                       == torch.arange(3, device=dev)).to(self.dtype)
+        time_onehot = torch.eye(Th, dtype=self.dtype, device=dev)
         consts = (init_pos, init_heading, type_onehot, time_onehot)
         train = mode == "train"
         packed = None if train else self.policy.pack_fused()  # None unless the fused stack runs
@@ -360,8 +377,10 @@ class ProSim(nn.Module):
         if r > 0:
             scene = self._step_env(batch, scene, traj, vel, r, cursor, init_pos,
                                    init_heading, type_onehot, time_onehot)
-        out = self.policy(policy_emd, scene, pos_now, theta_now, mask, prompt.agent_type,
-                          packed=packed, deterministic=not train, generator=generator)
+        dt = self.dtype
+        out = self.policy(policy_emd, scene, pos_now.to(dt), theta_now.to(dt), mask,
+                          prompt.agent_type, packed=packed, deterministic=not train,
+                          generator=generator)
 
         # mode selection among the top-k (reference: traj_sam.py:301-313)
         probs = out["motion_prob"]  # [B, N, K]

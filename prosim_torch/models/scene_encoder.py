@@ -7,7 +7,8 @@ with kNN graphs that keep self-loops. This slice ports the PointNet map/obs
 encoders and the 'replace' obs update of the demo architecture; the MLP
 encoders, the 'mlp' fusion and ATTN_UPDATE are still to be ported
 (ROADMAP.md queue A4). With deterministic=False (training) the attention
-layers drop out at MODEL.SCENE_ENCODER.ATTN.DROPOUT.
+layers drop out at MODEL.SCENE_ENCODER.ATTN.DROPOUT. The encoders and the
+attention compute in `dtype`; positions and graphs stay f32.
 """
 
 import torch
@@ -26,18 +27,22 @@ from prosim_torch.ops.pointnet import PointNetPolylineEncoder
 
 
 class MapEncoderPointNet(nn.Module):
-    def __init__(self, hidden_dim, num_pre_layers, num_mlp_layers, in_dim=11):
+    def __init__(self, hidden_dim, num_pre_layers, num_mlp_layers, in_dim=11,
+                 dtype=torch.float32):
         super().__init__()
-        self.pointnet = PointNetPolylineEncoder(in_dim, hidden_dim, num_pre_layers, num_mlp_layers)
+        self.pointnet = PointNetPolylineEncoder(in_dim, hidden_dim, num_pre_layers, num_mlp_layers,
+                                                dtype)
 
     def forward(self, m: MapInputs):
         return self.pointnet(m.vectors, m.mask), m.token_mask  # [B, L, D], [B, L]
 
 
 class ObsEncoderPointNet(nn.Module):
-    def __init__(self, hidden_dim, num_pre_layers, num_mlp_layers, in_dim=24):
+    def __init__(self, hidden_dim, num_pre_layers, num_mlp_layers, in_dim=24,
+                 dtype=torch.float32):
         super().__init__()
-        self.pointnet = PointNetPolylineEncoder(in_dim, hidden_dim, num_pre_layers, num_mlp_layers)
+        self.pointnet = PointNetPolylineEncoder(in_dim, hidden_dim, num_pre_layers, num_mlp_layers,
+                                                dtype)
 
     def forward(self, feat, step_mask):
         """feat [B, A, Th, C], step_mask [B, A, Th] -> [B, A, D], [B, A]."""
@@ -48,19 +53,22 @@ class SceneEncoderAttnRelPE(nn.Module):
     def __init__(self, hidden_dim, num_layers, num_heads, head_dim, max_neigh,
                  learnable_pe, pe_num_freq, map_pre_layers, map_mlp_layers,
                  obs_pre_layers, obs_mlp_layers, map_in_dim=11, obs_in_dim=24,
-                 dropout=0.0):
+                 dropout=0.0, dtype=torch.float32):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.max_neigh = max_neigh
-        self.map_encoder = MapEncoderPointNet(hidden_dim, map_pre_layers, map_mlp_layers, map_in_dim)
-        self.obs_encoder = ObsEncoderPointNet(hidden_dim, obs_pre_layers, obs_mlp_layers, obs_in_dim)
-        self.a2a_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
-        self.s2s_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq)
+        self.map_encoder = MapEncoderPointNet(
+            hidden_dim, map_pre_layers, map_mlp_layers, map_in_dim, dtype)
+        self.obs_encoder = ObsEncoderPointNet(
+            hidden_dim, obs_pre_layers, obs_mlp_layers, obs_in_dim, dtype)
+        self.a2a_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq, dtype=dtype)
+        self.s2s_pe = RelPE(hidden_dim, learnable_pe, pe_num_freq, dtype=dtype)
         for i in range(num_layers):
             for site in ("a2a", "s2s"):
                 self.add_module(f"{site}_{i}", GatedNeighborAttention(
-                    hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout))
+                    hidden_dim, num_heads, head_dim, bipartite=False, dropout=dropout,
+                    dtype=dtype))
 
     def forward(self, init_obs: ObsInputs, init_map: MapInputs, deterministic: bool = True,
                 generator=None) -> SceneTokens:
@@ -113,7 +121,7 @@ def _unsupported(what):
     return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md queue A4)")
 
 
-def build_scene_encoder(config) -> SceneEncoderAttnRelPE:
+def build_scene_encoder(config, dtype=torch.float32) -> SceneEncoderAttnRelPE:
     mc = config.MODEL
     attn = mc.SCENE_ENCODER.ATTN
     if mc.SCENE_ENCODER.MAP_TYPE != "pointnet" or mc.SCENE_ENCODER.OBS_TYPE != "pointnet":
@@ -135,4 +143,5 @@ def build_scene_encoder(config) -> SceneEncoderAttnRelPE:
         map_in_dim=map_feature_dim(config),
         obs_in_dim=obs_feature_dim(config),
         dropout=attn.DROPOUT,
+        dtype=dtype,
     )

@@ -3,8 +3,9 @@
 Each source under prosim_torch/csrc/ is compiled by `nvcc` for sm_90a into a
 shared library with a plain C interface, loaded with ctypes at first use.
 Libraries go to <repo>/build/prosim_torch_kernels/, named by a hash of their
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused. `build_all()` starts one nvcc per source, all at once.
+source, the headers in csrc/ and the flags, so an edited source is rebuilt
+and an unchanged one is reused. `build_all()` starts one nvcc per source,
+all at once.
 """
 
 import ctypes
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the hash covers the headers beside the sources, which they include
+    src = b"".join(p.read_bytes() for p in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -11,6 +11,15 @@ core is `ops/edge_attn.py:edge_attn_core`, a CUDA kernel on the card, which
 has no backward; where a gradient may be wanted (grad mode on, or training
 with `deterministic=False`) it is `attend_gathered`, the JAX package's
 differentiable XLA branch with the score bias and attention dropout.
+
+The layer computes in `dtype` where the JAX layer does
+(prosim_tpu/ops/attention.py:297-393): the parameter-free normalizations
+in f32, rounded to the input's dtype; the LayerNorm affines, the folded
+weights and the query folds cast to `dtype`; the Dense layers and the
+LayerNorms as ops/mlp.py's Dense and LayerNorm. The JAX package reads the
+k/v/PE weights back through identity probes and bit-packs bf16 rows for the
+TPU gather (:160-189); both give the same weight and row values, so the
+port reads the weights and gathers the bf16 rows directly.
 """
 
 import torch
@@ -18,7 +27,7 @@ from torch import nn
 
 from prosim_torch.ops.edge_attn import attend_gathered, edge_attn_core
 from prosim_torch.ops.fourier import FourierEmbedding, FourierEmbeddingFix
-from prosim_torch.ops.mlp import LayerNorm
+from prosim_torch.ops.mlp import Dense, LayerNorm
 from prosim_torch.ops.neighbors import gather_neighbors
 from prosim_torch.utils.geometry import angle_between_2d_vectors, wrap_angle
 
@@ -48,18 +57,21 @@ def rel_pe_features(dst_pos, dst_ori, src_pos, src_ori, idx):
 
 
 class RelPE(nn.Module):
-    """Rel-PE features -> embeddings. Fixed path with fold_dup=True embeds
-    only the 3 unique features (3/4 * hidden_dim dims); fold_dup=False
-    re-appends the duplicate block (reference layout)."""
+    """Rel-PE features -> embeddings in `dtype`. Fixed path with
+    fold_dup=True embeds only the 3 unique features (3/4 * hidden_dim dims);
+    fold_dup=False re-appends the duplicate block (reference layout). The
+    fixed embedding is computed in f32 and cast to `dtype`."""
 
     def __init__(self, hidden_dim: int, learnable_pe: bool = False,
-                 num_freq_bands: int = 64, fold_dup: bool = True):
+                 num_freq_bands: int = 64, fold_dup: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.learnable_pe = learnable_pe
         self.fold_dup = fold_dup
+        self.dtype = dtype
         if learnable_pe:
-            self.fourier = FourierEmbedding(3, hidden_dim, num_freq_bands)
+            self.fourier = FourierEmbedding(3, hidden_dim, num_freq_bands, dtype)
         else:
             self.fourier_fix = FourierEmbeddingFix(num_pos_feats=hidden_dim // 4)
 
@@ -67,16 +79,19 @@ class RelPE(nn.Module):
         if self.learnable_pe:
             return self.fourier(pe_input)
         npf = self.hidden_dim // 4
-        emb = self.fourier_fix(pe_input)
+        emb = self.fourier_fix(pe_input).to(self.dtype)
         if not self.fold_dup:
             emb = torch.cat([emb, emb[..., 2 * npf :]], dim=-1)
         return emb
 
 
 def _norm_stats(x, eps: float = 1e-5, dup_tail: int = 0):
-    """Parameter-free LayerNorm (flax stats: last dim, fast variance).
+    """Parameter-free LayerNorm (flax stats: last dim, fast variance),
+    computed in f32 and returned in x's dtype.
     dup_tail > 0: stats of the wider row in which the last dup_tail dims
     appear twice (the folded rel-PE duplicate); only unique dims returned."""
+    dt = x.dtype
+    x = x.float()
     n = x.shape[-1] + dup_tail
     s = x.sum(-1, keepdim=True)
     ss = (x * x).sum(-1, keepdim=True)
@@ -86,7 +101,7 @@ def _norm_stats(x, eps: float = 1e-5, dup_tail: int = 0):
         ss = ss + (t * t).sum(-1, keepdim=True)
     mu = s / n
     var = (ss / n - mu * mu).clamp_min(0.0)
-    return (x - mu) * torch.rsqrt(var + eps)
+    return ((x - mu) * torch.rsqrt(var + eps)).to(dt)
 
 
 def _fold_pe_tail(w, tail: int):
@@ -150,33 +165,36 @@ class GatedNeighborAttention(nn.Module):
     the layer runs with deterministic=False."""
 
     def __init__(self, hidden_dim: int, num_heads: int, head_dim: int,
-                 bipartite: bool = False, pe_dim: int = None, dropout: float = 0.0):
+                 bipartite: bool = False, pe_dim: int = None, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.bipartite = bipartite
         self.dropout = dropout
+        self.dtype = dtype
         D = hidden_dim
         P = pe_dim or hidden_dim  # full reference width of the rel-PE
         inner = num_heads * head_dim
+        # affine-only: the parameter-free part is shared (_norm_stats)
         self.prenorm_src = LayerNorm(D)
         if bipartite:
             self.prenorm_dst = LayerNorm(D)
         self.prenorm_r = LayerNorm(P)
-        self.to_q = nn.Linear(D, inner)
-        self.to_k = nn.Linear(D, inner, bias=False)
-        self.to_v = nn.Linear(D, inner)
-        self.to_k_r = nn.Linear(P, inner, bias=False)
-        self.to_v_r = nn.Linear(P, inner)
-        self.to_g = nn.Linear(inner + D, inner)
-        self.to_s = nn.Linear(D, inner)
-        self.to_out = nn.Linear(inner, hidden_dim)
-        self.postnorm = LayerNorm(hidden_dim)
-        self.ff_prenorm = LayerNorm(hidden_dim)
-        self.ff_dense0 = nn.Linear(hidden_dim, hidden_dim * 4)
-        self.ff_dense1 = nn.Linear(hidden_dim * 4, hidden_dim)
-        self.ff_postnorm = LayerNorm(hidden_dim)
+        self.to_q = Dense(D, inner, dtype=dtype)
+        self.to_k = Dense(D, inner, bias=False, dtype=dtype)
+        self.to_v = Dense(D, inner, dtype=dtype)
+        self.to_k_r = Dense(P, inner, bias=False, dtype=dtype)
+        self.to_v_r = Dense(P, inner, dtype=dtype)
+        self.to_g = Dense(inner + D, inner, dtype=dtype)
+        self.to_s = Dense(D, inner, dtype=dtype)
+        self.to_out = Dense(inner, hidden_dim, dtype=dtype)
+        self.postnorm = LayerNorm(hidden_dim, dtype=dtype)
+        self.ff_prenorm = LayerNorm(hidden_dim, dtype=dtype)
+        self.ff_dense0 = Dense(hidden_dim, hidden_dim * 4, dtype=dtype)
+        self.ff_dense1 = Dense(hidden_dim * 4, hidden_dim, dtype=dtype)
+        self.ff_postnorm = LayerNorm(hidden_dim, dtype=dtype)
 
     def forward(self, x_dst, x_src, idx, edge_valid, pe_normed, src_normed=None,
                 src_gathered=None, deterministic: bool = True, generator=None):
@@ -204,22 +222,23 @@ class GatedNeighborAttention(nn.Module):
         scale = hd ** -0.5
         B, Q, K = idx.shape
         D_src = x_src.shape[-1]
+        dt = self.dtype
 
-        g_s, b_s = self.prenorm_src.weight, self.prenorm_src.bias
+        g_s, b_s = self.prenorm_src.weight.to(dt), self.prenorm_src.bias.to(dt)
         norm_dst = self.prenorm_dst if self.bipartite else self.prenorm_src
-        x_dst_n = _norm_stats(x_dst) * norm_dst.weight + norm_dst.bias
+        x_dst_n = _norm_stats(x_dst) * norm_dst.weight.to(dt) + norm_dst.bias.to(dt)
 
         qh = self.to_q(x_dst_n).view(B, Q, H, hd)
-        w_k = self.to_k.weight.t()                  # [D_src, inner]
-        w_v, c_v = self.to_v.weight.t(), self.to_v.bias
+        w_k = self.to_k.weight.t().to(dt)           # [D_src, inner]
+        w_v, c_v = self.to_v.weight.t().to(dt), self.to_v.bias.to(dt)
 
         z_r = pe_normed
         D_pe = z_r.shape[-1]
         P = self.prenorm_r.weight.shape[0]
         tail = P - D_pe
-        g_r, b_r = self.prenorm_r.weight, self.prenorm_r.bias
-        w_kr = self.to_k_r.weight.t()               # [P, inner]
-        w_vr, c_vr = self.to_v_r.weight.t(), self.to_v_r.bias
+        g_r, b_r = self.prenorm_r.weight.to(dt), self.prenorm_r.bias.to(dt)
+        w_kr = self.to_k_r.weight.t().to(dt)        # [P, inner]
+        w_vr, c_vr = self.to_v_r.weight.t().to(dt), self.to_v_r.bias.to(dt)
         w_kr_g = _fold_pe_tail(w_kr * g_r[:, None], tail).view(D_pe, H, hd)
         w_vr_g = _fold_pe_tail(w_vr * g_r[:, None], tail).view(D_pe, H, hd)
 

@@ -14,7 +14,11 @@ On a CUDA tensor `causal_attention` launches csrc/flash_attn.cu: bf16 q/k/v
 (tensor-core products, f32 accumulation and softmax statistics; the
 Llama3-8B text path) or f32 q/k/v (products by FMA on the CUDA cores, the
 f32 `LlamaConfig.tiny()` that configs/waymo_demo.yaml resolves to without
-weights), out in the inputs' dtype. The kernel writes zeros on
+weights), out in the inputs' dtype, at any head width D <= 128: the
+kernels take D a multiple of 16, so a narrower or ragged D is zero-padded
+to the next multiple of 16 before the launch and the results sliced back
+(exact: a zero column adds nothing to any product, and the caller's scale
+is that of the true D). The kernel writes zeros on
 pad query rows (token_mask False) and on rows with no valid key; the dense
 path gives those rows a mean over whatever keys the -1e30 fill leaves. No
 reader of the Llama's hidden states looks at a pad row (LlamaTextAttn reads
@@ -43,6 +47,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from prosim_torch.ops import _build
 from prosim_torch.ops.neighbors import _check
@@ -144,16 +149,26 @@ def _check_inputs(q, k, v, token_mask):
     _check("k", k, dtype, (B, T, Hkv, D), dev)
     _check("v", v, dtype, (B, T, Hkv, D), dev)
     _check("token_mask", token_mask, torch.bool, (B, T), dev)
-    if Hkv < 1 or Hq % Hkv or D % 16 or not 16 <= D <= 128:
-        raise ValueError(f"flash_attn kernel takes Hq a multiple of Hkv and D a multiple of 16 "
-                         f"up to 128, got Hq={Hq}, Hkv={Hkv}, D={D}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attn kernel needs 16-byte aligned q/k/v")
+    if Hkv < 1 or Hq % Hkv or not 1 <= D <= 128:
+        raise ValueError(f"flash_attn kernel takes Hq a multiple of Hkv and D up to 128, "
+                         f"got Hq={Hq}, Hkv={Hkv}, D={D}")
+
+
+def _pad_width(*ts):
+    """The tensors zero-padded along the head width to the kernels' next
+    multiple of 16 (unchanged when D is one), each 16-byte aligned."""
+    pad = (-ts[0].shape[-1]) % 16
+    ts = tuple(F.pad(t, (0, pad)) for t in ts) if pad else ts
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attn kernels need 16-byte aligned inputs")
+    return ts
 
 
 def _flash_fwd(q, k, v, token_mask, scale: float, with_lse: bool):
     """One launch of csrc/flash_attn.cu: out, and lse when asked for."""
     _check_inputs(q, k, v, token_mask)
+    D0 = q.shape[-1]
+    q, k, v = _pad_width(q, k, v)
     B, T, Hq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device) if with_lse else None
@@ -164,7 +179,7 @@ def _flash_fwd(q, k, v, token_mask, scale: float, with_lse: bool):
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error {err}")
     causal_attention.launches += 1
-    return out, lse
+    return (out if D == D0 else out[..., :D0].contiguous()), lse
 
 
 def causal_attention_bwd(q, k, v, o, lse, do, token_mask, scale: float):
@@ -177,13 +192,13 @@ def causal_attention_bwd(q, k, v, o, lse, do, token_mask, scale: float):
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention_bwd: unsupported device {q.device}")
     _check_inputs(q, k, v, token_mask)
-    B, T, Hq, D = q.shape
+    B, T, Hq, D0 = q.shape
     Hkv = k.shape[2]
-    _check("o", o, q.dtype, (B, T, Hq, D), q.device)
-    _check("do", do, q.dtype, (B, T, Hq, D), q.device)
+    _check("o", o, q.dtype, (B, T, Hq, D0), q.device)
+    _check("do", do, q.dtype, (B, T, Hq, D0), q.device)
     _check("lse", lse, torch.float32, (B, Hq, T), q.device)
-    if any(t.data_ptr() % 16 for t in (o, do)):
-        raise ValueError("flash_attn_bwd kernel needs 16-byte aligned o/do")
+    q, k, v, o, do = _pad_width(q, k, v, o, do)
+    D = q.shape[-1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)  # scratch
     err = _bwd_launcher()(
@@ -194,6 +209,8 @@ def causal_attention_bwd(q, k, v, o, lse, do, token_mask, scale: float):
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error {err}")
     causal_attention_bwd.launches += 1
+    if D != D0:
+        dq, dk, dv = (t[..., :D0].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -223,9 +240,10 @@ class CausalAttention(torch.autograd.Function):
 
 def causal_attention(q, k, v, token_mask, scale: float):
     """q [B,T,Hq,D], k/v [B,T,Hkv,D], token_mask [B,T] bool -> [B,T,Hq,D].
-    On the card: bf16 or f32 q/k/v (never cast), Hq a multiple of Hkv, D a
-    multiple of 16 up to 128, any T. Differentiable through
-    `CausalAttention` when grad mode is on and q, k or v requires grad."""
+    On the card: bf16 or f32 q/k/v (never cast), Hq a multiple of Hkv, D up
+    to 128 (padded to a multiple of 16 for the kernel), any T.
+    Differentiable through `CausalAttention` when grad mode is on and q, k
+    or v requires grad."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return CausalAttention.apply(q, k, v, token_mask, scale)
     if q.device.type == "cpu":

@@ -6,7 +6,9 @@ mapped to interleaved (sin of even slots, cos of odd slots) features. As in
 the JAX package, cos(t) is written sin(t + pi/2), so the whole row is one
 sin with a per-lane phase and both packages round alike.
 
-`FourierEmbedding` is the QCNet learnable variant.
+`FourierEmbedding` is the QCNet learnable variant, computed in `dtype`
+(its Fourier features in f32, its layers as ops/mlp.py's Dense and
+LayerNorm). `FourierEmbeddingFix` stays f32; its callers cast.
 """
 
 import math
@@ -14,7 +16,7 @@ import math
 import torch
 from torch import nn
 
-from prosim_torch.ops.mlp import LayerNorm
+from prosim_torch.ops.mlp import Dense, LayerNorm
 
 
 class FourierEmbeddingFix(nn.Module):
@@ -37,17 +39,18 @@ class FourierEmbeddingFix(nn.Module):
 
 
 class FourierEmbedding(nn.Module):
-    def __init__(self, input_dim: int, hidden_dim: int, num_freq_bands: int):
+    def __init__(self, input_dim: int, hidden_dim: int, num_freq_bands: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_dim = input_dim
         self.freqs = nn.Parameter(torch.randn(input_dim, num_freq_bands))
         feat = 2 * num_freq_bands + 1
         for i in range(input_dim):
-            self.add_module(f"mlp_{i}_dense0", nn.Linear(feat, hidden_dim))
-            self.add_module(f"mlp_{i}_norm", LayerNorm(hidden_dim))
-            self.add_module(f"mlp_{i}_dense1", nn.Linear(hidden_dim, hidden_dim))
-        self.out_norm = LayerNorm(hidden_dim)
-        self.out_dense = nn.Linear(hidden_dim, hidden_dim)
+            self.add_module(f"mlp_{i}_dense0", Dense(feat, hidden_dim, dtype=dtype))
+            self.add_module(f"mlp_{i}_norm", LayerNorm(hidden_dim, dtype=dtype))
+            self.add_module(f"mlp_{i}_dense1", Dense(hidden_dim, hidden_dim, dtype=dtype))
+        self.out_norm = LayerNorm(hidden_dim, dtype=dtype)
+        self.out_dense = Dense(hidden_dim, hidden_dim, dtype=dtype)
 
     def forward(self, x):
         # x [..., input_dim] -> [..., hidden_dim]

@@ -18,6 +18,15 @@ of the TPU kernel's `_kernel` / `_site_layer` written plainly, with the
 per-edge k|v projections. Compared with the TPU kernel, queries are not
 padded to a tile and `valid` stays bool [B, N, K] (the TPU kernel's int8
 head broadcast was a Mosaic workaround).
+
+x_p, the source tokens and the packed weights are in the model dtype (f32
+or bf16), the raw rel-PE features in f32, and the output in x_p's dtype.
+The plain version rounds to the model dtype where the TPU kernel casts
+(prosim_tpu/ops/fused_stack.py:141-226): the rel-PE's sine and its
+normalized row, q, the per-edge k|v, the score products, the attention
+weights and their products with v, the aggregate, the gate, s, the gated
+update, out, the FFN's hidden layer and output, and each LayerNorm step;
+every product accumulates in f32.
 """
 
 import ctypes
@@ -63,11 +72,12 @@ def _field_shapes(L, D, I, P):
     }
 
 
-def pack_site_weights(policy, site: str):
+def pack_site_weights(policy, site: str, dtype: torch.dtype = torch.float32):
     """Stack one site's GatedNeighborAttention layers (the children
     f"{site}_0", f"{site}_1", ... of `policy`) into the kernel's field
-    order, dense kernels in the flax [in, out] layout. Returns a list of
-    len(_FIELDS) contiguous tensors."""
+    order, dense kernels in the flax [in, out] layout. As in the JAX
+    package, each leaf is cast to `dtype` first and the folds are computed
+    in `dtype`. Returns a list of len(_FIELDS) contiguous tensors."""
     layers = []
     while hasattr(policy, f"{site}_{len(layers)}"):
         layers.append(getattr(policy, f"{site}_{len(layers)}"))
@@ -75,7 +85,7 @@ def pack_site_weights(policy, site: str):
         raise ValueError(f"{type(policy).__name__} has no {site}_0 layer")
 
     def stack(fn):
-        return torch.stack([fn(m) for m in layers]).contiguous()
+        return torch.stack([fn(m).to(dtype) for m in layers]).contiguous()
 
     wk = stack(lambda m: m.to_k.weight.t())
     wv = stack(lambda m: m.to_v.weight.t())
@@ -140,40 +150,50 @@ def _fourier_table(num_features: int, pe_dim: int, device) -> torch.Tensor:
         return torch.stack([m1.sum(0), phase[0]]).to(device)
 
 
-def _z_from_feats(feats, pe_dim: int):
-    """The normalized fixed rel-PE [.., K, P] of raw features [.., K, F]:
-    feats @ m1 is one product per column (the other terms are exact zeros),
-    then + phase, sin and the parameter-free LayerNorm."""
+def _z_from_feats(feats, pe_dim: int, dtype: torch.dtype = torch.float32):
+    """The normalized fixed rel-PE [.., K, P] of raw features [.., K, F] in
+    `dtype`: feats @ m1 is one product per column (the other terms are
+    exact zeros), then + phase, sin (rounded to `dtype`) and the
+    parameter-free LayerNorm."""
     F = feats.shape[-1]
     freq, phase = _fourier_table(F, pe_dim, feats.device)
     scaled = feats.repeat_interleave(pe_dim // F, dim=-1) * freq + phase
-    return _norm_stats(torch.sin(scaled))
+    return _norm_stats(torch.sin(scaled).to(dtype))
 
 
 def _site_layer(x, w, l, xg, z, valid, num_heads: int, head_dim: int):
     """One GatedNeighborAttention layer (prosim_tpu/ops/fused_stack.py
-    `_site_layer`). x [B,N,D]; xg [B,N,K,D]; z [B,N,K,P]; valid [B,N,K]."""
+    `_site_layer`) in x's dtype dt. x [B,N,D]; xg [B,N,K,D]; z [B,N,K,P];
+    valid [B,N,K]. Each product takes the f32 values of its dt operands
+    (`_dot`'s f32 accumulation); in f32 every cast is the identity."""
     B, N, K, _ = xg.shape
     H, hd = num_heads, head_dim
     I = H * hd
+    dt = x.dtype
+
+    def dot(a, b):
+        return a.float() @ b.float()
+
     xn = _norm_stats(x) * w["gd"][l] + w["bd"][l]
-    q = xn @ w["wq"][l] + w["bq"][l]
-    kv = xg @ w["wkv"][l] + z @ w["wkvr"][l] + w["bkv"][l]  # [B,N,K,2I]
-    sim = (kv[..., :I] * q[:, :, None]).view(B, N, K, H, hd).sum(-1) * hd ** -0.5
+    q = dot(xn, w["wq"][l]).to(dt) + w["bq"][l]
+    kv = (dot(xg, w["wkv"][l]) + dot(z, w["wkvr"][l]) + w["bkv"][l].float()).to(dt)  # [B,N,K,2I]
+    sim = (kv[..., :I] * q[:, :, None]).float().view(B, N, K, H, hd).sum(-1) * hd ** -0.5
     vmask = valid[..., None]
     sim = torch.where(vmask, sim, -torch.inf)
     smax = sim.amax(dim=2, keepdim=True)
     smax = torch.where(torch.isfinite(smax), smax, 0.0)
     expw = torch.where(vmask, torch.exp(sim - smax), 0.0)
-    attn = expw / expw.sum(dim=2, keepdim=True).clamp_min(1e-9)  # [B,N,K,H]
-    agg = (attn[..., None] * kv[..., I:].reshape(B, N, K, H, hd)).sum(2).reshape(B, N, I)
-    g = torch.sigmoid(torch.cat([agg, xn], -1) @ w["wg"][l] + w["bg"][l])
-    s = xn @ w["ws"][l] + w["bs2"][l]
+    attn = (expw / expw.sum(dim=2, keepdim=True).clamp_min(1e-9)).to(dt)  # [B,N,K,H]
+    agg = (attn[..., None] * kv[..., I:].reshape(B, N, K, H, hd)).float().sum(2)
+    agg = agg.to(dt).reshape(B, N, I)
+    g = torch.sigmoid(dot(torch.cat([agg, xn], -1), w["wg"][l]) + w["bg"][l].float()).to(dt)
+    s = dot(xn, w["ws"][l]).to(dt) + w["bs2"][l]
     gated = agg + g * (s - agg)
-    out = gated @ w["wo"][l] + w["bo"][l]
+    out = dot(gated, w["wo"][l]).to(dt) + w["bo"][l]
     x = x + _norm_stats(out) * w["png"][l] + w["pnb"][l]
     ff_in = _norm_stats(x) * w["f1g"][l] + w["f1b"][l]
-    ff = torch.relu(ff_in @ w["w0"][l] + w["b0"][l]) @ w["w1"][l] + w["b1"][l]
+    h0 = torch.relu(dot(ff_in, w["w0"][l]) + w["b0"][l].float()).to(dt)
+    ff = dot(h0, w["w1"][l]).to(dt) + w["b1"][l]
     return x + _norm_stats(ff) * w["f2g"][l] + w["f2b"][l]
 
 
@@ -186,7 +206,7 @@ def fused_two_site_stack_plain(x_p, a2p_tables, m2p_tables, weights_a, weights_m
     for (x_src, idx, feats, valid), w in ((a2p_tables, weights_a), (m2p_tables, weights_m)):
         # idx is arbitrary where an edge is invalid: gather row 0 there
         xg = gather_src_features(x_src, torch.where(valid, idx, 0))
-        sites.append((xg, _z_from_feats(feats, pe_dim), valid, dict(zip(_FIELDS, w))))
+        sites.append((xg, _z_from_feats(feats, pe_dim, x_p.dtype), valid, dict(zip(_FIELDS, w))))
     x = x_p
     for l in range(num_layers):
         for xg, z, valid, w in sites:
@@ -203,8 +223,10 @@ def _row_order(valid_a, valid_m):
 
 
 @functools.cache
-def _launcher():
-    fn = _build.load("fused_stack").fused_stack_launch
+def _launcher(dtype: torch.dtype):
+    """The kernel's instantiation for the model dtype: f32 or bf16."""
+    lib = _build.load("fused_stack")
+    fn = lib.fused_stack_launch_bf16 if dtype == torch.bfloat16 else lib.fused_stack_launch
     fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -215,14 +237,23 @@ def fused_two_site_stack(x_p, a2p_tables, m2p_tables, weights_a, weights_m, *,
                          num_heads: int, head_dim: int):
     """Run the interleaved (a2p, m2p) x L gated-attention stack.
 
-    x_p [B,N,D] f32; each site's tables are (x_src [B,S,D] f32 source
-    tokens, idx [B,N,K] int32, feats [B,N,K,F] f32 raw rel-PE features
+    x_p [B,N,D] in the model dtype (f32 or bf16: the kernel's two
+    instantiations); each site's tables are (x_src [B,S,D] source tokens in
+    x_p's dtype, idx [B,N,K] int32, feats [B,N,K,F] f32 raw rel-PE features
     (the reference's 4, rel_ori_vec twice), valid [B,N,K] bool), idx in
     [0, S) where valid (arbitrary elsewhere); weights_* are
-    `pack_site_weights` outputs. The two sites may have different S and K.
-    Returns [B,N,D]. Forward only: refuses inputs that require grad while
-    grad mode is on."""
+    `pack_site_weights` outputs in x_p's dtype. The two sites may have
+    different S and K. Returns [B,N,D] in x_p's dtype. Forward only: refuses
+    inputs that require grad while grad mode is on."""
     refuse_grad("fused_two_site_stack", x_p, a2p_tables, m2p_tables, weights_a, weights_m)
+    dt = x_p.dtype
+    got = [t.dtype for t in (a2p_tables[0], m2p_tables[0], *weights_a, *weights_m)]
+    feats = [a2p_tables[2].dtype, m2p_tables[2].dtype]
+    if (dt not in (torch.float32, torch.bfloat16) or any(d != dt for d in got)
+            or any(d != torch.float32 for d in feats)):
+        raise TypeError("fused_two_site_stack takes x_p, the source tokens and the packed weights "
+                        f"in one dtype, float32 or bfloat16, and f32 feats; got x_p {dt}, "
+                        f"the rest {sorted(set(map(str, got)))}, feats {feats}")
     if x_p.device.type == "cpu":
         return fused_two_site_stack_plain(x_p, a2p_tables, m2p_tables, weights_a, weights_m,
                                           num_heads=num_heads, head_dim=head_dim)
@@ -230,21 +261,20 @@ def fused_two_site_stack(x_p, a2p_tables, m2p_tables, weights_a, weights_m, *,
         raise ValueError(f"fused_two_site_stack: unsupported device {x_p.device}")
     B, N, D = x_p.shape
     dev = x_p.device
-    f32 = torch.float32
     H, hd = num_heads, head_dim
     I = H * hd
     L = weights_a[0].shape[0]
     P = weights_a[_FIELDS.index("wkvr")].shape[1]
     F = a2p_tables[2].shape[-1]
-    _check("x_p", x_p, f32, (B, N, D), dev)
+    _check("x_p", x_p, dt, (B, N, D), dev)
     sites = []
     for name, (x_src, idx, feats, valid) in (("a2p", a2p_tables), ("m2p", m2p_tables)):
         S, K = x_src.shape[1], idx.shape[-1]
         # the kernel gathers rows of the normalized tokens (any layout in)
         src_n = _norm_stats(x_src).contiguous()
-        _check(f"{name} x_src", src_n, f32, (B, S, D), dev)
+        _check(f"{name} x_src", src_n, dt, (B, S, D), dev)
         _check(f"{name} idx", idx, torch.int32, (B, N, K), dev)
-        _check(f"{name} feats", feats, f32, (B, N, K, F), dev)
+        _check(f"{name} feats", feats, torch.float32, (B, N, K, F), dev)
         _check(f"{name} valid", valid, torch.bool, (B, N, K), dev)
         sites.append((src_n, idx, feats, valid, S, K))
     shapes = _field_shapes(L, D, I, P)
@@ -252,7 +282,7 @@ def fused_two_site_stack(x_p, a2p_tables, m2p_tables, weights_a, weights_m, *,
         if len(weights) != len(_FIELDS):
             raise ValueError(f"{site} weights: expected {len(_FIELDS)} packed fields")
         for name, t in zip(_FIELDS, weights):
-            _check(f"{site} {name}", t, f32, shapes[name], dev)
+            _check(f"{site} {name}", t, dt, shapes[name], dev)
     if not (1 <= H <= 8 and hd % 4 == 0 and 0 < I <= 128 and D <= 128 and P <= 128
             and P % F == 0):
         raise ValueError(f"fused_stack kernel takes H <= 8, hd a multiple of 4, I = H*hd <= 128, "
@@ -261,13 +291,15 @@ def fused_two_site_stack(x_p, a2p_tables, m2p_tables, weights_a, weights_m, *,
     ptrs = [(ctypes.c_void_p * len(_FIELDS))(*[t.data_ptr() for t in w])
             for w in (weights_a, weights_m)]
     fconst = _fourier_table(F, P, dev)
-    # the kernel's rel-PE tables; rows of invalid edges are never written or read
-    pz = (P + 3) // 4 * 4
-    z_a = torch.empty((B, N, Ka, pz), dtype=f32, device=dev)
-    z_m = torch.empty((B, N, Km, pz), dtype=f32, device=dev)
+    # the kernel's rel-PE tables, rows of 16 bytes a multiple; rows of
+    # invalid edges are never written or read
+    per16 = 16 // x_p.element_size()
+    pz = (P + per16 - 1) // per16 * per16
+    z_a = torch.empty((B, N, Ka, pz), dtype=dt, device=dev)
+    z_m = torch.empty((B, N, Km, pz), dtype=dt, device=dev)
     order = _row_order(valid_a, valid_m)
     out = torch.empty_like(x_p)
-    err = _launcher()(
+    err = _launcher(dt)(
         x_p.data_ptr(), out.data_ptr(), order.data_ptr(),
         src_a.data_ptr(), idx_a.data_ptr(), feats_a.data_ptr(), valid_a.data_ptr(),
         src_m.data_ptr(), idx_m.data_ptr(), feats_m.data_ptr(), valid_m.data_ptr(),

@@ -2,7 +2,7 @@
 
 Pre-MLP on valid points (invalid points contribute zeros, NOT -inf, to the
 max-pool), max-pool + concat, second MLP, max-pool, out-MLP on polylines
-with >= 1 valid point.
+with >= 1 valid point. The MLPs compute in `dtype`.
 """
 
 import torch
@@ -13,12 +13,13 @@ from prosim_torch.ops.mlp import MLP
 
 class PointNetPolylineEncoder(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, num_pre_layers: int = 1,
-                 num_mlp_layers: int = 3):
+                 num_mlp_layers: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
         h = hidden_dim
-        self.pre_mlps = MLP([in_dim] + [h] * num_pre_layers, ret_before_act=False)
-        self.mlps = MLP([h * 2] + [h] * (num_mlp_layers - num_pre_layers), ret_before_act=False)
-        self.out_mlps = MLP([h, h, h], without_norm=True, ret_before_act=True)
+        self.pre_mlps = MLP([in_dim] + [h] * num_pre_layers, ret_before_act=False, dtype=dtype)
+        self.mlps = MLP([h * 2] + [h] * (num_mlp_layers - num_pre_layers), ret_before_act=False,
+                        dtype=dtype)
+        self.out_mlps = MLP([h, h, h], without_norm=True, ret_before_act=True, dtype=dtype)
 
     def forward(self, polylines, point_mask):
         """polylines [..., P, C], point_mask [..., P] bool -> [..., hidden_dim]."""

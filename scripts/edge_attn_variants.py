@@ -30,8 +30,8 @@ VARIANTS = {  # name: [(text in the kernel source, replacement)]
     "kernel": [],
     "copies only": [("      if (nh == 0) continue;  // warp-uniform: a warp without heads only stages",
                      "      continue;")],
-    "compute only": [("cp_async16(dst + 4 * lane, xrow + 4 * lane);", ";"),
-                     ("cp_async16(dst + s.Dx + 4 * lane, zrow + 4 * lane);", ";")],
+    "compute only": [("cp_async16(dst + per16 * lane, xrow + per16 * lane);", ";"),
+                     ("cp_async16(dst + s.Dx + per16 * lane, zrow + per16 * lane);", ";")],
     "3 blocks/SM": [("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads, 3)")],
     "3-stage ring": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
 }
@@ -55,7 +55,7 @@ def build():
             text = text.replace(a, b)
         cu = os.path.join(OUT, f"v{i}.cu")
         open(cu, "w").write(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", cu[:-3] + ".so", cu]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", cu[:-3] + ".so", cu]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), cu[:-3] + ".so")
     fns = {}

@@ -49,8 +49,8 @@ VARIANTS = {
     "no_edges_pe": [NO_EDGES, NO_PE],
     "no_sin": [(SIN, "__fadd_rn(__fmul_rn(fe[fi[j]], fr[j]), ph[j])")],
     "no_zln": [("      sum = warp_sum(sum);\n      ss = warp_sum(ss);\n", "")],
-    "no_copy": [("  for (int e = hh; e < n; e += 2) {\n    const float* xrow",
-                 "  for (int e = hh; e < 0; e += 2) {\n    const float* xrow")],
+    "no_copy": [("  for (int e = hh; e < n; e += 2) {\n    const T* xrow",
+                 "  for (int e = hh; e < 0; e += 2) {\n    const T* xrow")],
     "no_compute": [("        if (nh == 0) continue;", "        if (nh >= 0) continue;")],
     "no_reduce": [("const float sum = reduce_scatter32(p, lane);",
                    "const float sum = p[0] + p[31];")],
@@ -88,8 +88,8 @@ def main():
                 raise RuntimeError(f"{name}: the source no longer has {old[:40]!r}")
             variant = variant.replace(old, new)
         (src_dir / f"fused_stack_{name}.cu").write_text(variant)
-    for name in _build.SOURCES.values():
-        (src_dir / name).write_text((_build.CSRC / name).read_text())
+    for path in _build.CSRC.iterdir():  # the sources and the headers they include
+        (src_dir / path.name).write_text(path.read_text())
     _build.CSRC = src_dir
     _build.SOURCES.update({f"fused_stack_{n}": f"fused_stack_{n}.cu" for n in VARIANTS})
     for name, log in _build.build_all().items():

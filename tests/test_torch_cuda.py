@@ -18,6 +18,12 @@ dv) by the same rules against the plain backward: bf16 within twice the
 bf16 plain backward's own error, plus 1e-5, of the f32 plain backward on
 the same inputs; f32 within 1e-5 of each tensor's largest magnitude; pad
 rows' dq and masked keys' dk/dv exactly zero; two launches bitwise equal.
+Flash attention at head widths that are not multiples of 16 (D = 40, 8)
+goes through the same gates: the wrapper zero-pads D. The bf16
+instantiations of the edge core and the fused stack by the same 2x rule:
+the kernel's max error against the f32 plain version at most twice the
+bf16 plain version's, plus 1e-5 (BF16_ATOL); rows with no valid edge
+exactly zero, two launches bitwise equal; a wrong or mixed dtype raises.
 """
 
 from pathlib import Path
@@ -42,12 +48,14 @@ from prosim_torch.ops.fused_stack import (
     fused_two_site_stack_plain,
     pack_site_weights,
 )
+from prosim_torch.ops.mlp import Dense
 from prosim_torch.ops.neighbors import neighbor_topk, neighbor_topk_plain
 from prosim_torch.utils.params import init_params
 
 pytestmark = pytest.mark.gpu
 
 ROOT = Path(__file__).resolve().parent.parent
+BF16_ATOL = 1e-5  # the 2x rule's absolute term, as flash attention's
 
 TOPK_CASES = {  # name: (Q, S, k, radius, exclude_self, grid step of positions or 0)
     "random": (24, 40, 8, None, False, 0),
@@ -219,6 +227,60 @@ def test_edge_kernel_refuses_other_inputs(cuda):
     assert edge_attn_core.launches == before
 
 
+def _two_x(got, ref32, ref16, what):
+    """The 2x rule over tuples of outputs: max error of `got` against the
+    f32 plain version at most twice the bf16 plain version's, plus BF16_ATOL."""
+    err = max(float((g.float() - r).abs().max()) for g, r in zip(got, ref32))
+    err16 = max(float((g.float() - r).abs().max()) for g, r in zip(ref16, ref32))
+    assert err <= 2 * err16 + BF16_ATOL, (what, err, err16)
+
+
+# (K, D, Dp, H): both regimes; D and Dp multiples of 8 (16-byte copies of
+# bf16 rows) and not (value by value)
+EDGE_BF16_CASES = [(7, 128, 96, 8), (33, 128, 96, 8), (160, 128, 96, 8), (768, 128, 96, 8),
+                   (40, 32, 24, 4), (50, 30, 18, 8), (300, 30, 18, 2)]
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("K,D,Dp,H", EDGE_BF16_CASES)
+def test_edge_kernel_bf16_matches_plain(cuda, K, D, Dp, H, prefix):
+    """The bf16 instantiation on bf16 tables and queries: by the 2x rule
+    against the f32 plain version on the same values, outputs in bf16,
+    rows with no valid edge exactly zero, two launches bitwise equal."""
+    x_src, idx, z_r, qx, qp, valid = _edge_inputs(cuda, 2, 8, K, D, Dp, H, 300, seed=K + H,
+                                                  prefix=prefix)
+    bf = [t.to(torch.bfloat16) for t in (x_src, z_r, qx, qp)]
+    args16 = (bf[0], idx, bf[1], bf[2], bf[3], valid, 0.25)
+    before = edge_attn_core.launches
+    got = edge_attn_core(*args16)
+    again = edge_attn_core(*args16)
+    ref16 = edge_attn_core_plain(*args16)
+    ref32 = edge_attn_core_plain(bf[0].float(), idx, bf[1].float(), bf[2].float(), bf[3].float(),
+                                 valid, 0.25)
+    torch.cuda.synchronize()
+    assert edge_attn_core.launches == before + 2
+    assert all(o.dtype == torch.bfloat16 for o in got)
+    _two_x(got, [r.expand_as(g) for r, g in zip(ref32, got)], [r.expand_as(g) for r, g in
+                                                               zip(ref16, got)], "edge bf16")
+    empty = ~valid.any(-1)
+    assert all(float(o[empty].float().abs().max()) == 0.0 for o in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_edge_kernel_refuses_mixed_dtypes(cuda):
+    """One value table in another dtype than the rest, or a dtype without an
+    instantiation, raises a TypeError: nothing is cast, nothing launched."""
+    x_src, idx, z_r, qx, qp, valid = _edge_inputs(cuda, 1, 4, 8, 32, 24, 2, 10, seed=0)
+    bf = torch.bfloat16
+    before = edge_attn_core.launches
+    for args in ((x_src.to(bf), idx, z_r, qx.to(bf), qp.to(bf)),
+                 (x_src, idx, z_r.to(bf), qx, qp),
+                 (x_src.half(), idx, z_r.half(), qx.half(), qp.half())):
+        with pytest.raises(TypeError):
+            edge_attn_core(*args, valid, 0.25)
+    assert edge_attn_core.launches == before
+
+
 def test_topk_kernel_radius_rounds_like_jax(cuda):
     """r = 255.14771324126028: float32(r) squared in float32 is 65100.36,
     which keeps a source at (255.14772, 0) (d2 = 65100.36), as the JAX
@@ -256,6 +318,8 @@ FLASH_CASES = [
     (3, 100, 8, 2, 64), (3, 200, 8, 2, 128), (2, 64, 4, 1, 128), (2, 77, 4, 4, 32),
     (2, 390, 32, 8, 128), (2, 150, 8, 1, 16), (2, 333, 8, 4, 64), (3, 384, 4, 2, 16),
     (2, 129, 8, 8, 128), (2, 500, 16, 2, 128), (2, 45, 2, 2, 16),
+    # head widths the wrapper zero-pads to a multiple of 16
+    (2, 120, 8, 2, 40), (2, 70, 4, 4, 8),
 ]
 
 
@@ -332,6 +396,7 @@ def test_flash_attn_refuses_other_inputs(cuda):
 FLASH_BWD_CASES = [
     (2, 384, 32, 8, 128), (3, 384, 4, 2, 16), (3, 100, 8, 2, 64), (2, 77, 4, 4, 32),
     (2, 150, 8, 1, 16), (2, 129, 8, 8, 128), (2, 45, 2, 2, 16), (2, 333, 8, 4, 48),
+    (2, 120, 8, 2, 40), (2, 70, 4, 4, 8),
 ]
 
 
@@ -631,6 +696,67 @@ def test_fused_stack_kernel_refuses_other_widths(cuda, D, H, hd, pe_dim, num_fea
     with pytest.raises(ValueError):
         fused_two_site_stack(x, ta, tm, wa, wm, num_heads=H, head_dim=hd)
     assert fused_two_site_stack.launches == before
+
+
+@pytest.mark.parametrize("case", ["jax_test_widths", "demo_widths", "short_rows", "k1",
+                                  "k_not_multiple_of_8", "d_ne_p"])
+def test_fused_stack_kernel_bf16_matches_plain(cuda, case):
+    """The bf16 instantiation: x, the source tokens and the weights (packed
+    in bf16 from the same layers) in bf16, feats f32; by the 2x rule against
+    the f32 plain version with the f32 weights, on the same bf16-rounded x
+    and sources; two launches bitwise equal."""
+    B, N, D, H, hd, L, Sa, Ka, Sm, Km, *opts = FUSED_CASES[case]
+    x, (ta, tm), (wa, wm) = _fused_inputs(cuda, B, N, D, H, hd, L, Sa, Ka, Sm, Km, len(case),
+                                          **(dict(opts[0]) if opts else {}))
+    bf = torch.bfloat16
+    x16 = x.to(bf)
+    t16 = [(t[0].to(bf),) + t[1:] for t in (ta, tm)]
+    t32 = [(t[0].float(),) + t[1:] for t in t16]
+    with torch.no_grad():
+        w16 = [[w.to(bf) for w in ws] for ws in (wa, wm)]
+    kw = dict(num_heads=H, head_dim=hd)
+    before = fused_two_site_stack.launches
+    got = fused_two_site_stack(x16, *t16, *w16, **kw)
+    again = fused_two_site_stack(x16, *t16, *w16, **kw)
+    ref16 = fused_two_site_stack_plain(x16, *t16, *w16, **kw)
+    ref32 = fused_two_site_stack_plain(x16.float(), *t32, wa, wm, **kw)
+    torch.cuda.synchronize()
+    assert fused_two_site_stack.launches == before + 2
+    assert got.dtype == bf and bool(torch.isfinite(got).all())
+    _two_x([got], [ref32], [ref16], "fused bf16")
+    assert torch.equal(got, again)
+
+
+def test_fused_stack_kernel_refuses_mixed_dtypes(cuda):
+    x, (ta, tm), (wa, wm) = _fused_inputs(cuda, 1, 4, 32, 4, 8, 1, 6, 3, 8, 5, 0)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        w16 = [w.to(bf) for w in wa], [w.to(bf) for w in wm]
+    t16 = [(t[0].to(bf),) + t[1:] for t in (ta, tm)]
+    before = fused_two_site_stack.launches
+    for args in ((x, *t16, *w16),              # f32 x, bf16 rest
+                 (x.to(bf), ta, tm, *w16),     # f32 sources
+                 (x.to(bf), *t16, wa, wm),     # f32 weights
+                 (x.to(bf), *[(t[0], t[1], t[2].to(bf), t[3]) for t in t16], *w16)):  # bf16 feats
+        with pytest.raises(TypeError):
+            fused_two_site_stack(*args, num_heads=4, head_dim=8)
+    assert fused_two_site_stack.launches == before
+
+
+def test_dense_bf16_adds_the_bias_after_the_product(cuda):
+    """Dense in bf16 on the card: the product rounds, then the bf16 bias is
+    added and the sum rounds (flax's order), not a fused add before the
+    rounding; parameters stay f32."""
+    layer = Dense(64, 32, dtype=torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        layer.bias.fill_(1.0 + 2 ** -9)
+    x = torch.randn((16, 64), device=cuda)
+    with torch.inference_mode():
+        got = layer(x)
+        bf = torch.bfloat16
+        want = torch.nn.functional.linear(x.to(bf), layer.weight.to(bf)) + layer.bias.to(bf)
+    assert got.dtype == bf and layer.weight.dtype == torch.float32
+    assert torch.equal(got, want)
 
 
 def test_wrappers_refuse_cpu_and_cuda_mix(cuda):

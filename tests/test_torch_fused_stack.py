@@ -262,9 +262,9 @@ def test_rollout_packs_weights_once(fused_model, monkeypatch):
     model, batch = fused_model
     calls = []
 
-    def counting_pack(module, site):
+    def counting_pack(module, site, *dtype):
         calls.append(site)
-        return tfs.pack_site_weights(module, site)
+        return tfs.pack_site_weights(module, site, *dtype)
 
     monkeypatch.setattr(policy_mod, "pack_site_weights", counting_pack)
     out = model(batch)
