@@ -35,7 +35,12 @@ instantiations. Phases:
                 rule against the plain backward in f32, f32 within
                 FLASH_F32_TOL of each tensor's largest magnitude; pad rows'
                 dq and masked keys' dk/dv exactly zero, also with NaN in the
-                pad rows; two launches bitwise equal), and at a head width
+                pad rows; two launches bitwise equal; one launch each of its
+                prep, dkv and dq kernels a call, each one's device ms and,
+                from the build's ptxas log, registers and spill stores
+                logged), the backward also at the Llama3-8B shape on the
+                mask of phase 8's first train batch (29 valid tokens a
+                scene), and at a head width
                 of 40 (the wrapper pads it to 48) in both dtypes, forward
                 and backward, by the same gates. The bf16 instantiations:
                 B2 on the same real graphs and B3 on the same real tables,
@@ -115,12 +120,22 @@ instantiations. Phases:
                 (prompt_mask_pred_loss among them), every layer's q/k/v
                 lora_b gradient non-zero at the first step, the LoRA and
                 adapter leaves moved, the frozen body bitwise unchanged
-                with no .grad. At B=2: the kernel step against the dense
-                plain attention's step (Llama3-8B width: a plain path with
-                f32 attention: the loss within TRAIN_LOSS_RTOL and the
-                LoRA/adapter gradients by the 2x rule against the plain path
-                with bf16 attention; tiny(): the loss within TRAIN_LOSS_RTOL
-                and each leaf within TRAIN_GRAD_TOL), then
+                with no .grad. At B=2, at the weights before the fit (the
+                seeded init with ln_prompt's bias and the lora_b leaves
+                drawn, restored before the fit): the kernel step against the
+                dense plain attention's step (Llama3-8B width: a plain path
+                with f32 attention; on the first batch the loss within
+                TRAIN_LOSS_RTOL and the worst LoRA/adapter leaf by the 2x
+                rule against the plain path with bf16 attention; on each of
+                GRAD_PARITY_BATCHES batches the LoRA leaves' gradient error,
+                as one norm, by the same rule; every B4 backward launch of
+                the kernel steps, observed through
+                flash_attn.backward_observers, by the 2x rule against the
+                plain backward in f32 and bf16 on its own inputs; tiny():
+                the loss within TRAIN_LOSS_RTOL, each leaf within
+                TRAIN_GRAD_TOL and every launch against the plain backward
+                in f64 within 2x the f32 plain backward's error plus 1e-5,
+                each tensor relative to its largest), then
                 evaluate and rollout_callback (M=4) finite through B4's eval
                 launch.
 Any failure raises and exits non-zero. Each phase prints its time. The
@@ -151,6 +166,7 @@ TRAIN_YAML = "configs/no_text.yaml"
 TRAIN_STEPS = 4          # one warm-up step, three timed
 TRAIN_LOSS_RTOL = 1e-5   # B1 kernel step vs plain top-K step: B1 is bit-equal to its plain version
 TRAIN_GRAD_TOL = 1e-4    # of each gradient leaf's largest magnitude
+GRAD_PARITY_BATCHES = 4  # B=2 batches (seeds 1..4) of the bf16 8B gradient check
 DETERMINISM_RTOL = 1e-6  # two runs of one train step, in loss
 TEXT_OPTS = ["MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.ARCH", "llama3_8b"]
 TEXT_TRAIN_YAML = "configs/with_text.yaml"
@@ -175,7 +191,7 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
 KERNEL_NAMES = {  # a substring of the name of one CUDA kernel each wrapper call launches once
     "neighbor_topk": "neighbor_topk_", "edge_attn_core": "edge_attn_kernel",
     "fused_two_site_stack": "fused_stack_kernel", "causal_attention": "flash_attn_",
-    "causal_attention_bwd": "flash_bwd_delta_kernel"}
+    "causal_attention_bwd": "flash_bwd_prep_kernel"}
 
 
 def log(*a):
@@ -197,12 +213,13 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters):
+def device_ms(torch, fn, iters, by_name=False):
     """Device time per call: the durations of the device operations (kernels,
     memsets, copies) the calls enqueue, from torch.profiler, over `iters`
     calls after a warm-up; the host's launch time is not in it. A trace
     with no device event (the profiler has returned one, once) is taken
-    again, up to three times."""
+    again, up to three times. With `by_name`, also {operation name: ms per
+    call} and {operation name: launches per call}."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -214,9 +231,36 @@ def device_ms(torch, fn, iters):
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
-            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+            total = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+            if not by_name:
+                return total
+            names, counts = {}, {}
+            for e in events:
+                names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+                counts[e.name] = counts.get(e.name, 0) + 1 / iters
+            return total, names, counts
         log("device_ms: the profiler recorded no device time; profiling again")
     raise RuntimeError("the profiler recorded no device time in three traces")
+
+
+def ptxas_usage(log_text):
+    """{mangled kernel name: (registers, spill store bytes)} from nvcc's
+    -Xptxas -v output."""
+    import re
+
+    usage, name, spill = {}, None, 0
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name] = (int(m.group(1)), spill)
+            name = None
+    return usage
 
 
 def times(torch, fn, iters):
@@ -632,15 +676,34 @@ def flash_bwd_cost(token_mask, Hq, D, Hkv, dtype):
     return {"bytes": read + write, "ops": 10 * Hq * D * pairs, "peak": peak}
 
 
-def check_flash_bwd(torch, cfg_llm, B, text_len, block, site):
+FLASH_BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")  # one launch each a call
+
+
+def flash_bwd_usage(ptxas, dtype, D):
+    """{kernel: (registers, spill store bytes)} of B4-bwd's three kernels
+    in the instantiation a (dtype, padded D) launch runs, from the build's
+    ptxas log (empty where this process did not compile them)."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    keys = {"flash_bwd_prep": "flash_bwd_prep_kernelI" + ("13__nv_bfloat16E" if bf16 else "fE"),
+            "flash_bwd_dkv": f"flash_bwd_dkv_{'' if bf16 else 'f32_'}kernelILi{D}E",
+            "flash_bwd_dq": f"flash_bwd_dq_{'' if bf16 else 'f32_'}kernelILi{D}E"}
+    return {k: next((u for n, u in ptxas.items() if key in n), None) for k, key in keys.items()}
+
+
+def check_flash_bwd(torch, cfg_llm, B, text_len, block, site, mask=None, ptxas=None):
     """B4's backward at a Llama's shape and dtype, on the forward kernel's
-    out and lse, with an upstream gradient zero on pad rows. bf16: the
+    out and lse, with an upstream gradient zero on pad rows; the mask is
+    the tokenizer's holed layout unless one is given. bf16: the
     kernel's max dq/dk/dv error against the plain backward in f32 on the
     same inputs at most 2x the bf16 plain backward's, plus 1e-5 (valid rows
     and keys). f32: within FLASH_F32_TOL of each tensor's largest magnitude.
     Pad rows' dq and masked keys' dk/dv exactly zero, also with NaN in every
     pad row of q, k, v, out and dO; two launches bitwise equal. Times beside
-    the backward of scaled_dot_product_attention (bool mask, GQA)."""
+    the backward of scaled_dot_product_attention (bool mask, GQA); the
+    device ms of each of the three kernels (FLASH_BWD_KERNELS) and, from
+    the build's ptxas log, each one's registers and spill stores."""
     import torch.nn.functional as F
     from prosim_torch.ops.flash_attn import (
         _flash_fwd,
@@ -653,7 +716,8 @@ def check_flash_bwd(torch, cfg_llm, B, text_len, block, site):
     gen = torch.Generator(device="cuda").manual_seed(5)
     rnd = lambda h: torch.randn((B, T, h, D), generator=gen, device="cuda").to(dtype)  # noqa: E731
     q, k, v = rnd(Hq), rnd(Hkv), rnd(Hkv)
-    mask = text_layout_mask(torch, B, text_len, block, seed=5)
+    if mask is None:
+        mask = text_layout_mask(torch, B, text_len, block, seed=5)
     scale = 1.0 / D ** 0.5
     out, lse = _flash_fwd(q, k, v, mask, scale, with_lse=True)
     do = (torch.randn(q.shape, generator=gen, device="cuda") * mask[:, :, None, None]).to(dtype)
@@ -696,7 +760,16 @@ def check_flash_bwd(torch, cfg_llm, B, text_len, block, site):
                              "NaN in pad rows reached a gradient")
     del poisoned, dirty, again
     bwd = lambda: causal_attention_bwd(q, k, v, out, lse, do, mask, scale)  # noqa: E731
-    ms, wall_ms = times(torch, bwd, 20)
+    ms, names, counts = device_ms(torch, bwd, 20, by_name=True)
+    wall_ms = cuda_ms(torch, bwd, 20)
+    per_kernel = {kern: sum(t for n, t in names.items() if kern + "_" in n)
+                  for kern in FLASH_BWD_KERNELS}
+    launched = {kern: sum(c for n, c in counts.items() if kern + "_" in n)
+                for kern in FLASH_BWD_KERNELS}
+    if any(abs(c - 1) > 1e-9 for c in launched.values()):
+        raise AssertionError(f"causal_attention_bwd[{site}]: kernels launched a call {launched}, "
+                             "not one each of " + ", ".join(FLASH_BWD_KERNELS))
+    usage = flash_bwd_usage(ptxas or {}, dtype, -(-D // 16) * 16)
     plain_ms = device_ms(
         torch, lambda: causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale), 3)
     # yardstick: the backward of one SDPA call, the same boolean mask, GQA
@@ -712,11 +785,19 @@ def check_flash_bwd(torch, cfg_llm, B, text_len, block, site):
     row = dict(site=site, B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, dtype=str(dtype).split(".")[-1],
                valid_tokens=int(mask.sum()), ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
                library_ms=lib_ms, library_wall_ms=lib_wall_ms, max_abs_err=err, **extra,
+               kernel_ms=per_kernel,
+               kernel_usage={k: (None if u is None else {"registers": u[0], "spill_stores": u[1]})
+                             for k, u in usage.items()},
                **flash_bwd_cost(mask, Hq, D, Hkv, dtype))
     log(f"  causal_attention_bwd[{site}] B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} {row['dtype']}: "
         f"err {err:.3e} ({note}); device ms: kernel {ms:.4f}, bound {bound_ms(row):.4f}, plain "
         f"{plain_ms:.4f}, sdpa backward {lib_ms:.4f} ({lib_ms / ms:.2f}x the kernel); wall ms: "
         f"kernel {wall_ms:.4f}, sdpa backward {lib_wall_ms:.4f}")
+    log("    " + ", ".join(
+        f"{kern} {per_kernel[kern]:.4f} ms ("
+        + ("not in this build's log" if usage[kern] is None
+           else f"{usage[kern][0]} registers, {usage[kern][1]} bytes spill stores") + ")"
+        for kern in FLASH_BWD_KERNELS))
     return [row]
 
 
@@ -1297,9 +1378,6 @@ def text_train_phase(torch, root, shape, label, opts, steps=TRAIN_STEPS, device=
 
     from prosim_torch.config import get_config
     from prosim_torch.data.synthetic import make_synthetic_batch
-    from prosim_torch.models.llm import llama
-    from prosim_torch.ops.flash_attn import causal_attention_plain
-    from prosim_torch.train.losses import paired_mse_k
     from prosim_torch.train.optim import param_groups
     from prosim_torch.train.trainer import Trainer
 
@@ -1336,6 +1414,12 @@ def text_train_phase(torch, root, shape, label, opts, steps=TRAIN_STEPS, device=
         # the frozen body, bitwise, on the host (15 GB at Llama3-8B width)
         body = {n: model.get_parameter(n).detach().cpu() for n in frozen}
         p0 = {n: model.get_parameter(n).detach().clone() for n in trained}
+        # B=2 at the weights before the fit, so they depend on no kernel
+        parity = text_grad_parity(torch, cfg, model, trained, llm.cfg.dtype, shape, label,
+                                  device)
+        with torch.no_grad():
+            for n in trained:
+                model.get_parameter(n).copy_(p0[n])
         torch.cuda.reset_peak_memory_stats()
         try:
             trainer.fit(batches[:1], max_steps=1)  # the warm-up step
@@ -1411,74 +1495,7 @@ def text_train_phase(torch, root, shape, label, opts, steps=TRAIN_STEPS, device=
     del batches
     torch.cuda.empty_cache()
 
-    # B=2: the kernel step against plain steps (the dense attention, autograd)
     small = make_synthetic_batch(cfg, batch_size=2, seed=1, device=device, **shape)
-    with torch.no_grad():  # adapters that do work in both factors
-        gen = torch.Generator(device=device).manual_seed(1)
-        for n in trained:
-            if n.endswith(("lora_b", "lora_embed_b")):
-                prm = model.get_parameter(n)
-                prm.copy_(torch.randn(prm.shape, generator=gen, device=device) * 0.02)
-
-    def grad_step():
-        model.zero_grad(set_to_none=True)
-        loss = paired_mse_k(small, model.forward_train(small, seed=7), cfg)["full_loss"]
-        loss.backward()
-        return float(loss.detach()), {n: model.get_parameter(n).grad.detach().clone()
-                                      for n in trained}
-
-    def f32_attention(q, k, v, token_mask, scale):
-        return causal_attention_plain(q.float(), k.float(), v.float(), token_mask,
-                                      scale).to(q.dtype)
-
-    loss_k, g_k = grad_step()
-    before = launch_counts()
-    saved = llama.causal_attention
-    try:
-        llama.causal_attention = f32_attention if llm.cfg.dtype == torch.bfloat16 \
-            else causal_attention_plain
-        loss_p, g_p = grad_step()
-        if llm.cfg.dtype == torch.bfloat16:
-            llama.causal_attention = causal_attention_plain
-            loss_b, g_b = grad_step()
-    finally:
-        llama.causal_attention = saved
-    if launch_counts()["causal_attention"] != before["causal_attention"] or \
-            launch_counts()["causal_attention_bwd"] != before["causal_attention_bwd"]:
-        raise AssertionError(f"text train[{label}]: the plain path launched B4")
-    model.zero_grad(set_to_none=True)
-
-    def leaf_errs(a):
-        return {n: float((a[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
-                for n, g in g_p.items()}
-
-    errs_k = leaf_errs(g_k)
-    worst = max(errs_k, key=errs_k.get)
-    loss_dev = abs(loss_k - loss_p) / abs(loss_p)
-    parity = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": loss_dev,
-              "grad_leaf": errs_k[worst], "grad_leaf_name": worst}
-    if llm.cfg.dtype == torch.bfloat16:
-        errs_b = leaf_errs(g_b)
-        worst_b = max(errs_b.values())
-        loss_dev_b = abs(loss_b - loss_p) / abs(loss_p)
-        parity.update(loss_plain_bf16=loss_b, loss_rel_plain_bf16=loss_dev_b,
-                      grad_leaf_plain_bf16=worst_b)
-        log(f"text train parity[{label}] (B=2): kernel vs plain with f32 attention: loss "
-            f"{loss_k:.8g} vs {loss_p:.8g} (rel {loss_dev:.2e}; plain with bf16 attention "
-            f"{loss_dev_b:.2e}); worst LoRA/adapter leaf {worst} at {errs_k[worst]:.2e} of its "
-            f"max (plain with bf16 attention: worst {worst_b:.2e})")
-        bar = BF16_RULE[0] * worst_b + BF16_RULE[1]
-        if not (loss_dev <= TRAIN_LOSS_RTOL and errs_k[worst] <= bar):
-            raise AssertionError(f"text train[{label}]: kernel step vs plain step: loss {loss_dev} "
-                                 f"(bar {TRAIN_LOSS_RTOL}), worst leaf {errs_k[worst]} (bar {bar})")
-    else:
-        log(f"text train parity[{label}] (B=2): kernel vs plain: loss {loss_k:.8g} vs "
-            f"{loss_p:.8g} (rel {loss_dev:.2e}); worst LoRA/adapter leaf {worst} at "
-            f"{errs_k[worst]:.2e} of its max")
-        if not (loss_dev <= TRAIN_LOSS_RTOL and errs_k[worst] <= TRAIN_GRAD_TOL):
-            raise AssertionError(f"text train[{label}]: kernel step vs plain step: loss "
-                                 f"{loss_dev}, worst leaf {errs_k[worst]}")
-
     # evaluate and the M-replica validation rollout, through B4's eval launch
     for fn in kernel_fns().values():
         fn.launches = 0
@@ -1502,6 +1519,154 @@ def text_train_phase(torch, root, shape, label, opts, steps=TRAIN_STEPS, device=
     del trainer, model, text_attn, llm
     torch.cuda.empty_cache()
     return rec
+
+
+def text_grad_parity(torch, cfg, model, trained, dtype, shape, label, device):
+    """Phase 8 at B=2: the kernel step's loss and LoRA/adapter gradients
+    against plain steps through the dense attention (autograd), and each B4
+    backward launch of the kernel steps against the plain backward on its
+    own inputs (see the module docstring). Draws the lora_b leaves (the
+    caller restores them). Returns the record; raises on a failed gate."""
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.llm import llama
+    from prosim_torch.ops import flash_attn
+    from prosim_torch.ops.flash_attn import causal_attention_bwd_plain, causal_attention_plain
+    from prosim_torch.train.losses import paired_mse_k
+
+    bf16 = dtype == torch.bfloat16
+    smalls = [make_synthetic_batch(cfg, batch_size=2, seed=s, device=device, **shape)
+              for s in range(1, 1 + (GRAD_PARITY_BATCHES if bf16 else 1))]
+    with torch.no_grad():  # adapters that do work in both factors
+        gen = torch.Generator(device=device).manual_seed(1)
+        for n in trained:
+            if n.endswith(("lora_b", "lora_embed_b")):
+                prm = model.get_parameter(n)
+                prm.copy_(torch.randn(prm.shape, generator=gen, device=device) * 0.02)
+    lora = [n for n in trained if "lora" in n]
+
+    def grad_step(batch):
+        model.zero_grad(set_to_none=True)
+        loss = paired_mse_k(batch, model.forward_train(batch, seed=7), cfg)["full_loss"]
+        loss.backward()
+        return float(loss.detach()), {n: model.get_parameter(n).grad.detach().clone()
+                                      for n in trained}
+
+    def f32_attention(q, k, v, token_mask, scale):
+        return causal_attention_plain(q.float(), k.float(), v.float(), token_mask,
+                                      scale).to(q.dtype)
+
+    launch_rows = []  # each backward launch of the kernel steps: (err, bar)
+
+    def hold_launch(inputs, got):
+        """bf16: phase 3's 2x rule against the plain backward in f32. f32:
+        the error of each tensor, over its largest magnitude, against the
+        plain backward in f64, within twice the f32 plain backward's own
+        plus FLASH_F32_TOL (a train step's gradients can cancel to far
+        below their terms, where f32 rounding alone exceeds 1e-5)."""
+        q, k, v, o, lse, do, mask, scale = inputs
+        plain = causal_attention_bwd_plain(q, k, v, o, lse, do, mask, scale)
+        if bf16:
+            ref = causal_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                             do.float(), mask, scale)
+            err_of = lambda xs: max(float((x.float() - r)[mask].abs().max())  # noqa: E731
+                                    for x, r in zip(xs, ref))
+            launch_rows.append((err_of(got), BF16_RULE[0] * err_of(plain) + BF16_RULE[1]))
+        else:
+            ref = causal_attention_bwd_plain(*(x.double() for x in (q, k, v, o, lse, do)), mask,
+                                             scale)
+            err_of = lambda xs: max(  # noqa: E731
+                float((x.double() - r).abs().max()) / max(float(r.abs().max()), 1e-300)
+                for x, r in zip(xs, ref))
+            launch_rows.append((err_of(got), BF16_RULE[0] * err_of(plain) + FLASH_F32_TOL))
+
+    def leaf_errs(a, ref):
+        return {n: float((a[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for n, g in ref.items()}
+
+    def lora_norm_err(a, ref):  # of all LoRA leaves together
+        num = sum(float((a[n] - ref[n]).double().square().sum()) for n in lora)
+        den = sum(float(ref[n].double().square().sum()) for n in lora)
+        return (num / max(den, 1e-300)) ** 0.5
+
+    draws, kernel_launches = [], 0
+    for batch in smalls:
+        before = launch_counts()["causal_attention_bwd"]
+        flash_attn.backward_observers.append(hold_launch)
+        try:
+            loss_k, g_k = grad_step(batch)
+        finally:
+            flash_attn.backward_observers.remove(hold_launch)
+        kernel_launches += launch_counts()["causal_attention_bwd"] - before
+        plain_before = launch_counts()
+        saved = llama.causal_attention
+        try:
+            llama.causal_attention = f32_attention if bf16 else causal_attention_plain
+            loss_p, g_p = grad_step(batch)
+            if bf16:
+                llama.causal_attention = causal_attention_plain
+                loss_b, g_b = grad_step(batch)
+        finally:
+            llama.causal_attention = saved
+        if any(launch_counts()[k] != plain_before[k]
+               for k in ("causal_attention", "causal_attention_bwd")):
+            raise AssertionError(f"text train[{label}]: the plain path launched B4")
+        errs_k = leaf_errs(g_k, g_p)
+        worst = max(errs_k, key=errs_k.get)
+        draw = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                "loss_rel": abs(loss_k - loss_p) / abs(loss_p), "grad_leaf": errs_k[worst],
+                "grad_leaf_name": worst, "lora_norm": lora_norm_err(g_k, g_p)}
+        if bf16:
+            worst_b = max(leaf_errs(g_b, g_p).values())
+            norm_b = lora_norm_err(g_b, g_p)
+            draw.update(loss_plain_bf16=loss_b, loss_rel_plain_bf16=abs(loss_b - loss_p) /
+                        abs(loss_p), grad_leaf_plain_bf16=worst_b,
+                        grad_bar=BF16_RULE[0] * worst_b + BF16_RULE[1],
+                        lora_norm_plain_bf16=norm_b,
+                        lora_norm_bar=BF16_RULE[0] * norm_b + BF16_RULE[1])
+        draws.append(draw)
+    model.zero_grad(set_to_none=True)
+    if not launch_rows or kernel_launches != len(launch_rows):
+        raise AssertionError(f"text train[{label}]: the kernel steps' backward launches "
+                             f"{kernel_launches}, held {len(launch_rows)}")
+    worst_launch = max(launch_rows, key=lambda r: r[0] / r[1])
+    first = draws[0]
+    parity = dict(first, launches_held=len(launch_rows), launch_err=worst_launch[0],
+                  launch_bar=worst_launch[1], draws=draws)
+    if bf16:
+        log(f"text train parity[{label}] (B=2, weights before the fit): kernel vs plain with "
+            f"f32 attention: loss {first['loss_kernel']:.8g} vs {first['loss_plain']:.8g} (rel "
+            f"{first['loss_rel']:.2e}; plain with bf16 attention "
+            f"{first['loss_rel_plain_bf16']:.2e}); worst LoRA/adapter leaf "
+            f"{first['grad_leaf_name']} at {first['grad_leaf']:.2e} of its max (plain with "
+            f"bf16 attention: worst {first['grad_leaf_plain_bf16']:.2e}, bar "
+            f"{first['grad_bar']:.2e}); {len(launch_rows)} backward launches in {len(draws)} "
+            f"batches within the 2x rule (worst {worst_launch[0]:.3e}, bar "
+            f"{worst_launch[1]:.3e}); per batch, the LoRA leaves' gradient error norm / bar "
+            + ", ".join(f"{d['lora_norm']:.3e}/{d['lora_norm_bar']:.3e}" for d in draws)
+            + "; worst leaf / bar " + ", ".join(
+                f"{d['grad_leaf']:.2e}/{d['grad_bar']:.2e}" for d in draws))
+        bad = [i + 1 for i, d in enumerate(draws) if not d["lora_norm"] <= d["lora_norm_bar"]]
+        if not (first["loss_rel"] <= TRAIN_LOSS_RTOL and first["grad_leaf"] <= first["grad_bar"]
+                and worst_launch[0] <= worst_launch[1] and not bad):
+            raise AssertionError(
+                f"text train[{label}]: kernel step vs plain step: loss {first['loss_rel']} (bar "
+                f"{TRAIN_LOSS_RTOL}), worst leaf {first['grad_leaf']} (bar {first['grad_bar']}), "
+                f"worst launch {worst_launch[0]} (bar {worst_launch[1]}), LoRA norm over its bar "
+                f"in batches {bad}")
+    else:
+        log(f"text train parity[{label}] (B=2, weights before the fit): kernel vs plain: loss "
+            f"{first['loss_kernel']:.8g} vs {first['loss_plain']:.8g} (rel "
+            f"{first['loss_rel']:.2e}); {len(launch_rows)} backward launches against the f64 "
+            f"plain backward within 2x the f32 plain's error plus 1e-5 of each tensor's largest "
+            f"(worst {worst_launch[0]:.3e}, bar {worst_launch[1]:.3e}); "
+            f"worst LoRA/adapter leaf {first['grad_leaf_name']} at {first['grad_leaf']:.2e} of "
+            "its max")
+        if not (first["loss_rel"] <= TRAIN_LOSS_RTOL and first["grad_leaf"] <= TRAIN_GRAD_TOL
+                and worst_launch[0] <= worst_launch[1]):
+            raise AssertionError(f"text train[{label}]: kernel step vs plain step: loss "
+                                 f"{first['loss_rel']}, worst leaf {first['grad_leaf']}, worst "
+                                 f"launch {worst_launch[0]} (bar {worst_launch[1]})")
+    return parity
 
 
 def text_train_phases(torch, root, shape):
@@ -1590,6 +1755,7 @@ def main(argv):
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
+    ptxas = ptxas_usage(logs.get("flash_attn_bwd", ""))
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(_build.SOURCES)})")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1639,8 +1805,17 @@ def main(argv):
         lora_rank=ct_cfg.TEXT_ATTN.LORA.R if ct_cfg.TEXT_ATTN.LORA.ENABLE else 0)
     flash_rows_f32 = check_flash(torch, llm_tiny, B_FULL, text_len, AGENTS, "tiny_f32")
     # B4's backward at the same two shapes
-    flash_bwd_rows = check_flash_bwd(torch, llm_cfg, B_FULL, text_len, AGENTS, "llama")
-    flash_bwd_rows_f32 = check_flash_bwd(torch, llm_tiny, B_FULL, text_len, AGENTS, "tiny_f32")
+    flash_bwd_rows = check_flash_bwd(torch, llm_cfg, B_FULL, text_len, AGENTS, "llama",
+                                     ptxas=ptxas)
+    flash_bwd_rows_f32 = check_flash_bwd(torch, llm_tiny, B_FULL, text_len, AGENTS, "tiny_f32",
+                                         ptxas=ptxas)
+    # and at the mask of phase 8's first 8B train batch (its text is ~29
+    # valid tokens a scene), beside SDPA's backward at that mask
+    cfg_tt = get_config(os.path.join(root, TEXT_TRAIN_YAML), TEXT_OPTS)
+    train_mask = make_synthetic_batch(cfg_tt, batch_size=B_FULL, seed=10, device="cuda",
+                                      **shape).conditions[TEXT_KEY]["token_mask"]
+    flash_bwd_rows += check_flash_bwd(torch, llm_cfg, B_FULL, train_mask.shape[1] - AGENTS,
+                                      AGENTS, "llama_train", mask=train_mask, ptxas=ptxas)
     # a head width that is not a multiple of 16 (the wrapper pads it), both
     # dtypes, forward and backward, by the same gates
     d40_rows = []
@@ -1648,7 +1823,7 @@ def main(argv):
         c = dataclasses.replace(llm_tiny, hidden_size=320, num_heads=8, num_kv_heads=2, dtype=dt)
         tag = "d40_" + ("bf16" if dt == torch.bfloat16 else "f32")
         d40_rows += (check_flash(torch, c, 4, 64, 32, tag)
-                     + check_flash_bwd(torch, c, 4, 64, 32, tag))
+                     + check_flash_bwd(torch, c, 4, 64, 32, tag, ptxas=ptxas))
     torch.cuda.empty_cache()
     model_f = ProSim(cfg_fused, device="cuda")
     init_params(model_f, seed=0)

@@ -10,9 +10,13 @@ FUSED_STACK, the fused two-site stack), prompt conditions and the Llama
 text path, the replan loop and the M-replica rollout (`rollout/`), with the
 hand-written CUDA kernels on that path (`ops/neighbors.py`,
 `ops/edge_attn.py`, `ops/fused_stack.py`, `ops/flash_attn.py`, sources
-under `csrc/`); and closed-loop imitation training without the text path
-(`train/`). Entry points run on the card unless the caller passes
-`device="cpu"`. Text training and the rest are listed in ROADMAP.md.
+under `csrc/`); the network body in bf16 (`ProSim(config, device,
+dtype)`); and closed-loop imitation training (`train/`) of
+configs/no_text.yaml and of configs/with_text.yaml, whose causal attention
+has its backward as a CUDA kernel too. Entry points run on the card unless
+the caller passes `device="cpu"`. What is left (the host data pipeline,
+the weight loaders, the farm, CLI and demo, bf16 training) is listed in
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"

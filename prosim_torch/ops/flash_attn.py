@@ -33,7 +33,11 @@ Gradients. With grad mode on and any of q/k/v requiring grad,
 each row's log-sum-exp `lse [B, Hq, T]` (f32; -inf on pad rows) and whose
 backward is csrc/flash_attn_bwd.cu on the card (the counterpart of the
 library kernel's backward, which the JAX package reaches under
-jax.value_and_grad) and `causal_attention_bwd_plain` on the CPU. Its
+jax.value_and_grad) and `causal_attention_bwd_plain` on the CPU. The
+kernel works on each scene's valid rows only: its prep launch lists them
+in order (`valid_rows_plain` is that list's plain version) and the dkv
+and dq launches walk tiles of the list; compaction keeps order, so the
+result is the uncompacted one. Its
 semantics: pad query rows get dq = 0 and contribute nothing; pad keys get
 dk = dv = 0; dk and dv sum over each group's Hq/Hkv query heads. That is the
 dense path's gradient on every valid row: the upstream gradient of a pad
@@ -68,7 +72,7 @@ def _launcher():
 @functools.cache
 def _bwd_launcher():
     fn = _build.load("flash_attn_bwd").flash_attn_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -138,6 +142,23 @@ def causal_attention_bwd_plain(q, k, v, o, lse, do, token_mask, scale: float):
     return dq.to(dt), group(dk), group(dv)
 
 
+def valid_rows_plain(token_mask):
+    """(rows [B, T] int32, counts [B] int32): each scene's valid positions
+    in ascending order, then -1; the plain version of the list the
+    backward's prep launch builds (on the card the entries past a scene's
+    count are left unwritten and never read). Compaction keeps order, so a
+    key s may be attended from a query t (s <= t) exactly when its rank in
+    the list is at most t's."""
+    B, T = token_mask.shape
+    pos = torch.arange(T, dtype=torch.int32, device=token_mask.device).expand(B, T)
+    # valid positions sort first and keep their order (a stable sort)
+    key = torch.where(token_mask, pos, T + pos)
+    rows = key.sort(dim=1, stable=True).values.to(torch.int32)
+    counts = token_mask.sum(dim=1, dtype=torch.int32)
+    past = torch.arange(T, device=token_mask.device)[None] >= counts[:, None]
+    return rows.masked_fill(past, -1), counts
+
+
 def _check_inputs(q, k, v, token_mask):
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -184,7 +205,7 @@ def _flash_fwd(q, k, v, token_mask, scale: float, with_lse: bool):
 
 def causal_attention_bwd(q, k, v, o, lse, do, token_mask, scale: float):
     """(dq, dk, dv). On a CUDA tensor one call of csrc/flash_attn_bwd.cu
-    (its delta, dkv and dq kernels); on a CPU tensor
+    (its prep, dkv and dq kernels); on a CPU tensor
     `causal_attention_bwd_plain`. o, do [B,T,Hq,D] in q's dtype, lse f32
     [B,Hq,T] from the forward."""
     if q.device.type == "cpu":
@@ -200,11 +221,14 @@ def causal_attention_bwd(q, k, v, o, lse, do, token_mask, scale: float):
     q, k, v, o, do = _pad_width(q, k, v, o, do)
     D = q.shape[-1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)  # scratch
+    # scratch the prep launch writes: each scene's valid positions and the
+    # counts; the compacted lse (log2 domain) and delta
+    rows = torch.empty((B * T + B,), dtype=torch.int32, device=q.device)
+    stats = torch.empty((2, B, Hq, -(-T // 64) * 64), dtype=torch.float32, device=q.device)
     err = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        token_mask.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, Hq, Hkv, D, float(scale), _DTYPE_CODE[q.dtype],
+        token_mask.data_ptr(), rows.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, T, Hq, Hkv, D, float(scale), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error {err}")
@@ -212,6 +236,12 @@ def causal_attention_bwd(q, k, v, o, lse, do, token_mask, scale: float):
     if D != D0:
         dq, dk, dv = (t[..., :D0].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
+
+
+# Callables that CausalAttention's backward calls after each backward with
+# its inputs (q, k, v, out, lse, do, token_mask, scale) and its (dq, dk,
+# dv): a check can hold every backward of a train step on its own inputs.
+backward_observers = []
 
 
 class CausalAttention(torch.autograd.Function):
@@ -233,8 +263,10 @@ class CausalAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, token_mask = ctx.saved_tensors
-        dq, dk, dv = causal_attention_bwd(q, k, v, out, lse, do.contiguous(), token_mask,
-                                          ctx.scale)
+        do = do.contiguous()
+        dq, dk, dv = causal_attention_bwd(q, k, v, out, lse, do, token_mask, ctx.scale)
+        for fn in backward_observers:
+            fn((q, k, v, out, lse, do, token_mask, ctx.scale), (dq, dk, dv))
         return dq, dk, dv, None, None
 
 

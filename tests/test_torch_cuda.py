@@ -19,7 +19,10 @@ bf16 plain backward's own error, plus 1e-5, of the f32 plain backward on
 the same inputs; f32 within 1e-5 of each tensor's largest magnitude; pad
 rows' dq and masked keys' dk/dv exactly zero; two launches bitwise equal.
 Flash attention at head widths that are not multiples of 16 (D = 40, 8)
-goes through the same gates: the wrapper zero-pads D. The bf16
+goes through the same gates: the wrapper zero-pads D. The backward works
+on each scene's valid rows only (compacted in order), so it is also held
+at masks that stress that: an empty scene, one token a scene, rows only in
+the prompt block, counts off the tiles, the train step's layout, no pad. The bf16
 instantiations of the edge core and the fused stack by the same 2x rule:
 the kernel's max error against the f32 plain version at most twice the
 bf16 plain version's, plus 1e-5 (BF16_ATOL); rows with no valid edge
@@ -392,18 +395,30 @@ def test_flash_attn_refuses_other_inputs(cuda):
 
 
 # (B, T, Hq, Hkv, D) of the backward: the Llama3-8B text shape, tiny()'s,
-# and T off the 32/64-row tiles with Hq/Hkv of 1, 2 and 4
+# T off the 32/64-row tiles with Hq/Hkv of 1, 2 and 4, and head counts that
+# leave the prep's last block of query heads short (5, 6 and 9 heads)
 FLASH_BWD_CASES = [
     (2, 384, 32, 8, 128), (3, 384, 4, 2, 16), (3, 100, 8, 2, 64), (2, 77, 4, 4, 32),
     (2, 150, 8, 1, 16), (2, 129, 8, 8, 128), (2, 45, 2, 2, 16), (2, 333, 8, 4, 48),
-    (2, 120, 8, 2, 40), (2, 70, 4, 4, 8),
+    (2, 120, 8, 2, 40), (2, 70, 4, 4, 8), (2, 100, 6, 6, 64), (2, 90, 5, 5, 32),
+    (2, 70, 9, 9, 16),
 ]
 
 
-def _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, dtype, seed):
-    """q/k/v/mask, the kernel forward's out and lse, and an upstream
-    gradient do (random, zero on pad rows)."""
-    q, k, v, mask = _flash_inputs(cuda, B, T, Hq, Hkv, D, seed=seed, dtype=dtype)
+def _poison_allocator(cuda, *likes):
+    """Free blocks of NaN the size of each tensor in `likes`, so that the
+    outputs torch.empty_like allocates next hold NaN until the kernel writes
+    them: an output element the kernel never writes then shows."""
+    nans = [torch.full_like(x, float("nan")) for x in likes]
+    del nans
+
+
+def _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, dtype, seed, mask=None):
+    """q/k/v/mask (the tokenizer's holed layout unless a mask is given), the
+    kernel forward's out and lse, and an upstream gradient do (random, zero
+    on pad rows)."""
+    q, k, v, holed = _flash_inputs(cuda, B, T, Hq, Hkv, D, seed=seed, dtype=dtype)
+    mask = holed if mask is None else mask.to(cuda)
     out, lse = _flash_fwd(q, k, v, mask, D ** -0.5, with_lse=True)
     gen = torch.Generator(device=cuda).manual_seed(seed + 1)
     do = (torch.randn(q.shape, generator=gen, device=cuda) * mask[:, :, None, None]).to(dtype)
@@ -424,6 +439,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
     q, k, v, mask, out, lse, do = _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, torch.bfloat16, T + D)
     scale = D ** -0.5
     before = causal_attention_bwd.launches
+    _poison_allocator(cuda, q, k, v)
     got = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
     again = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
     f32 = [x.float() for x in (q, k, v, out)]
@@ -452,6 +468,7 @@ def test_flash_bwd_f32_kernel_matches_plain(cuda, B, T, Hq, Hkv, D):
     q, k, v, mask, out, lse, do = _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, torch.float32,
                                                     T + D + 1)
     scale = D ** -0.5
+    _poison_allocator(cuda, q, k, v)
     got = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
     again = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
     ref = causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale)
@@ -479,6 +496,85 @@ def test_flash_bwd_reads_no_pad_row(cuda, dtype):
     got = causal_attention_bwd(*pads[:4], lse, pads[4], mask, 0.1)
     assert all(torch.equal(a, b) for a, b in zip(got, clean))
     assert all(float(x[~mask].float().abs().max()) == 0.0 for x in got)
+
+
+def _compaction_mask(name, B, T, block):
+    """[B, T] masks that stress the backward's compaction of valid rows
+    (the last `block` positions are the prompt block)."""
+    rng = np.random.default_rng(len(name))
+    m = np.zeros((B, T), bool)
+    if name == "no_valid_scene":  # scene 0 empty, the others holed
+        for b in range(1, B):
+            m[b, : rng.integers(1, T - block)] = True
+            m[b, T - block:] = rng.random(block) > 0.5
+    elif name == "single_token":  # one valid token in scenes 0 and 2, the others holed
+        for b in range(B):
+            if b % 2 == 0:
+                m[b, rng.integers(0, T)] = True
+            else:
+                m[b, : rng.integers(1, T - block)] = True
+                m[b, T - block:] = rng.random(block) > 0.5
+    elif name == "prompt_block_only":
+        m[:, T - block:] = rng.random((B, block)) > 0.5
+    elif name == "tile_ragged":  # counts one off the 32- and 64-row tiles
+        for b, n in enumerate((63, 65, 97, 33)[:B]):
+            m[b, :n] = True
+    elif name == "train_layout":  # the 8B train step's: 27 text tokens, 2 prompt slots
+        m[:, :27] = True
+        m[:, T - block + rng.integers(0, block, 2)] = True
+    elif name == "all_valid":
+        m[:] = True
+    return torch.from_numpy(m)
+
+
+COMPACTION_MASKS = ["no_valid_scene", "single_token", "prompt_block_only", "tile_ragged",
+                    "train_layout", "all_valid"]
+
+
+@pytest.mark.parametrize("heads", [(8, 2), (6, 6), (5, 5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_name", COMPACTION_MASKS)
+def test_flash_bwd_compaction_masks(cuda, mask_name, dtype, heads):
+    """The backward works on each scene's valid rows only: at masks with
+    empty scenes, single tokens, prompt-only rows, counts off the tiles,
+    the train step's layout and no pad at all, each dtype's gate (bf16: 2x
+    the bf16 plain backward's error plus 1e-5; f32: 1e-5 of each tensor's
+    largest), two launches bitwise equal, pad rows and masked keys exactly
+    zero (the outputs allocated over NaN), and NaN or inf in every pad row
+    changing nothing; with grouped query heads and with 6 and 5 heads of
+    their own (the prep's last block of query heads then holds fewer heads
+    than its share of the kv heads)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, T, D = 4, 200, 64
+    Hq, Hkv = heads
+    mask = _compaction_mask(mask_name, B, T, 64)
+    q, k, v, mask, out, lse, do = _flash_bwd_inputs(cuda, B, T, Hq, Hkv, D, dtype, 7, mask)
+    scale = D ** -0.5
+    _poison_allocator(cuda, q, k, v)
+    got = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    again = causal_attention_bwd(q, k, v, out, lse, do, mask, scale)
+    f32 = [x.float() for x in (q, k, v, out)]
+    ref = causal_attention_bwd_plain(*f32, lse, do.float(), mask, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    if bool(mask.any()):
+        if dtype == torch.bfloat16:
+            ref_bf16 = causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale)
+            err, err_bf16 = _bwd_err(got, ref, mask), _bwd_err(ref_bf16, ref, mask)
+            assert err <= 2 * err_bf16 + 1e-5, (err, err_bf16)
+        else:
+            for g, r in zip(got, ref):
+                assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    if not bool(mask.all()):
+        assert all(float(x[~mask].float().abs().max()) == 0.0 for x in got)
+        pads = []
+        for x, val in ((q, "nan"), (k, "nan"), (v, "inf"), (out, "nan"), (do, "nan")):
+            x = x.clone()
+            x[~mask] = float(val)
+            pads.append(x)
+        dirty = causal_attention_bwd(*pads[:4], lse, pads[4], mask, scale)
+        assert all(torch.equal(a, b) for a, b in zip(dirty, got))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
