@@ -3,7 +3,10 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (`--kernels-only` stops after phase 3; `--train-only` runs phases 1, 2, 7
-and 8 and writes their records to chiprun_out/chip_smoke_train.json.)
+and 8 and writes their records to chiprun_out/chip_smoke_train.json;
+`--data-only` runs phases 1, 2 and 9, with phases 7 and 8's launch counts
+from their formulas, and writes chiprun_out/chip_smoke_data.json;
+`--data-only --diagnose` adds phase 9's train-step diagnosis.)
 Three configurations of the closed loop are driven at full width: the
 default (the policy's a2p/m2p stack as a layer loop), FUSED_STACK=True
 (the stack as one fused kernel per replan step), and the text-conditioned
@@ -138,6 +141,41 @@ instantiations. Phases:
                 each tensor relative to its largest), then
                 evaluate and rollout_callback (M=4) finite through B4's eval
                 launch.
+  9. data     - the host data pipeline at the demo padding: synthetic WOMD
+                shards (DATA_SCENES scenes in DATA_SHARDS shards, a denser
+                draw than womd_synth's default, logged as a cut: the
+                repository holds no WOMD data) through the port's
+                womd_ingest into a trajdata cache under build/ (ingest
+                scenes/s), the dataset's formatting (scenes/s serial and
+                through the pipelined producer; valid lanes and agents per
+                scene against the padding), the same with DENSE_SCENES
+                scenes at the densest lane draw womd_synth's geometry
+                gives (DENSE_LANES; still sparser than real WOMD maps),
+                loader batches of B=16 (each
+                leaf bitwise equal to the same scenes collated and moved
+                leaf by leaf; exactly one host-to-device copy a batch, its
+                bytes and device ms; 3 slabs for 4 held batches), the layer
+                loop and FUSED_STACK=True on dataset batches (phase 4's
+                launches per forward, finite, deterministic; scenes/s fed
+                from the loader with a cold and a warm format cache, cold on
+                the dense maps, and the device's busy share),
+                configs/no_text.yaml trained through Trainer.fit on dataset
+                batches with its conditions drawn by the ConditionGenerator
+                (one warm-up and three timed steps: every loss term finite,
+                parameters moved, phase 7's B1 launches a step; the
+                producer's host ms a scene by stage meanwhile; with
+                --diagnose, three steps each on the same dataset batches
+                held on the card and on phase 7's synthetic batches, and one
+                profiled step of each), Trainer.evaluate and evaluate_cond_sets
+                over DATA_COND_SETS (finite), configs/with_text.yaml as
+                shipped for 2 steps on OneText conditions from the derived
+                motion tags' texts (phase 8's B4 forward and backward
+                launches a step), and a DeviceSceneBank of the dataset
+                (banked batches bitwise equal to the streamed ones for the
+                same (index, seed) pairs; its device bytes). Phase 9 runs
+                as `chip_smoke.py --data-only` in a process of its own: after
+                phase 8's profiles torch.profiler records no device event in
+                the parent process.
 Any failure raises and exits non-zero. Each phase prints its time. The
 kernels JSON line (B2 and B3 in bf16 as entries of their own) comes just
 before the last line, which is the device JSON.
@@ -171,6 +209,13 @@ DETERMINISM_RTOL = 1e-6  # two runs of one train step, in loss
 TEXT_OPTS = ["MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.ARCH", "llama3_8b"]
 TEXT_TRAIN_YAML = "configs/with_text.yaml"
 TEXT_KEY = "llm_text_OneText"  # with_text.yaml's text condition
+DATA_SCENES, DATA_SHARDS = 64, 8  # phase 9's synthetic WOMD shards
+DATA_AGENTS, DATA_LANES = (64, 160), (16, 48)  # a scene's draw (womd_synth defaults: 8-32, 4-12)
+# womd_synth's lanes are parallel, 3.6 m apart: the 200 m map range keeps
+# about 110 of them, ~300 valid lane slots a scene at most
+DENSE_SCENES, DENSE_LANES = 32, (96, 160)
+DATA_ENV = "waymo_train"
+DATA_COND_SETS = ["goal_1.0", "all_no_text_0.25"]  # configs/cond_sampler sets of phase 9
 FLASH_BWD_REPLACES = (  # the library Pallas kernels B4's backward replaces (jax 0.9.0)
     "jax/experimental/pallas/ops/tpu/flash_attention.py:941",   # _flash_attention_bwd_dkv
     "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")  # _flash_attention_bwd_dq
@@ -760,15 +805,23 @@ def check_flash_bwd(torch, cfg_llm, B, text_len, block, site, mask=None, ptxas=N
                              "NaN in pad rows reached a gradient")
     del poisoned, dirty, again
     bwd = lambda: causal_attention_bwd(q, k, v, out, lse, do, mask, scale)  # noqa: E731
-    ms, names, counts = device_ms(torch, bwd, 20, by_name=True)
+    # The profiler can lose device events (seen once here: every kernel of
+    # one of 20 calls); a trace whose launches are not one each a call is
+    # taken again, as profile_forward does, and three such traces fail.
+    for _ in range(3):
+        ms, names, counts = device_ms(torch, bwd, 20, by_name=True)
+        launched = {kern: sum(c for n, c in counts.items() if kern + "_" in n)
+                    for kern in FLASH_BWD_KERNELS}
+        if all(abs(c - 1) <= 1e-9 for c in launched.values()):
+            break
+        log(f"causal_attention_bwd[{site}]: the trace holds {launched} launches a call; "
+            "profiling again")
+    else:
+        raise AssertionError(f"causal_attention_bwd[{site}]: kernels launched a call {launched} "
+                             "in three traces, not one each of " + ", ".join(FLASH_BWD_KERNELS))
     wall_ms = cuda_ms(torch, bwd, 20)
     per_kernel = {kern: sum(t for n, t in names.items() if kern + "_" in n)
                   for kern in FLASH_BWD_KERNELS}
-    launched = {kern: sum(c for n, c in counts.items() if kern + "_" in n)
-                for kern in FLASH_BWD_KERNELS}
-    if any(abs(c - 1) > 1e-9 for c in launched.values()):
-        raise AssertionError(f"causal_attention_bwd[{site}]: kernels launched a call {launched}, "
-                             "not one each of " + ", ".join(FLASH_BWD_KERNELS))
     usage = flash_bwd_usage(ptxas or {}, dtype, -(-D // 16) * 16)
     plain_ms = device_ms(
         torch, lambda: causal_attention_bwd_plain(q, k, v, out, lse, do, mask, scale), 3)
@@ -1103,6 +1156,27 @@ def text_parity(torch, model, small, plain, flash_plain):
         raise AssertionError(f"text: conditioned embedding deviates by {dev} > {bar} "
                              f"(2x the bf16 plain path's {dev_bf16} + 1e-5)")
     return {"embedding_dev": dev, "embedding_dev_plain_bf16": dev_bf16, "rollout_dxy_m": dxy}
+
+
+def train_launches():
+    """B1's launches a train step of phases 7 and 9 (each forward's graphs,
+    again in its recompute) and B4's forward and backward launches a step of
+    configs/with_text.yaml as shipped (the tiny() Llama)."""
+    from prosim_torch.models.llm.llama import LlamaConfig
+
+    tiny = LlamaConfig.tiny()
+    return 2 * (4 + 2 * REPLAN), {
+        "causal_attention": (3 if tiny.remat else 2) * tiny.num_layers,
+        "causal_attention_bwd": tiny.num_layers}
+
+
+def forward_launches():
+    """Each kernel's launches per forward of the full-width closed loop: the
+    layer loop's and FUSED_STACK=True's."""
+    steps = 2 + 2 + 2 * REPLAN  # graph builds: scene encoder, decoder, policy per step
+    want = {"neighbor_topk": steps, "edge_attn_core": LAYERS * steps, "fused_two_site_stack": 0,
+            "causal_attention": 0, "causal_attention_bwd": 0}
+    return want, dict(want, edge_attn_core=LAYERS * 4, fused_two_site_stack=REPLAN)
 
 
 def run_rollout(torch, cfg, model, batch, want, label):
@@ -1677,12 +1751,486 @@ def text_train_phases(torch, root, shape):
             "llama3_8b": text_train_phase(torch, root, shape, "llama3_8b", TEXT_OPTS)}
 
 
-def profile_train_step(torch, trainer, batch):
-    """One more train step under torch.profiler: its wall time, the device
-    time by kernel family and the busiest kernels."""
+
+def bitwise_equal(torch, a, b):
+    """Same dtype, shape and bytes (NaNs in the same places)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def assert_batches_equal(torch, got, want, what):
+    from prosim_torch.data.batch import tree_leaves_with_path
+
+    la, lb = tree_leaves_with_path(got), tree_leaves_with_path(want)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        raise AssertionError(f"{what}: the batches' leaves differ")
+    bad = [p for (p, x), (_, y) in zip(la, lb) if not bitwise_equal(torch, x, y)]
+    if bad:
+        raise AssertionError(f"{what}: leaves differ: {bad[:6]}")
+    return len(la)
+
+
+def device_busy(torch, fn):
+    """(wall ms, device busy ms, the host-to-device copies' profiler events,
+    fn's result): fn under torch.profiler; busy is the union of the device
+    operations' intervals."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not device:
+        raise RuntimeError("the profiler recorded no device time")
+    busy, end = 0.0, None
+    for e in device:
+        s, t = e.time_range.start, e.time_range.end
+        if end is None or s >= end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    h2d = [e for e in device if "HtoD" in e.name]
+    return wall_ms, busy / 1e3, h2d, res
+
+
+def producer_rate(torch, cfg, cache, batch_size):
+    """Scenes/s through `batches` with one producer thread and a cold
+    format cache: formatted, conditioned, collated and copied."""
+    from prosim_torch.data.dataset import ProSimImitationDataset
+
+    cold = ProSimImitationDataset(cfg, "val", cache)
+    t0 = time.perf_counter()
+    n = sum(b.batch_size for b in cold.batches(batch_size, num_workers=1))
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def stage_timer(ds):
+    """Host ms spent in the producer by stage while the block runs: a
+    scene's get_scene_batch (formatting on a format-cache miss, and its
+    conditions), its condition sampling alone, and a batch's collation into
+    a slab with the start of its copy. Yields {stage: [ms, calls]}."""
+    from prosim_torch.data.loader import SlabCollator
+
+    ms = {"get_scene": [0.0, 0], "conditions": [0.0, 0], "collate_copy": [0.0, 0]}
+
+    def timed(fn, stage):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ms[stage][0] += 1e3 * (time.perf_counter() - t0)
+                ms[stage][1] += 1
+        return run
+
+    ship = SlabCollator.ship
+    ds.get_scene_batch = timed(ds.get_scene_batch, "get_scene")
+    ds.cond_gen.generate = timed(ds.cond_gen.generate, "conditions")
+    SlabCollator.ship = timed(ship, "collate_copy")
+    try:
+        yield ms
+    finally:
+        SlabCollator.ship = ship
+        del ds.get_scene_batch, ds.cond_gen.generate
+
+
+def fit_steps(torch, trainer, batches, n):
+    """n more Trainer.fit steps on `batches`: each step's ms by the train
+    log's wall clock (the first includes fetching the first batch) and the
+    caching allocator's retries meanwhile."""
+    first = trainer.step
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    trainer.fit(batches, max_steps=first + n)
+    torch.cuda.synchronize()
+    walls = [r["wall"] for r in map(json.loads, open(trainer.log_path))
+             if "train/full_loss" in r and r["step"] > first]
+    if len(walls) != n:
+        raise AssertionError(f"train: {len(walls)} logged steps, expected {n}")
+    step_ms = [1e3 * walls[0]] + [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    return step_ms, torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+
+
+def data_phase(torch, root, want, want_f, topk_per_step, text_per_step, device="cuda",
+               diagnose=False):
+    """Phase 9: the host data pipeline at the demo padding (see the module
+    docstring); `diagnose` adds the train-step diagnosis. Returns the
+    phase's record; raises on a failed gate."""
+    import shutil
+
+    import numpy as np
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data import womd_ingest, womd_synth
+    from prosim_torch.data.batch import tree_leaves
+    from prosim_torch.data.dataset import ProSimImitationDataset
+    from prosim_torch.data.formatter import collate
+    from prosim_torch.data.scene_bank import DeviceSceneBank, banked_batches
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.train.trainer import Trainer
+    from prosim_torch.utils.params import init_params
+
+    rec = {"cut": f"synthetic WOMD scenes (no WOMD data in the repository): {DATA_SCENES} "
+                  f"scenes in {DATA_SHARDS} shards, {DATA_AGENTS[0]}-{DATA_AGENTS[1]} agents "
+                  f"and {DATA_LANES[0]}-{DATA_LANES[1]} lanes a scene; random weights"}
+    out = os.path.join(root, "build", "chip_smoke_data")
+    shutil.rmtree(out, ignore_errors=True)
+    src = ["DATASET.SOURCE.TRAIN", f"['{DATA_ENV}']", "DATASET.SOURCE.VAL", f"['{DATA_ENV}']",
+           "DATASET.SOURCE.ROLLOUT", f"['{DATA_ENV}']"]
+    B = B_FULL
+    rec["section_s"] = {}
+    last = [time.perf_counter()]
+
+    def lap(section):  # the phase's seconds by section, kept within budget
+        now = time.perf_counter()
+        rec["section_s"][section] = now - last[0]
+        log(f"data: {section}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    free, total = torch.cuda.mem_get_info()
+    rec["device_free_gib_at_start"] = free / 2**30
+    log(f"data: {free / 2**30:.2f} of {total / 2**30:.2f} GiB of device memory free at the start")
+
+    # the data: synthetic shards -> the port's ingest -> a trajdata cache
+    t0 = time.perf_counter()
+    shards = womd_synth.synthesize_shards(os.path.join(out, "shards"), DATA_SCENES, DATA_SHARDS,
+                                          seed=0, agents=DATA_AGENTS, lanes=DATA_LANES)
+    t1 = time.perf_counter()
+    cache = os.path.join(out, "cache")
+    summ = womd_ingest.ingest_shards(shards, cache, DATA_ENV)
+    t2 = time.perf_counter()
+    rec["synth_scenes_per_s"] = DATA_SCENES / (t1 - t0)
+    rec["ingest_scenes_per_s"] = DATA_SCENES / (t2 - t1)
+    rec["agents_per_scene"] = [min(s["agents"] for s in summ), max(s["agents"] for s in summ)]
+    rec["lanes_per_scene"] = [min(s["lanes"] for s in summ), max(s["lanes"] for s in summ)]
+    log(f"data: CUT: {rec['cut']}")
+    log(f"data: synthesized {DATA_SCENES} scenes in {t1 - t0:.2f} s; ingested them "
+        f"({rec['agents_per_scene']} agents, {rec['lanes_per_scene']} lanes a scene) in "
+        f"{t2 - t1:.2f} s: {rec['ingest_scenes_per_s']:.2f} scenes/s (host)")
+
+    lap("synthesis and ingest")
+
+    # formatting, serial and through the pipelined producer (cold caches)
+    cfg = get_config(opts=src)
+    ds = ProSimImitationDataset(cfg, "val", cache)
+    if len(ds) != DATA_SCENES:
+        raise AssertionError(f"data: the dataset holds {len(ds)} scenes")
+    t0 = time.perf_counter()
+    ds.get_scene_batch(0, device=None)  # builds the native lane engine
+    rec["native_build_s"] = time.perf_counter() - t0
+    cold = ProSimImitationDataset(cfg, "val", cache)
+    cold._fmt_cache_cap = 0
+    t0 = time.perf_counter()
+    singles = [cold.get_scene_batch(i, seed=i, device=None) for i in range(DATA_SCENES)]
+    rec["format_serial_scenes_per_s"] = DATA_SCENES / (time.perf_counter() - t0)
+    pad = cfg.DATASET.FORMAT
+    occ = {"lanes": [int(s.init_map.mask.any(-1).sum()) for s in singles],
+           "obs_agents": [int(s.init_obs.mask.any(-1).sum()) for s in singles],
+           "agents": [int(s.prompt.mask.sum()) for s in singles]}
+    rec["valid_per_scene"] = {k: {"mean": float(np.mean(v)), "max": max(v)} for k, v in occ.items()}
+    rec["padding"] = {"lanes": pad.MAP.MAX_POINTS, "obs_agents": pad.PAD.NUM_OBS_AGENTS,
+                      "agents": pad.PAD.NUM_AGENTS}
+    log(f"data: format (host, native lane engine built in {rec['native_build_s']:.2f} s): "
+        f"serial {rec['format_serial_scenes_per_s']:.2f} scenes/s; valid per scene "
+        + ", ".join(f"{k} mean {v['mean']:.1f} max {v['max']} of {rec['padding'][k]}"
+                    for k, v in rec["valid_per_scene"].items()))
+
+    # loader batches: bitwise the plain moves of the same scenes, one
+    # host-to-device copy a batch, slabs reused (prefetch 1: 3 slabs for 4
+    # batches) without corrupting a held batch
+    def loader_pass():
+        return list(ds.batches(B, num_workers=1, prefetch=1))
+
+    # a trace holding fewer copies than batches lost events (the profiler
+    # can); it is taken again, and three such traces fail
+    for attempt in range(3):
+        wall, busy, h2d, held = device_busy(torch, loader_pass)
+        if len(held) != DATA_SCENES // B:
+            raise AssertionError(f"data: the loader gave {len(held)} batches")
+        if len(h2d) >= len(held):
+            break
+        log(f"data: the trace holds {len(h2d)} host-to-device copies for {len(held)} batches; "
+            "profiling again")
+    if len(h2d) != len(held):
+        raise AssertionError(f"data: {len(h2d)} host-to-device copies for {len(held)} batches")
+    for k, got in enumerate(held):
+        ref = collate(singles[k * B:(k + 1) * B]).to(device)
+        n_leaves = assert_batches_equal(torch, got, ref, f"data: loader batch {k}")
+    copy_bytes = sum(int(t.numel() * t.element_size()) for t in tree_leaves(held[0]))
+    rec["loader"] = {"batches": len(held), "leaves": n_leaves, "copies": len(h2d),
+                     "copy_ms": [e.time_range.elapsed_us() / 1e3 for e in h2d],
+                     "leaf_bytes": copy_bytes, "pass_ms": wall, "traces": attempt + 1}
+    log(f"data: loader B={B}: {len(held)} batches of {n_leaves} leaves bitwise equal to plain "
+        f"moves; {len(h2d)} host-to-device copies ({copy_bytes / 2**20:.2f} MiB of leaves a "
+        f"batch), copy ms {['%.3f' % x for x in rec['loader']['copy_ms']]}")
+    del singles
+    # formatting through the pipelined producer, with a cold format cache
+    # (after the loader pass above has set up the pinned host allocator)
+    rec["format_pipelined_scenes_per_s"] = producer_rate(torch, cfg, cache, B)
+
+    # the same on the densest maps womd_synth's geometry gives
+    t0 = time.perf_counter()
+    shards = womd_synth.synthesize_shards(os.path.join(out, "dense_shards"), DENSE_SCENES,
+                                          DATA_SHARDS // 2, seed=1, agents=DATA_AGENTS,
+                                          lanes=DENSE_LANES)
+    t1 = time.perf_counter()
+    dense_cache = os.path.join(out, "dense_cache")
+    womd_ingest.ingest_shards(shards, dense_cache, DATA_ENV)
+    t2 = time.perf_counter()
+    dense = ProSimImitationDataset(cfg, "val", dense_cache)
+    dense._fmt_cache_cap = 0
+    singles = [dense.get_scene_batch(i, seed=i, device=None) for i in range(DENSE_SCENES)]
+    t3 = time.perf_counter()
+    lanes = [int(s.init_map.mask.any(-1).sum()) for s in singles]
+    del singles
+    rec["dense"] = {"scenes": DENSE_SCENES, "lanes_drawn": list(DENSE_LANES),
+                    "ingest_scenes_per_s": DENSE_SCENES / (t2 - t1),
+                    "format_serial_scenes_per_s": DENSE_SCENES / (t3 - t2),
+                    "valid_lanes": {"mean": float(np.mean(lanes)), "max": max(lanes)},
+                    "format_pipelined_scenes_per_s": producer_rate(torch, cfg, dense_cache, B)}
+    d = rec["dense"]
+    log(f"data: dense maps ({DENSE_SCENES} scenes, {DENSE_LANES[0]}-{DENSE_LANES[1]} lanes "
+        f"drawn): valid lane slots mean {d['valid_lanes']['mean']:.1f} max "
+        f"{d['valid_lanes']['max']} of {pad.MAP.MAX_POINTS}; ingest "
+        f"{d['ingest_scenes_per_s']:.2f}, format serial {d['format_serial_scenes_per_s']:.2f} "
+        f"scenes/s (host)")
+    log(f"data: format through the pipelined producer (collated and copied): "
+        f"{rec['format_pipelined_scenes_per_s']:.2f} scenes/s, dense maps "
+        f"{d['format_pipelined_scenes_per_s']:.2f}")
+
+    lap("formatting, loader and dense maps")
+
+    # the closed loop on dataset batches: phase 4's launches, finite and
+    # deterministic, fed by the loader (cold: formatting in the producer;
+    # warm: the format cache hit)
+    rec["rollout"] = {}
+    for label, opts, want_l in (("layer loop", [], want),
+                                ("fused", ["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"],
+                                 want_f)):
+        c = get_config(opts=src + opts)
+        model = ProSim(c, device=device)
+        init_params(model, seed=0)
+        launches, times = run_rollout(torch, c, model, held[0], want_l, f"{label}, dataset")
+        r = {"launches": launches, "forward_s": times, "scenes_per_s": B / times[1]}
+        for tag in ("cold", "dense_cold", "warm"):
+            fed = {"cold": lambda: ProSimImitationDataset(c, "val", cache),
+                   "dense_cold": lambda: ProSimImitationDataset(c, "val", dense_cache),
+                   "warm": lambda: ds}[tag]()
+            n = len(fed)
+
+            def fed_pass():
+                for b in fed.batches(B, num_workers=1):
+                    model(b)
+
+            t0 = time.perf_counter()
+            fed_pass()
+            torch.cuda.synchronize()
+            fwall = 1e3 * (time.perf_counter() - t0)
+            r[f"loader_fed_{tag}"] = {"scenes_per_s": n / fwall * 1e3, "wall_ms": fwall}
+            log(f"rollout[{label}, dataset]: fed from the loader ({tag} format cache) "
+                f"{n / fwall * 1e3:.3f} scenes/s over {n} scenes")
+        # the device's busy share of the warm loader-fed pass, profiled apart
+        # (the profiler's host records slow a host-bound loop)
+        pwall, pbusy, _, _ = device_busy(torch, fed_pass)
+        r["loader_fed_warm"].update(profiled_wall_ms=pwall, busy_ms=pbusy)
+        log(f"rollout[{label}, dataset]: profiled warm loader-fed pass: device busy "
+            f"{pbusy:.1f} of {pwall:.1f} ms ({100 * pbusy / pwall:.1f} %)")
+        rec["rollout"][label] = r
+        del model
+    del held
+    torch.cuda.empty_cache()
+
+    lap("closed loop")
+
+    # training on dataset batches: no_text with its conditions (phase 7's
+    # B1 launches a step), evaluate, evaluate_cond_sets
+    build = os.path.join(root, "build")
+    shutil.rmtree(os.path.join(build, "chip_smoke_data_train"), ignore_errors=True)
+    cfg_t = get_config(os.path.join(root, TRAIN_YAML), src + [
+        "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", "chip_smoke_data_train",
+        "TRAIN.SCHEDULER.WARMUP_STEPS", "0", "TRAIN.REMAT_POLICY", "full",
+        "PROMPT.CONDITION.EVAL_COND_SETS", str(DATA_COND_SETS),
+        "DATASET.SCENE.SAMPLE_RATE.VAL", str(DATA_SCENES // B)])  # one val batch a pass
+    trainer = Trainer(cfg_t, device=device)
+    trainer.setup()
+    ds_t = ProSimImitationDataset(cfg_t, "train", cache)
+    p0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    trainer.fit(lambda: ds_t.batches(B, shuffle=True, seed=1, num_workers=1), max_steps=1)
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    with stage_timer(ds_t) as stages:
+        trainer.fit(lambda: ds_t.batches(B, shuffle=True, seed=2, num_workers=1),
+                    max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+    timed = TRAIN_STEPS - 1
+    launches = launch_counts()
+    recs = [json.loads(line) for line in open(trainer.log_path)]
+    train_recs = [r for r in recs if "train/full_loss" in r]
+    walls = [r["wall"] for r in train_recs[1:]]
+    step_ms = [1e3 * walls[0]] + [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    terms = {k: v for k, v in train_recs[-1].items() if k.startswith("train/")}
+    log(f"data train: {TRAIN_YAML} on dataset batches B={B}, conditions "
+        f"{list(cfg_t.PROMPT.CONDITION.TYPES)}: step ms {['%.1f' % t for t in step_ms]} (the "
+        f"first includes the loader's start); B1 launches per step "
+        f"{launches['neighbor_topk'] / timed:g} (phase 7: {topk_per_step:g}); terms "
+        + ", ".join(f"{k[6:]}={v:.6g}" for k, v in terms.items()))
+    bad = [(r["step"], k) for r in train_recs for k, v in r.items()
+           if k.startswith("train/") and not np.isfinite(v)]
+    if bad or len(train_recs) != TRAIN_STEPS:
+        raise AssertionError(f"data train: non-finite loss terms {bad} or missing steps")
+    if launches["neighbor_topk"] != timed * topk_per_step or any(
+            v for k, v in launches.items() if k != "neighbor_topk"):
+        raise AssertionError(f"data train: kernel launches {launches}, expected "
+                             f"{timed * topk_per_step:g} of B1 only")
+    if max(float((p.detach() - p0[n]).abs().max())
+           for n, p in trainer.model.named_parameters()) == 0.0:
+        raise AssertionError("data train: no parameter moved")
+    del p0
+
+    lap("no_text training")
+
+    # what the producer costs the steps: its host ms by stage (above); with
+    # `diagnose`, the same trainer on the same dataset batches held on the
+    # card (no producer) and on phase 7's synthetic batches, and one profiled
+    # step of each; the allocator's retries say whether memory was short
+    per_scene = {k: v[0] / max(v[1], 1) for k, v in stages.items()}
+    per_scene["format"] = (stages["get_scene"][0] - stages["conditions"][0]) / max(
+        stages["get_scene"][1], 1)
+    diag = {"fed_ms": step_ms, "producer_stage_ms": {k: v for k, v in stages.items()},
+            "producer_ms_per_call": per_scene}
+    log(f"data train: producer host ms a call while fed: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per_scene.items())
+        + f" (calls {[v[1] for v in stages.values()]})")
+    if diagnose:
+        import itertools
+
+        held_t = list(itertools.islice(ds_t.batches(B, shuffle=True, seed=2, num_workers=0),
+                                       timed))
+        synth = [make_synthetic_batch(cfg_t, batch_size=B, seed=10 + i, device=device,
+                                      num_lanes=LANES, num_obs_agents=OBS_AGENTS,
+                                      num_agents=AGENTS, num_replan=REPLAN)
+                 for i in range(timed)]
+        held_ms, held_retries = fit_steps(torch, trainer, held_t, timed)
+        synth_ms, synth_retries = fit_steps(torch, trainer, synth, timed)
+        diag.update({
+            "held_ms": held_ms, "synthetic_ms": synth_ms,
+            "alloc_retries": {"held": held_retries, "synthetic": synth_retries,
+                              "total": torch.cuda.memory_stats().get("num_alloc_retries", 0)},
+            "valid_agents": {"dataset": int(held_t[0].prompt.mask.sum()),
+                             "synthetic": int(synth[0].prompt.mask.sum())},
+            "profiled": {"dataset": profile_train_step(torch, trainer, held_t[0], host=False),
+                         "synthetic": profile_train_step(torch, trainer, synth[0], host=False)}})
+        log(f"data train: step ms fed by the producer {['%.1f' % t for t in step_ms]}; the "
+            f"same batches held on the card {['%.1f' % t for t in held_ms]}; phase 7's "
+            f"synthetic batches {['%.1f' % t for t in synth_ms]}; allocator retries "
+            f"{diag['alloc_retries']}; valid agents in the first batch {diag['valid_agents']}")
+        for tag, pr in diag["profiled"].items():
+            log(f"data train: profiled step on {tag} batches: device busy {pr['busy_ms']:.1f} "
+                f"of {pr['wall_ms']:.1f} ms wall, {pr['launches']} device operations; "
+                + ", ".join(f"{k} {v:.1f}" for k, v in list(pr["families_ms"].items())[:6]))
+        del held_t, synth
+        lap("train step diagnosis")
+    ds_v = ProSimImitationDataset(cfg_t, "val", cache)
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(lambda: ds_v.batches(B, num_workers=1))
+    cond_sets = trainer.evaluate_cond_sets(cache, "val", batch_size=B)
+    eval_s = time.perf_counter() - t0
+    log(f"data eval: evaluate {metrics}; evaluate_cond_sets {cond_sets} ({eval_s:.1f} s)")
+    vals = list(metrics.values()) + [v for m in cond_sets.values() for v in m.values()]
+    if not vals or not all(np.isfinite(v) for v in vals) or list(cond_sets) != DATA_COND_SETS:
+        raise AssertionError("data eval: evaluate or evaluate_cond_sets non-finite or missing")
+    rec["train"] = {"config": TRAIN_YAML, "step_ms": step_ms, "launches": launches,
+                    "terms": terms, "eval": metrics, "cond_sets": cond_sets, "diagnosis": diag}
+    del trainer
+    torch.cuda.empty_cache()
+
+    lap("evaluate and evaluate_cond_sets")
+
+    # with_text.yaml as shipped: OneText conditions from the derived motion
+    # tags' texts (no released texts: motion_tag_texts) through the byte
+    # tokenizer; phase 8's B4 launches a step
+    shutil.rmtree(os.path.join(build, "chip_smoke_data_text"), ignore_errors=True)
+    cfg_x = get_config(os.path.join(root, TEXT_TRAIN_YAML), src + [
+        "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", "chip_smoke_data_text",
+        "TRAIN.SCHEDULER.WARMUP_STEPS", "0", "TRAIN.REMAT_POLICY", "full"])
+    trainer = Trainer(cfg_x, device=device)
+    trainer.setup()
+    text_attn = trainer.model.condition_transformer_policy_decoder.text_attn
+    with torch.no_grad():  # as phase 8: no injected agent row exactly zero
+        gen = torch.Generator(device=device).manual_seed(2)
+        text_attn.ln_prompt.bias.copy_(
+            torch.randn(text_attn.ln_prompt.bias.shape, generator=gen, device=device) * 0.02)
+    ds_x = ProSimImitationDataset(cfg_x, "train", cache)
+    max_text = cfg_x.MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.MAX_TEXT_TOKENS
+    first = ds_x.get_scene_batch(0, seed=0, device=None).conditions[TEXT_KEY]
+    n_text = int(first["token_mask"][0, :max_text].sum())
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    trainer.fit(lambda: ds_x.batches(B, shuffle=True, seed=3, num_workers=1), max_steps=2)
+    torch.cuda.synchronize()
+    launches_x = launch_counts()
+    recs = [json.loads(line) for line in open(trainer.log_path)]
+    terms_x = {k: v for k, v in [r for r in recs if "train/full_loss" in r][-1].items()
+               if k.startswith("train/")}
+    per_step = {k: launches_x[k] / 2 for k in ("causal_attention", "causal_attention_bwd")}
+    log(f"data text train: {TEXT_TRAIN_YAML} as shipped on dataset batches B={B}, scene 0's "
+        f"text {n_text} tokens; B4 per step {per_step} (phase 8: "
+        f"{ {k: text_per_step[k] for k in per_step} }); terms "
+        + ", ".join(f"{k[6:]}={v:.6g}" for k, v in terms_x.items()))
+    if any(per_step[k] != text_per_step[k] for k in per_step):
+        raise AssertionError(f"data text train: B4 launches per step {per_step}")
+    if not all(np.isfinite(v) for v in terms_x.values()) or "train/prompt_mask_pred_loss" \
+            not in terms_x or n_text <= 0:
+        raise AssertionError(f"data text train: terms {terms_x}, text tokens {n_text}")
+    rec["text_train"] = {"config": TEXT_TRAIN_YAML, "per_step": per_step, "terms": terms_x,
+                         "text_tokens_scene0": n_text}
+    del trainer, text_attn
+    torch.cuda.empty_cache()
+
+    lap("with_text training")
+
+    # the scene bank (no_text's conditions): banked batches bitwise the streamed ones
+    ds_v = ProSimImitationDataset(get_config(os.path.join(root, TRAIN_YAML), src), "val", cache)
+    t0 = time.perf_counter()
+    bank = DeviceSceneBank(ds_v, device=device)
+    build_s = time.perf_counter() - t0
+    pairs = [(i, i) for i in range(DATA_SCENES)]
+    t0 = time.perf_counter()
+    banked = list(banked_batches(ds_v, pairs, B, bank=bank, device=device))
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    streamed = list(ds_v.batches(B, num_workers=1))
+    for k, (a, b) in enumerate(zip(banked, streamed)):
+        assert_batches_equal(torch, a, b, f"data: banked batch {k}")
+    if len(banked) != len(streamed) or len(banked) != DATA_SCENES // B:
+        raise AssertionError("data: banked and streamed batch counts differ")
+    rec["bank"] = {"device_bytes": bank.bank_bytes, "per_scene_bytes": bank.per_scene_bytes,
+                   "build_s": build_s, "batches_per_s": len(banked) / bank_s}
+    log(f"data: scene bank of {DATA_SCENES} scenes on the card: {bank.bank_bytes / 2**20:.1f} "
+        f"MiB ({bank.per_scene_bytes / 2**20:.2f} MiB a scene), built in {build_s:.1f} s; "
+        f"{len(banked)} banked batches bitwise equal to the streamed ones "
+        f"({len(banked) / bank_s:.2f} batches/s with conditions sampled on the host)")
+    del bank, banked, streamed
+    torch.cuda.empty_cache()
+    lap("scene bank")
+    return rec
+
+
+def profile_train_step(torch, trainer, batch, host=True):
+    """One more train step under torch.profiler: its wall time, the device
+    time by kernel family and the busiest kernels. host=False traces the
+    device only (a shorter trace to process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         float(trainer._train_step(batch, 0)["full_loss"])
         wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -1764,6 +2312,15 @@ def main(argv):
     phase_done("phases 1-2, device and build")
 
     shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
+    want, want_f = forward_launches()
+    if "--data-only" in argv:
+        rec = {"card": smi, "data": data_phase(torch, root, want, want_f, *train_launches(),
+                                               diagnose="--diagnose" in argv)}
+        phase_done("phase 9, data pipeline")
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out", "chip_smoke_data.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        return 0
     if "--train-only" in argv:
         rec = {"card": smi, "train": train_phase(torch, root, shape),
                "text_train": text_train_phases(torch, root, shape)}
@@ -1843,13 +2400,9 @@ def main(argv):
     # 4. full-width rollout of the three configurations
     model = ProSim(cfg, device="cuda")
     init_params(model, seed=0)
-    steps = 2 + 2 + 2 * REPLAN  # graph builds: scene encoder, decoder, policy per step
-    want = {"neighbor_topk": steps, "edge_attn_core": LAYERS * steps, "fused_two_site_stack": 0,
-            "causal_attention": 0, "causal_attention_bwd": 0}
     launches, times = run_rollout(torch, cfg, model, batch, want, "layer loop")
     per_site, prof = profile_forward(torch, model, batch, topk_rows, edge_rows)
     log_profile("layer loop", per_site, prof)
-    want_f = dict(want, edge_attn_core=LAYERS * 4, fused_two_site_stack=REPLAN)
     launches_f, times_f = run_rollout(torch, cfg_fused, model_f, batch, want_f, "fused")
     per_site_f, prof_f = profile_forward(torch, model_f, batch, topk_rows, edge_rows)
     log_profile("fused", per_site_f, prof_f)
@@ -1881,7 +2434,7 @@ def main(argv):
     n_llm = sum(p.numel() for p in model_t.condition_transformer_policy_decoder.text_attn.llm.parameters())
     log(f"text model: built and initialised on the card in {time.perf_counter() - t0:.1f} s, "
         f"Llama {n_llm / 1e9:.3f} B parameters in {llm_cfg.dtype}")
-    want_t = dict(want, edge_attn_core=LAYERS * steps + ct_cfg.NLAYER,
+    want_t = dict(want, edge_attn_core=want["edge_attn_core"] + ct_cfg.NLAYER,
                   causal_attention=llm_cfg.num_layers)
     launches_t, times_t = run_rollout(torch, cfg_text, model_t, batch_t, want_t, "text")
     per_site_t, prof_t = profile_forward(torch, model_t, batch_t, topk_rows, edge_rows)
@@ -2035,6 +2588,28 @@ def main(argv):
     text_train = text_train_phases(torch, root, shape)
     phase_done("phase 8, text training")
 
+    # 9. the host data pipeline: synthetic WOMD shards through ingest, the
+    # dataset and the loader into the closed loop, the trainer and the bank.
+    # In a process of its own: after phase 8's profiles the profiler records
+    # no device event in this process (seen in two runs), and phase 9 counts
+    # its copies with it. It holds its train steps to train_launches(), which
+    # phases 7 and 8 measured here.
+    topk_per_step, text_per_step = train_launches()
+    measured = (train["neighbor_topk_per_step"],
+                {k: text_train["as_shipped"]["per_step"][k] for k in text_per_step})
+    if measured != (topk_per_step, text_per_step):
+        raise AssertionError(f"phases 7-8 launched {measured} a step, not "
+                             f"{(topk_per_step, text_per_step)}")
+    torch.cuda.empty_cache()  # the child allocates beside this process
+    log(f"phase 9: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of "
+        f"device memory while it runs")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--data-only"], cwd=root)
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 9 (chip_smoke.py --data-only) exited {child.returncode}")
+    with open(os.path.join(root, "chiprun_out", "chip_smoke_data.json")) as f:
+        data = json.load(f)["data"]
+    phase_done("phase 9, data pipeline (its own process)")
+
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
     by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
@@ -2118,7 +2693,7 @@ def main(argv):
                                               "forward_s": times_f16, "profile": prof_f16,
                                               "per_site": per_site_f16}},
                    "flash_d40": d40_rows,
-                   "parity_m": parity, "train": train, "text_train": text_train,
+                   "parity_m": parity, "train": train, "text_train": text_train, "data": data,
                    "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,4 +26,27 @@ def get_config(
     return config
 
 
-__all__ = ["CfgNode", "get_config", "get_default_config", "fixup_derived_keys"]
+def get_cond_set_config(config, cond_set_name: str, root: Optional[str] = None):
+    """Clone `config` with PROMPT.CONDITION overridden by a condition-set yaml
+    from configs/cond_sampler/ (reference: prosim/trainer.py:35-49) -- used to
+    evaluate one checkpoint under several prompting regimes."""
+    import os
+
+    import yaml
+
+    root = root or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "configs", "cond_sampler",
+    )
+    with open(os.path.join(root, cond_set_name + ".yaml")) as f:
+        overrides = yaml.safe_load(f) or {}
+
+    out = config.clone()
+    out.defrost()
+    out.PROMPT.CONDITION.merge_from_other(overrides)
+    out.freeze()
+    return out
+
+
+__all__ = ["CfgNode", "get_config", "get_cond_set_config", "get_default_config",
+           "fixup_derived_keys"]

@@ -1,6 +1,6 @@
 """Component registry (port of the parts of prosim_tpu/core/registry.py that
-the losses and metrics use): decorators that register a loss or a metric
-update under a name, and the lookups."""
+the losses, metrics and datasets use): decorators that register a loss, a
+metric update or a dataset under a name, and the lookups."""
 
 from typing import Any, Callable, Dict, Optional
 
@@ -27,6 +27,9 @@ class Registry:
     def register_loss(self, name=None):
         return self._register("loss", name)
 
+    def register_dataset(self, name=None):
+        return self._register("dataset", name)
+
     def _get(self, group: str, name: str) -> Callable:
         mapping = self._groups.get(group, {})
         if name not in mapping:
@@ -38,6 +41,9 @@ class Registry:
 
     def get_loss(self, name):
         return self._get("loss", name)
+
+    def get_dataset(self, name):
+        return self._get("dataset", name)
 
     def list(self, group: str):
         return sorted(self._groups.get(group, {}))

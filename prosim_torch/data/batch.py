@@ -9,7 +9,11 @@ Same fields, shapes and shape legend as prosim_tpu/data/batch.py:
   C - per-type condition slots
 
 `from_numpy` builds a container from numpy arrays (nested dicts for
-SceneBatch); `.to(device)` moves every tensor. `SceneBatch.conditions` maps
+SceneBatch); `.to(device)` moves every tensor. The data pipeline's
+single-scene batches (data/formatter.py) are the same containers with numpy
+leaves; `tree_map`, `tree_leaves_with_path` and `to_tensors` walk and convert
+either kind (dataclass fields in order, dict keys sorted, None skipped: the
+order jax.tree gives the JAX package's containers). `SceneBatch.conditions` maps
 each condition type to a `Condition`, or for a text type ('*OneText') to a
 dict of tensors (input_ids, token_mask, agent_slot_ids, prompt_mask and
 read_positions, from data/text_conditions.py).
@@ -202,6 +206,90 @@ _NESTED = {
     ("SceneBatch", "fut_obs"): FutObs,
     ("SceneBatch", "road_edges"): RoadEdges,
 }
+
+
+def _children(node):
+    """[(key, child)] of a container (dataclass fields in order, dict keys
+    sorted), or None for a leaf."""
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f.name, getattr(node, f.name)) for f in dataclasses.fields(node)]
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    return None
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of one or more containers of the same structure,
+    called in canonical leaf order (None stays None; dicts keep their key
+    order); raises ValueError where the structures differ."""
+    if tree is None:
+        if any(r is not None for r in rest):
+            raise ValueError("tree_map: None against a value")
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        if any(not isinstance(r, dict) or set(r) != set(tree) for r in rest):
+            raise ValueError(f"tree_map: dict keys differ from {sorted(tree)}")
+        out = {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in kids}  # sorted: leaf order
+        return {k: out[k] for k in tree}
+    if any(type(r) is not type(tree) for r in rest):
+        raise ValueError(f"tree_map: {type(tree).__name__} against another type")
+    return type(tree)(**{k: tree_map(fn, v, *(getattr(r, k) for r in rest)) for k, v in kids})
+
+
+def tree_leaves_with_path(tree, prefix=()):
+    """[(path, leaf)] in canonical order; a path is a tuple of field names
+    and dict keys."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    out = []
+    for k, v in kids:
+        out += tree_leaves_with_path(v, prefix + (k,))
+    return out
+
+
+def tree_leaves(tree):
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_structure(tree):
+    """A hashable description of the containers and their keys (not the
+    leaves)."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return "*"
+    return (type(tree).__name__, tuple((k, tree_structure(v)) for k, v in kids))
+
+
+def tree_unflatten(like, leaves):
+    """A container shaped like `like` holding `leaves` in canonical order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def narrow_dtype(dt) -> np.dtype:
+    """int64 -> int32 and float64 -> float32, the dtypes the model takes
+    (the JAX package's device_put narrows the same way under disabled x64)."""
+    dt = np.dtype(dt)
+    return {np.dtype(np.int64): np.dtype(np.int32),
+            np.dtype(np.float64): np.dtype(np.float32)}.get(dt, dt)
+
+
+def to_tensors(tree, device):
+    """Host numpy leaves -> tensors on `device`, dtypes narrowed; always a
+    copy, so the result never aliases the source arrays (on the CPU too)."""
+    def leaf(x):
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=narrow_dtype(np.asarray(x).dtype)))
+        return t.to(device, copy=True)
+
+    return tree_map(leaf, tree)
 
 
 @dataclasses.dataclass

@@ -1,21 +1,75 @@
-"""OneText assembly (port of the two functions of
-prosim_tpu/data/text_conditions.py that the rollout's text path needs):
-join per-agent texts into one scene prompt, and tokenize scene prompts into
-the static arrays that LlamaTextAttn consumes."""
+"""Text condition generation: templated tag/goal texts and OneText assembly
+(port of prosim_tpu/data/text_conditions.py; numpy only).
+
+Host-side equivalents of the reference's text condition builders
+(reference: prosim/dataset/condition_utils.py:449-545, 750-794): motion tags
+are rendered through per-tag templates with `<A{i}>` agent references, goal
+texts state target coordinates, and per-scene texts are concatenated into one
+OneText string. Tokenization produces the static arrays LlamaTextAttn
+consumes.
+
+The reference's templates ship with the prosim_instruct_520k release; the
+built-in paraphrase bank below covers the same tag vocabulary so text
+prompting works without that download (pass `template_dict` to use released
+templates)."""
 
 import random
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from prosim_torch.models.llm.tokenizer import append_prompt_block, tokenize_batch
+from prosim_torch.data.motion_tags import MotionTag
+from prosim_torch.models.llm.tokenizer import AGENT_TEMPLATE, append_prompt_block, tokenize_batch
+
+BUILTIN_TEMPLATES: Dict[str, List[str]] = {
+    "Accelerate": ["{agent_name} speeds up.", "{agent_name} accelerates."],
+    "Decelerate": ["{agent_name} slows down.", "{agent_name} decelerates."],
+    "KeepSpeed": ["{agent_name} keeps its speed.", "{agent_name} maintains a constant speed."],
+    "Stopping": ["{agent_name} comes to a stop.", "{agent_name} is stopping."],
+    "LeftLaneChange": ["{agent_name} changes to the left lane."],
+    "RightLaneChange": ["{agent_name} changes to the right lane."],
+    "KeepLane": ["{agent_name} stays in its lane."],
+    "LeftTurn": ["{agent_name} turns left.", "{agent_name} makes a left turn."],
+    "RightTurn": ["{agent_name} turns right.", "{agent_name} makes a right turn."],
+    "Straight": ["{agent_name} goes straight.", "{agent_name} continues straight ahead."],
+    "Parked": ["{agent_name} stays parked.", "{agent_name} remains parked."],
+}
+
+
+def motion_tag_texts(tags: List[MotionTag], agent_names_by_slot: List[str],
+                     rng: Optional[random.Random] = None,
+                     template_dict: Optional[Dict[str, List[str]]] = None) -> List[tuple]:
+    """[(text, agent_slot)] with <A{slot}> references."""
+    rng = rng or random.Random(0)
+    templates = template_dict or BUILTIN_TEMPLATES
+    name_to_slot = {n: i for i, n in enumerate(agent_names_by_slot)}
+    out = []
+    for t in tags:
+        if t.type != "unary" or t.tag not in templates:
+            continue
+        slot = name_to_slot.get(t.agents[0])
+        if slot is None:
+            continue
+        template = rng.choice(templates[t.tag])
+        out.append((template.format(agent_name=AGENT_TEMPLATE.format(slot)), slot))
+    return out
+
+
+def goal_texts(goals_xy: np.ndarray, valid: np.ndarray) -> List[tuple]:
+    """Per-agent goal statements (reference: condition_utils.py:514-543)."""
+    out = []
+    for slot in np.nonzero(valid)[0]:
+        x, y = goals_xy[slot]
+        out.append((f"{AGENT_TEMPLATE.format(slot)} goal point ({x:.2f}, {y:.2f})", int(slot)))
+    return out
 
 
 def concat_one_text(texts_with_slots: List[tuple], num_agents: int, shuffle: bool = False,
                     rng: Optional[random.Random] = None) -> tuple:
     """Join [(text, agent_slot)] into one scene prompt; returns
     (text, prompt_mask [N]) (reference: condition_utils.py:750-794). An
-    entry with empty text only marks one more addressed agent."""
+    entry with empty text only marks one more addressed agent (multi-agent
+    520k texts carry the text on their first slot)."""
     rng = rng or random.Random(0)
     texts = list(texts_with_slots)
     if shuffle:

@@ -13,12 +13,10 @@ state, the step, the best loss and the training generator's state, so a
 resumed run continues the interrupted one exactly.
 
 Not ported yet (ROADMAP.md): `visualization_callback` (queue A7, needs
-viz/), `submit_rollout_request` (the rollout farm, A7),
-`evaluate_cond_sets` (the dataset, A6), `enable_wandb`, and data-parallel
-training (A7).
+viz/), `submit_rollout_request` (the rollout farm, A7), `enable_wandb`, and
+data-parallel training (A7).
 """
 
-import dataclasses
 import glob
 import json
 import os
@@ -28,6 +26,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from prosim_torch.data.batch import tree_leaves_with_path
 from prosim_torch.models.prosim import ProSim
 from prosim_torch.train.metrics import compute_metrics, merge_metric_states
 from prosim_torch.train.optim import build_optimizer
@@ -48,18 +47,6 @@ def find_latest_checkpoint(run_dir: str):
 
 def _batches(source):
     return source() if callable(source) else source
-
-
-def _tensor_leaves(node, prefix=""):
-    """(path, tensor) of every tensor in a batch's dataclasses and dicts."""
-    if torch.is_tensor(node):
-        yield prefix, node
-    elif dataclasses.is_dataclass(node):
-        for f in dataclasses.fields(node):
-            yield from _tensor_leaves(getattr(node, f.name), f"{prefix}.{f.name}")
-    elif isinstance(node, dict):
-        for k, v in node.items():
-            yield from _tensor_leaves(v, f"{prefix}[{k!r}]")
 
 
 class Trainer:
@@ -227,11 +214,33 @@ class Trainer:
         self.log({"step": self.step, **{f"rollout/{k}": v for k, v in out.items()}})
         return out
 
+    def evaluate_cond_sets(self, cache_dir, split="val", batch_size=None):
+        """One eval pass per PROMPT.CONDITION.EVAL_COND_SETS entry, each with
+        its own condition generator and metric namespace (reference:
+        prosim/trainer.py:198-206, metrics/base.py per-cond-set instances),
+        on the dataset's batches on this trainer's device."""
+        from prosim_torch.config import get_cond_set_config
+        from prosim_torch.data.dataset import ProSimImitationDataset
+
+        batch_size = batch_size or self.config.VAL.BATCH_SIZE
+        out = {}
+        for name in self.config.PROMPT.CONDITION.EVAL_COND_SETS:
+            cfg = get_cond_set_config(self.config, name)
+            ds = ProSimImitationDataset(cfg, split, cache_dir)
+            metrics = self.evaluate(lambda: ds.batches(batch_size, device=self.device))
+            self.log({
+                "step": self.step,
+                **{f"val/{name}/{k}": v for k, v in metrics.items()},
+            })
+            out[name] = metrics
+        return out
+
     def _dump_error_batch(self, batch, losses):
         """Save a batch that produced a non-finite loss for offline debugging
         (reference: loss_func.py:203-213 error-batch dumper)."""
         path = os.path.join(self.run_dir, f"error_batch_step{self.step}.npz")
-        arrays = {name: t.detach().cpu().numpy() for name, t in _tensor_leaves(batch, "batch")}
+        arrays = {".".join(("batch",) + path): t.detach().cpu().numpy()
+                  for path, t in tree_leaves_with_path(batch)}
         arrays.update({f"loss/{k}": v.detach().cpu().numpy() for k, v in losses.items()})
         np.savez_compressed(path, **arrays)
         self.log({"step": self.step, "error_batch": path})

@@ -76,24 +76,41 @@ def _valid_close(got, ref, mask, **tol):
 # ------------------------------------------------------------- the package
 
 def test_package_imports_no_jax():
-    """Importing every module of prosim_torch loads no jax, flax or prosim_tpu."""
+    """Importing every module of prosim_torch loads no jax, flax or prosim_tpu,
+    and no loaded module's file lies under prosim_tpu/ (a top-level import
+    such as `import vectorized_map_pb2` resolving to the JAX package's file
+    would show here)."""
     code = (
-        "import pkgutil, sys, importlib, prosim_torch\n"
+        "import os, pkgutil, sys, importlib, prosim_torch\n"
         "for m in pkgutil.walk_packages(prosim_torch.__path__, 'prosim_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'prosim_tpu'))\n"
         "assert not bad, bad\n"
+        "tpu = os.path.join(os.path.abspath('prosim_tpu'), '')\n"
+        "files = {n: os.path.abspath(getattr(m, '__file__', None) or '') for n, m in list(sys.modules.items())}\n"
+        "under = sorted(n for n, f in files.items() if f.startswith(tpu))\n"
+        "assert not under, under\n"
         "print(len([n for n in sys.modules if n.startswith('prosim_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20  # every module was imported
+    assert int(res.stdout.strip()) >= 40  # every module was imported
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (ProSim.__init__, make_synthetic_batch):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    from prosim_torch.data.dataset import ProSimImitationDataset
+    from prosim_torch.data.batch import to_tensors
+    from prosim_torch.data.loader import PackedTransfer, SlabCollator, pipelined_batches, \
+        sequential_batches
+    from prosim_torch.data.scene_bank import DeviceSceneBank, banked_batches
+    from prosim_torch.train.trainer import Trainer
+
+    for fn in (ProSim.__init__, make_synthetic_batch, Trainer.__init__,
+               ProSimImitationDataset.get_scene_batch, ProSimImitationDataset.batches,
+               PackedTransfer.__init__, SlabCollator.__init__, pipelined_batches,
+               sequential_batches, DeviceSceneBank.__init__, banked_batches):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
 @pytest.mark.parametrize("opts", [
