@@ -17,7 +17,7 @@ weights); a fourth, configs/waymo_demo.yaml as shipped (its f32 tiny()
 Llama), at B=2 in phase 5. The layer loop, the fused loop and the shipped
 demo also run with the network body in bf16 (`ProSim(cfg, dtype=bf16)`,
 the configuration bench.py measures), which runs B2's and B3's bf16
-instantiations. Phases:
+tensor-core kernels. Phases:
   1. device   - card name and power limit (nvidia-smi); TF32 and reduced-
                 precision bf16 reductions off.
   2. build    - nvcc builds every CUDA kernel of the path from prosim_torch/csrc.
@@ -45,13 +45,15 @@ instantiations. Phases:
                 mask of phase 8's first train batch (29 valid tokens a
                 scene), and at a head width
                 of 40 (the wrapper pads it to 48) in both dtypes, forward
-                and backward, by the same gates. The bf16 instantiations:
+                and backward, by the same gates. The bf16 paths (tensor-core
+                kernels on the edge engine of csrc/edge_mma.cuh; each one's
+                registers and spill stores from the build's ptxas log):
                 B2 on the same real graphs and B3 on the same real tables,
                 values rounded to bf16, weights packed in bf16: the
                 kernel's max error against the f32 plain version on the same
                 values at most BF16_RULE's 2x the bf16 plain version's,
                 plus 1e-5; empty rows zero, two launches bitwise equal;
-                beside their times the f32 instantiation's, the bf16 SDPA
+                beside their times the f32 path's, the bf16 SDPA
                 yardstick (B2) and the bf16 layer loop (B3).
                 Times: device ms per call (torch.profiler,
                 the call's device operations) beside the bound and a
@@ -70,8 +72,9 @@ instantiations. Phases:
                 kernel family (written to chip_smoke_kernels.json in the
                 output directory). The layer loop and the fused loop again
                 in bf16, with the same launch counts; every B2 and B3
-                launch of a profiled forward must be the instantiation of
-                the model's dtype (the template argument in its name).
+                launch of a profiled forward must be the kernel of the
+                model's dtype (by name: the f32 instantiation, or the bf16
+                tensor-core kernel).
   5. parity   - each configuration's kernel path against its plain path (the
                 model with its kernel calls pointed at the plain versions),
                 and the fused rollout against the layer-loop rollout, all on
@@ -237,6 +240,11 @@ KERNEL_NAMES = {  # a substring of the name of one CUDA kernel each wrapper call
     "neighbor_topk": "neighbor_topk_", "edge_attn_core": "edge_attn_kernel",
     "fused_two_site_stack": "fused_stack_kernel", "causal_attention": "flash_attn_",
     "causal_attention_bwd": "flash_bwd_prep_kernel"}
+# the kernels of B2's and B3's bf16 paths (tensor-core products on the edge
+# engine of csrc/edge_mma.cuh), and the template argument of their f32 ones
+BF16_KERNELS = {"edge_attn_core": "edge_attn_kernel_mma",
+                "fused_two_site_stack": "fused_stack_kernel_mma"}
+F32_TAG = "<float"
 
 
 def log(*a):
@@ -517,14 +525,16 @@ def check_edge(torch, graphs, H, D, scale):
     return rows
 
 
-def check_edge_bf16(torch, graphs, H, D, scale, f32_rows):
-    """B2's bf16 instantiation on the same real graphs: normalized source
-    rows, z_r and queries drawn as in check_edge and rounded to bf16. The
-    kernel's max error against the f32 plain version on the same values is
-    at most BF16_RULE's 2x the bf16 plain version's, plus 1e-5; rows with no
-    valid edge exactly zero; two launches bitwise equal. Beside its time:
-    the f32 instantiation's (check_edge's row of the site) and the bf16
-    SDPA yardstick with the gather it needs."""
+def check_edge_bf16(torch, graphs, H, D, scale, f32_rows, ptxas):
+    """B2's bf16 path (edge_attn_kernel_mma, the tensor-core edge engine)
+    on the same real graphs: normalized source rows, z_r and queries drawn
+    as in check_edge and rounded to bf16. The kernel's max error against the
+    f32 plain version on the same values is at most BF16_RULE's 2x the bf16
+    plain version's, plus 1e-5; rows with no valid edge exactly zero; two
+    launches bitwise equal. Beside its time: the f32 path's (check_edge's
+    row of the site) and the bf16 SDPA yardstick with the gather it needs;
+    from the build's ptxas log (empty where this process did not compile
+    it), the short- and long-row kernels' registers and spill stores."""
     import torch.nn.functional as F
     from prosim_torch.ops import _build
     from prosim_torch.ops.attention import _norm_stats
@@ -532,6 +542,10 @@ def check_edge_bf16(torch, graphs, H, D, scale, f32_rows):
     from prosim_torch.ops.neighbors import gather_neighbors
 
     lib = _build.load("edge_attn")
+    usage = {f"{kind}_rows": next((u for n, u in ptxas.items()
+                                   if f"{BF16_KERNELS['edge_attn_core']}ILb{b}E" in n), None)
+             for kind, b in (("short", 0), ("long", 1))}
+    log(f"  edge_attn_core bf16 (registers, spill store bytes): {usage}")
     for Dp in sorted({g[3] for g in graphs.values()}):
         log(f"  edge_attn_core bf16 at D={D} Dp={Dp}: {lib.edge_attn_smem_bytes_bf16(D, Dp)} "
             f"bytes of dynamic shared memory a block; blocks of 4 warps per SM: short rows "
@@ -586,7 +600,7 @@ def check_edge_bf16(torch, graphs, H, D, scale, f32_rows):
         rows.append(dict(site=name, B=B, Q=Q, K=K, S=S, Dp=Dp, valid_edges=n_valid, ms=ms,
                          wall_ms=wall_ms, plain_ms=plain_ms, f32_ms=f32_ms[name],
                          library_ms=lib_ms, library_gather_ms=lib_gather_ms, max_abs_err=err,
-                         plain_bf16_err=err16, bar=bar, ref_max_abs=peak,
+                         plain_bf16_err=err16, bar=bar, ref_max_abs=peak, ptxas=usage,
                          **edge_cost(n_valid, B, Q, K, H, D, Dp, S, size=2)))
         log(f"  edge_attn_core bf16[{name}] B={B} Q={Q} S={S} K={K} Dp={Dp} valid={n_valid}: "
             f"err {err:.3e} (plain in bf16 {err16:.3e}; bar {bar:.3e}, the f32 aggregates' "
@@ -914,14 +928,16 @@ def check_fused(torch, model, batch):
     return [row], ctx
 
 
-def check_fused_bf16(torch, model16, batch, ctx, f32_row):
-    """B3's bf16 instantiation on check_fused's tables (the policy's real
-    a2p/m2p graphs and features), x and the source tokens rounded to bf16,
-    the weights of the same random layers packed in bf16 by the bf16 model.
+def check_fused_bf16(torch, model16, batch, ctx, f32_row, ptxas):
+    """B3's bf16 path (fused_stack_kernel_mma: tensor-core dense products,
+    the edge engine) on check_fused's tables (the policy's real a2p/m2p
+    graphs and features), x and the source tokens rounded to bf16, the
+    weights of the same random layers packed in bf16 by the bf16 model.
     The kernel's max error against the f32 plain version (f32 weights, the
     same bf16-rounded x and sources) is at most BF16_RULE's 2x the bf16 plain
     version's, plus 1e-5; two launches bitwise equal. Beside its time: the
-    f32 instantiation's (check_fused's) and the bf16 layer loop's."""
+    f32 path's (check_fused's) and the bf16 layer loop's; from the build's
+    ptxas log, the kernel's registers and spill stores."""
     from prosim_torch.ops import _build
     from prosim_torch.ops.fused_stack import fused_two_site_stack, fused_two_site_stack_plain
 
@@ -930,9 +946,10 @@ def check_fused_bf16(torch, model16, batch, ctx, f32_row):
     bf = torch.bfloat16
     lib = _build.load("fused_stack")
     dims = (policy.hidden_dim, policy.num_heads, policy.head_dim, policy.hidden_dim)
+    usage = next((u for n, u in ptxas.items() if BF16_KERNELS["fused_two_site_stack"] in n), None)
     log(f"  fused_two_site_stack bf16: {lib.fused_stack_smem_bytes_bf16(*dims)} bytes of dynamic "
         f"shared memory a block; blocks of 16 warps per SM: "
-        f"{lib.fused_stack_blocks_per_sm_bf16(*dims)}")
+        f"{lib.fused_stack_blocks_per_sm_bf16(*dims)}; (registers, spill store bytes) {usage}")
     kw = dict(num_heads=policy.num_heads, head_dim=policy.head_dim)
     with torch.inference_mode():
         x = ctx["x"].to(bf)
@@ -967,7 +984,7 @@ def check_fused_bf16(torch, model16, batch, ctx, f32_row):
     row = dict({k: f32_row[k] for k in ("site", "B", "N", "Ka", "Km", "valid_edges")}, ms=ms,
                wall_ms=wall_ms, plain_ms=plain_ms, f32_ms=f32_row["ms"], library_ms=None,
                layer_loop_ms=loop_ms, max_abs_err=err, plain_bf16_err=err16, bar=bar,
-               ref_max_abs=peak, **cost)
+               ref_max_abs=peak, ptxas=usage, **cost)
     log(f"  fused_two_site_stack bf16[policy]: err {err:.3e} (plain in bf16 {err16:.3e}; bar "
         f"{bar:.3e}, the f32 output's largest |value| {peak:.3e}), two launches bitwise equal; device ms: kernel {ms:.4f}, f32 kernel {f32_row['ms']:.4f}, "
         f"plain {plain_ms:.4f}, bf16 layer loop {loop_ms:.4f}, bound {bound_ms(row):.4f}; "
@@ -1112,10 +1129,11 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
             s["bound_ms"] += bound_ms(cost)
     busy = sum(by_fam.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    # which instantiation of B2 and B3 ran: the template argument in the name
-    inst = {k: sorted({"bf16" if "__nv_bfloat16" in e.name else "f32"
+    # which path of B2 and B3 ran: the bf16 paths' kernels by name, the f32
+    # ones by their template argument
+    inst = {k: sorted({"bf16" if mma in e.name else "f32" if F32_TAG in e.name else e.name[:80]
                        for e in device if KERNEL_NAMES[k] in e.name})
-            for k in ("edge_attn_core", "fused_two_site_stack")}
+            for k, mma in BF16_KERNELS.items()}
     return per_site, {"wall_ms": wall_ms, "busy_ms": busy, "launches": len(device),
                       "families_ms": dict(sorted(by_fam.items(), key=lambda kv: -kv[1])),
                       "top_kernels": [(n[:110], ms, count[n]) for n, ms in top],
@@ -2250,8 +2268,9 @@ def profile_train_step(torch, trainer, batch, host=True):
 
 
 def check_instantiations(label, prof, dtype_tag):
-    """Every B2 and B3 launch of a profiled forward ran the instantiation of
-    the model's dtype (f32 or bf16): no upcast to reach the other one."""
+    """Every B2 and B3 launch of a profiled forward ran the kernel of the
+    model's dtype (f32: the f32 instantiation; bf16: the tensor-core kernel,
+    BF16_KERNELS): no upcast to reach the other one, and no other kernel."""
     bad = {k: v for k, v in prof["instantiations"].items() if v and v != [dtype_tag]}
     if bad:
         raise AssertionError(f"{label}: kernel instantiations {bad}, expected {dtype_tag} only")
@@ -2303,7 +2322,9 @@ def main(argv):
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
-    ptxas = ptxas_usage(logs.get("flash_attn_bwd", ""))
+    ptxas = {}  # of the kernels this process compiled
+    for text in logs.values():
+        ptxas.update(ptxas_usage(text))
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(_build.SOURCES)})")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -2352,7 +2373,7 @@ def main(argv):
                      condition_edge_mask(batch_t.conditions, cfg_text.PROMPT.CONDITION.TYPES,
                                          batch_t.prompt.mask), N, D)
     edge_rows = check_edge(torch, graphs, H, D, hd ** -0.5)
-    edge_rows16 = check_edge_bf16(torch, graphs, H, D, hd ** -0.5, edge_rows)
+    edge_rows16 = check_edge_bf16(torch, graphs, H, D, hd ** -0.5, edge_rows, ptxas)
     del graphs
     llm_cfg = LlamaConfig.llama3_8b(lora_rank=ct_cfg.TEXT_ATTN.LORA.R)  # TEXT_OPTS' ARCH
     text_len = ct_cfg.CONDITION_ENCODER.TEXT.LLM.MAX_TEXT_TOKENS
@@ -2390,7 +2411,7 @@ def main(argv):
     # the same configuration and weights in bf16
     model_f16 = ProSim(cfg_fused, device="cuda", dtype=torch.bfloat16)
     init_params(model_f16, seed=0)
-    fused_rows16 = check_fused_bf16(torch, model_f16, batch, fused_ctx, fused_rows[0])
+    fused_rows16 = check_fused_bf16(torch, model_f16, batch, fused_ctx, fused_rows[0], ptxas)
     del fused_ctx
     torch.cuda.empty_cache()
     phase_done("phase 3, kernels")
@@ -2409,7 +2430,7 @@ def main(argv):
     for label, pr in (("layer loop", prof), ("fused", prof_f)):
         check_instantiations(label, pr, "f32")
     # the bf16 network body: the same two configurations and weights in bf16
-    # launch the same kernels as often, each in its bf16 instantiation
+    # launch the same wrappers as often, each its bf16 kernel
     t16 = time.perf_counter()
     model16 = ProSim(cfg, device="cuda", dtype=torch.bfloat16)
     init_params(model16, seed=0)
@@ -2633,8 +2654,9 @@ def main(argv):
                   "prosim_tpu/ops/fused_stack.py:260", fused_rows,
                   launches_f["fused_two_site_stack"], per_site_f["fused_two_site_stack"],
                   extra=("layer_loop_ms", "fused_path_ms")),
-        # the bf16 instantiations, read from the bf16 layer loop (B2) and the
-        # bf16 fused loop (B3); beside each, the f32 instantiation's ms
+        # the bf16 paths (tensor-core kernels on csrc/edge_mma.cuh), read
+        # from the bf16 layer loop (B2) and the bf16 fused loop (B3); beside
+        # each, the f32 path's ms
         summarize("edge_attn_core_bf16", "cuda", "prosim_torch/csrc/edge_attn.cu",
                   "prosim_tpu/ops/edge_attn.py:91", edge_rows16,
                   launches16["edge_attn_core"], per_site16["edge_attn_core"],
@@ -2663,6 +2685,8 @@ def main(argv):
     ]
     for k in kernels[-2:]:
         k["replaces_also"] = FLASH_BWD_REPLACES[1]
+    for k in kernels[3:5]:  # the bf16 paths' edge engine
+        k["source_also"] = "prosim_torch/csrc/edge_mma.cuh"
     # B4's one launch count covers both instantiations: bf16 in the text
     # configuration, f32 in the shipped demo one
     f32_paths = [p for p in by_path if "bf16" not in p]

@@ -50,24 +50,29 @@
 //    lanes, owning columns again, accumulate the weighted rows of the tile.
 //  * No atomics: results are bitwise reproducible from launch to launch.
 //
-// Two instantiations, over the storage type T of x_src_n, z_r, qx, qp and
-// the outputs: float (edge_attn_launch) and __nv_bfloat16
-// (edge_attn_launch_bf16), the TPU kernel's model dtype. idx, valid, the
-// softmax statistics and every accumulator keep their types (f32 for the
-// arithmetic). In bf16 the ring stages bf16 rows (half the bytes a tile,
-// 16-byte copies of 8 values where D and Dp are multiples of 8), a lane
-// reads its 4 columns as 8 bytes, and the values round where the TPU kernel
-// rounds them (prosim_tpu/ops/edge_attn.py:57-78): the scaled score once,
-// each output once. The TPU kernel also rounds exp(s - max) to bf16 against
-// the row's global max; an online softmax only knows the running max, so
-// the weights and the statistics stay f32 here (the plain version, which
-// has the global max, rounds them, and the card's gate holds the kernel to
-// it by the 2x rule). At the demo shapes the bf16 byte bound is about half
-// the f32 one, and the operations, still f32 on the CUDA cores, are as many.
+// The f32 path (edge_attn_launch) is edge_attn_kernel<float, .> above. The
+// bf16 path (edge_attn_launch_bf16: x_src_n, z_r, qx, qp and the outputs in
+// bf16, the TPU kernel's model dtype) is edge_attn_kernel_mma below, the same
+// placement of teams and rows (short rows: one team a row, two rows a
+// block; long rows: two teams a row, alternate segments, merged in a fixed
+// order) on the bf16 edge engine of csrc/edge_mma.cuh, which csrc/
+// fused_stack.cu's bf16 path shares: 16-edge tiles, the score and the
+// aggregate as bf16 mma.sync products with f32 accumulators (the CUDA-core
+// design above, instantiated over bf16 storage, ran 1.47x slower on the
+// H100 than in f32: it unpacked every staged value to f32 four times).
+// What bounds the bf16 path, and what the engine does about it, is in that
+// header. It rounds where the TPU kernel rounds (prosim_tpu/ops/
+// edge_attn.py:57-78):
+// the scaled score, the weights (as the aggregate's bf16 operand; the TPU
+// rounds exp(s - max) against the row's global max, an online softmax only
+// knows the running max, so the plain version, which has the global max, is
+// held to the kernel by the card's 2x rule) and each output once; the
+// denominator sums the rounded weights.
 
 #include <math.h>
 
 #include "edge_common.cuh"
+#include "edge_mma.cuh"
 
 namespace {
 
@@ -436,10 +441,141 @@ int blocks_per_sm(int block_row, int D, int Dp) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// ---- the bf16 path: the edge engine of csrc/edge_mma.cuh -------------------
+
+struct MmaShapes {
+  int Q, S, K, H;
+  edge_mma::Cols c;
+  int ring;           // floats of both teams' rings, at least two saved warp states
+  float scale;
+  bool vec_x, vec_z;  // x_src_n / z_r rows 16-byte aligned (D / Dp multiples of 8)
+};
+
+// Block layout of the dynamic shared memory (floats / ints):
+//   ring[2 teams][kStages][16][c.ld] bf16 in `ring` floats (after the edge
+//                 loop of a long row: team 1's saved states, 2 kSaveFloats)
+//   list_k[2 teams][kListCap], list_s[2 teams][kListCap], count[2 teams] (+2)
+//   xb[2 teams][2 warps][32] float4: the score exchange
+template <bool kBlockRow>
+__global__ void __launch_bounds__(kThreads, 4) edge_attn_kernel_mma(
+    const bf16* __restrict__ xs, const int* __restrict__ idx, const bf16* __restrict__ zr,
+    const bf16* __restrict__ qx, const bf16* __restrict__ qp,
+    const unsigned char* __restrict__ valid, bf16* __restrict__ aggx, bf16* __restrict__ aggz,
+    bf16* __restrict__ asum, int rows, MmaShapes s) {
+  namespace em = edge_mma;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int team = warp >> 1;
+  const int hh = warp & 1;
+  const size_t row = kBlockRow ? blockIdx.x : (size_t)blockIdx.x * 2 + team;
+  if (!kBlockRow && row >= (size_t)rows) return;  // the whole team leaves
+
+  const em::Cols& c = s.c;
+  const int D = c.D, Dp = c.Dp, Dx = c.Dx, H = s.H, K = s.K;
+  bf16* ring = reinterpret_cast<bf16*>(smem) + team * (em::ring_bytes(c) / 2);
+  int* ints = reinterpret_cast<int*>(smem + s.ring);
+  float4* xb = reinterpret_cast<float4*>(smem + s.ring + 4 * em::kListCap + 4) + team * 64;
+
+  em::State st;
+  em::reset(st);
+  const unsigned short* qxr = reinterpret_cast<const unsigned short*>(qx) + row * H * D;
+  const unsigned short* qpr = reinterpret_cast<const unsigned short*>(qp) + row * H * Dp;
+  em::load_queries(st, c, hh, lane, [&](int h, int cc) -> unsigned short {
+    if (h >= H) return 0;
+    if (cc < D) return qxr[h * D + cc];
+    return cc >= Dx && cc < Dx + Dp ? qpr[h * Dp + cc - Dx] : 0;
+  });
+  const size_t b = row / s.Q;
+  const em::Rows r{xs + b * s.S * D, zr + row * K * Dp, Dp, s.vec_x, s.vec_z};
+  em::run_row<true>(st, ring, ints + team * em::kListCap, ints + (2 + team) * em::kListCap,
+                    ints + 4 * em::kListCap + team, xb, r, idx + row * K, valid + row * K, K,
+                    kBlockRow ? 2 : 1, kBlockRow ? team : 0, c, s.scale, 1 + team, hh, lane);
+
+  if (kBlockRow) {
+    // team 1's state joins team 0's, warp by warp, in a fixed order
+    __syncthreads();  // both teams are done with their rings
+    float* o = smem + hh * em::kSaveFloats;
+    if (team == 1) em::save(st, o, c, lane);
+    __syncthreads();
+    if (team == 1) return;
+    em::merge(st, o, c, lane);
+  }
+  em::for_each_out(st, c, hh, lane, [&](int cc, int h, float v, bool) {
+    if (h >= H) return;
+    const size_t orow = row * H + h;
+    if (cc < D)
+      aggx[orow * D + cc] = __float2bfloat16_rn(v);
+    else if (cc >= Dx && cc < Dx + Dp)
+      aggz[orow * Dp + cc - Dx] = __float2bfloat16_rn(v);
+  });
+  if (hh == 0 && lane < 4) {  // lanes 0..3 hold heads 2 lane, 2 lane + 1
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (2 * lane + j < H) asum[row * H + 2 * lane + j] = __float2bfloat16_rn(st.l[j] > 0.f);
+  }
+}
+
+MmaShapes make_mma_shapes(int Q, int S, int K, int H, int D, int Dp, float scale) {
+  MmaShapes s;
+  s.Q = Q;
+  s.S = S;
+  s.K = K;
+  s.H = H;
+  s.c = edge_mma::make_cols(D, Dp);
+  s.ring = 2 * edge_mma::ring_bytes(s.c) / 4;
+  if (s.ring < 2 * edge_mma::kSaveFloats) s.ring = 2 * edge_mma::kSaveFloats;
+  s.scale = scale;
+  s.vec_x = s.vec_z = false;
+  return s;
+}
+
+size_t mma_smem_bytes(const MmaShapes& s) {
+  return sizeof(float) * ((size_t)s.ring + 4 * edge_mma::kListCap + 4 + 2 * 64 * 4);
+}
+
+int launch_mma(const bf16* xs, const int* idx, const bf16* zr, const bf16* qx, const bf16* qp,
+               const unsigned char* valid, bf16* aggx, bf16* aggz, bf16* asum, int B, int Q,
+               int S, int K, int H, int D, int Dp, float scale, void* stream) {
+  if (H < 1 || H > kMaxH || D < 1 || Dp < 1 || D > 128 || Dp > 128 || K < 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * Q;
+  if (rows == 0) return 0;
+  MmaShapes s = make_mma_shapes(Q, S, K, H, D, Dp, scale);
+  s.vec_x = D % 8 == 0 && (reinterpret_cast<uintptr_t>(xs) & 15) == 0;
+  s.vec_z = Dp % 8 == 0 && (reinterpret_cast<uintptr_t>(zr) & 15) == 0;
+  const size_t smem = mma_smem_bytes(s);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(edge_attn_kernel_mma<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(edge_attn_kernel_mma<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (K <= kShortK)
+    edge_attn_kernel_mma<false><<<(rows + 1) / 2, kThreads, smem, st>>>(
+        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
+  else
+    edge_attn_kernel_mma<true><<<rows, kThreads, smem, st>>>(
+        xs, idx, zr, qx, qp, valid, aggx, aggz, asum, rows, s);
+  return (int)cudaGetLastError();
+}
+
+int blocks_per_sm_mma(int block_row, int D, int Dp) {
+  const size_t smem = mma_smem_bytes(make_mma_shapes(1, 1, 1, 1, D, Dp, 1.f));
+  int n = 0;
+  cudaError_t err =
+      block_row ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel_mma<true>,
+                                                                kThreads, smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edge_attn_kernel_mma<false>,
+                                                                kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 }  // namespace
 
-// The f32 instantiation; edge_attn_launch_bf16 takes the same arguments with
-// xs, zr, qx, qp and the outputs in bf16.
+// The f32 path; edge_attn_launch_bf16 takes the same arguments with xs, zr,
+// qx, qp and the outputs in bf16 and runs the bf16 path.
 extern "C" int edge_attn_launch(const float* xs, const int* idx, const float* zr,
                                 const float* qx, const float* qp,
                                 const unsigned char* valid, float* aggx, float* aggz,
@@ -454,19 +590,19 @@ extern "C" int edge_attn_launch_bf16(const bf16* xs, const int* idx, const bf16*
                                      const unsigned char* valid, bf16* aggx, bf16* aggz,
                                      bf16* asum, int B, int Q, int S, int K, int H, int D,
                                      int Dp, float scale, void* stream) {
-  return launch<bf16>(xs, idx, zr, qx, qp, valid, aggx, aggz, asum, B, Q, S, K, H, D, Dp, scale,
-                      stream);
+  return launch_mma(xs, idx, zr, qx, qp, valid, aggx, aggz, asum, B, Q, S, K, H, D, Dp, scale,
+                    stream);
 }
 
 // For the record of occupancy: the dynamic shared memory of a block at these
 // widths, and the resident blocks of four warps per SM of the short-row
-// (block_row 0) or long-row (1) instantiation; bf16 != 0 for the bf16 one.
+// (block_row 0) or long-row (1) kernel, of the f32 path and (_bf16) the bf16 one.
 extern "C" int edge_attn_smem_bytes(int D, int Dp) {
   return (int)smem_bytes(make_shapes<float>(1, 1, 1, 1, D, Dp, 1.f));
 }
 
 extern "C" int edge_attn_smem_bytes_bf16(int D, int Dp) {
-  return (int)smem_bytes(make_shapes<bf16>(1, 1, 1, 1, D, Dp, 1.f));
+  return (int)mma_smem_bytes(make_mma_shapes(1, 1, 1, 1, D, Dp, 1.f));
 }
 
 extern "C" int edge_attn_blocks_per_sm(int block_row, int D, int Dp) {
@@ -474,5 +610,5 @@ extern "C" int edge_attn_blocks_per_sm(int block_row, int D, int Dp) {
 }
 
 extern "C" int edge_attn_blocks_per_sm_bf16(int block_row, int D, int Dp) {
-  return blocks_per_sm<bf16>(block_row, D, Dp);
+  return blocks_per_sm_mma(block_row, D, Dp);
 }

@@ -1,9 +1,10 @@
-// Helpers of the edge tile engine shared by csrc/edge_attn.cu (the edge
-// core) and csrc/fused_stack.cu (the fused policy stack): the cp.async
-// wrappers that stage a tile, and the two storage types of the kernels'
-// tables, float and __nv_bfloat16, with their conversions to the f32 of
-// every sum. Each .cu file includes this header; it is not a kernel of its
-// own.
+// Helpers shared by csrc/edge_attn.cu (the edge core) and
+// csrc/fused_stack.cu (the fused policy stack), and by the bf16 edge engine
+// csrc/edge_mma.cuh: the cp.async wrappers that stage a tile, and the two
+// storage types of the kernels' tables, float (the f32 paths' CUDA-core
+// tile engine) and __nv_bfloat16 (the bf16 paths), with their conversions
+// to the f32 of every sum. Each .cu file includes this header; it is not a
+// kernel of its own.
 
 #pragma once
 
@@ -37,12 +38,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// One value from global to shared memory, where a row is not copied by
-// 16-byte copies: an f32 by a 4-byte cp.async; a bf16 (cp.async copies no
-// 2-byte value) by a plain load and store, visible to the team after its
-// next barrier, as the copies are.
+// One f32 value from global to shared memory, where a row is not copied by
+// 16-byte copies.
 __device__ __forceinline__ void copy_value(float* dst, const float* src) { cp_async4(dst, src); }
-__device__ __forceinline__ void copy_value(bf16* dst, const bf16* src) { *dst = *src; }
 
 // f32 values of a storage type, and the storage value of an f32 (rounded
 // to nearest even)
@@ -58,14 +56,7 @@ __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
-// 4 staged values as floats: 16 bytes of f32, or 8 bytes of bf16 (a bf16
-// is the upper half of its f32)
+// 4 staged f32 values
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 lds4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }

@@ -77,26 +77,47 @@
 // team_sync, stage_tile, and the compaction and the tile loop of
 // edge_attn_kernel.
 //
-// Two instantiations, over the storage type T of x, the source tokens, the
-// packed weights, the rel-PE scratch table and the output: float
-// (fused_stack_launch) and __nv_bfloat16 (fused_stack_launch_bf16), the TPU
-// kernel's model dtype; the raw rel-PE features stay f32, and so does every
-// sum and the rows' state in shared memory. In bf16 the values round to
-// bf16 at the TPU kernel's cast points (prosim_tpu/ops/fused_stack.py:
-// 141-226), each once: the rel-PE's sine and its normalized row (stored in
-// bf16), each LayerNorm's normalized row, its product with the scale and
-// the sum with the bias (and the residual sum), q, the aggregate, the gate,
-// s, the gated update's difference, product and sum, out, the FFN's hidden
-// layer and output. The TPU kernel also rounds each edge's k|v, its
-// products with q and the attention weights; with k|v folded onto the
-// queries those values do not exist here, so the folded queries, the
-// scores, the weights and the aggregates stay f32 (the card's gate holds
-// the kernel to the plain version, which rounds them, by the 2x rule). The
-// ring stages bf16 rows, half the bytes a tile.
+// The f32 path (fused_stack_launch) is fused_stack_kernel<float> above.
+//
+// The bf16 path (fused_stack_launch_bf16: x, the source tokens, the packed
+// weights, the rel-PE scratch table and the output in bf16, the TPU
+// kernel's model dtype; the raw rel-PE features, every sum and the rows'
+// state in shared memory f32) is fused_stack_kernel_mma below. It replaces
+// the same TPU kernel with its products on the tensor cores, as the TPU
+// kernel runs them on its matrix unit (`_dot`, bf16 in, f32 accumulate,
+// prosim_tpu/ops/fused_stack.py:153-154):
+//  * The same block (16 warps, 8 query rows, rows heaviest first), rel-PE
+//    pass, norms and k|v fold onto the queries as the f32 path.
+//  * The edge phases run on the bf16 edge engine of csrc/edge_mma.cuh, which
+//    csrc/edge_attn.cu's bf16 path shares (team t = warps 2t, 2t + 1 runs
+//    row t; 16-edge tiles; score and aggregate as mma.sync products; a
+//    2-stage ring of 16.5 KB a team at the demo widths). The folded
+//    queries enter it rounded to bf16, and the per-head aggregates leave it
+//    rounded to bf16 (the value fold's operand). At the demo shape the
+//    card's gate reads the kernel's error at 0.8x the bf16 plain
+//    version's, inside its 2x rule, so they are not split into hi and lo
+//    parts.
+//  * The dense products (to_q, the query and value folds, to_g, to_s,
+//    to_out, the FFN) run as out^T = W^T in^T: the weight's 16-column
+//    blocks on mma's M, the block's 8 rows on its n8, k on K, f32
+//    accumulators, the bias, activation and bf16 rounding in the epilogue at
+//    the TPU kernel's cast points (:183-226). The weights stream through two
+//    68 KB shared-memory slabs by cp.async (ldmatrix.trans reads them as A),
+//    one slab ahead, and the last slab of each product overlaps the first
+//    of the next; the rows' inputs are read as B from shared memory, their
+//    rows 8 mod 32 banks apart.
+// What bounds it on the H100: bytes. Every layer reads each valid edge's
+// gathered x row (from L2) and z row (256 B from device memory: the table is
+// 369 MB at the demo shape, beyond the L2), 4.4 GB a launch, and every
+// block streams all 12 layers' weights (6.5 MB) from L2, 1.7 GB a launch;
+// the operations (~86 GFLOP) take ~0.09 ms on the tensor cores. The ring,
+// the slabs and the spills of the 128 registers a thread leaves (16 warps a
+// SM) bound how many of those bytes are in flight.
 
 #include <math.h>
 
 #include "edge_common.cuh"
+#include "edge_mma.cuh"
 
 namespace {
 
@@ -817,6 +838,448 @@ int blocks_per_sm(int D, int H, int hd, int P) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+
+// ---- the bf16 path: tensor-core dense products and csrc/edge_mma.cuh ------
+
+namespace em = edge_mma;
+
+constexpr int kSlab = 34816;  // bf16 values of one staged weight slab (256 x 136); two alternate
+
+// A row stride (floats) of the rows the dense products read as B: 8 mod
+// 32, so the 8 rows of a fragment load (8 bytes a lane) fall in different
+// banks.
+__host__ __device__ constexpr int ld_b(int n) { return ((n + 31) & ~31) + 8; }
+
+// Offsets (floats) into the bf16 kernel's dynamic shared memory, each a
+// multiple of 4. The teams' rings share the region from `ring` on with the
+// dense buffers vec, big, qa and the weight slabs.
+struct LayoutMma {
+  int xs, cat, any, count, rowid, list, xb, ring, vec, big, qa, slab, total;
+  int ldc, ldv, ldb, qs;  // row strides of cat, vec, big (floats) and qa (bf16)
+};
+
+__host__ __device__ inline LayoutMma layout_mma(const Dims& d, const em::Cols& c) {
+  LayoutMma o;
+  o.ldc = ld_b(d.I + d.D);
+  o.ldv = ld_b(imax(d.I, d.D));
+  o.ldb = ld_b(imax(4 * d.D, 2 * d.I));
+  o.qs = d.H * c.Cs + 8;  // a row's 32-bit words 4 mod 32 banks apart (H Cs / 2 is 0 or 16 mod 32)
+  int at = 0;
+  o.xs = at;    at += up4(kRows * d.D);                // [kRows][D]     the residual stream
+  o.cat = at;   at += up4(kRows * o.ldc);              // [kRows][ldc]   agg | xn
+  o.any = at;   at += up4(kRows);                      // [kRows]
+  o.count = at; at += up4(kTeams);                     // [kTeams] ints
+  o.rowid = at; at += up4(kRows);                      // [kRows] ints: b N + n, -1 past the end
+  o.list = at;  at += 2 * kTeams * em::kListCap;       // [kTeams][edge k | source s][kListCap] ints
+  o.xb = at;    at += kTeams * 2 * 32 * 4;             // [kTeams][2 warps][32] float4
+  o.ring = at;                                         // [kTeams][kStages][16][c.ld] bf16
+  o.vec = at;   at += up4(kRows * o.ldv);              // [kRows][ldv]
+  o.big = at;   at += up4(kRows * o.ldb);              // [kRows][ldb]
+  o.qa = at;    at += up4(kRows * o.qs / 2);           // [kRows][qs]: [H][Cs] bf16 a row
+  o.slab = at;  at += kSlab;                           // [2][kSlab] bf16
+  o.total = imax(at, o.ring + kTeams * em::ring_bytes(c) / 4);
+  return o;
+}
+
+// A weight matrix of a dense product as the kernel reads it: row k < Kd is
+// w1's row k for k < k1, w2's row k - k2o for k2o <= k < k2o + k2, and zero
+// otherwise; each row has Nd values, rows ldw values apart. Kd = 0: none.
+struct WMat {
+  const bf16* w1;
+  int k1;
+  const bf16* w2;
+  int k2o, k2, ldw, Kd, Nd;
+};
+
+__device__ __forceinline__ const unsigned short* wrow(const WMat& w, int k) {
+  const bf16* r = nullptr;
+  if (k < w.k1)
+    r = w.w1 + (size_t)k * w.ldw;
+  else if (w.w2 && k >= w.k2o && k < w.k2o + w.k2)
+    r = w.w2 + (size_t)(k - w.k2o) * w.ldw;
+  return reinterpret_cast<const unsigned short*>(r);
+}
+
+__device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
+
+// Rows per slab of a weight matrix with Np staged columns: a multiple of 16.
+__device__ __forceinline__ int slab_rows(int Np) { return (kSlab / (Np + 8)) & ~15; }
+
+// Stage rows [k0, k0 + kr) of W, columns [0, Np) (Np = Nd rounded up to 16),
+// into sl (row stride Np + 8) with all the block's threads: 16-byte chunks
+// inside a row by cp.async (rows 16-byte aligned), others from 2-byte loads
+// and zeros. One copy group per thread.
+__device__ void stage_w(bf16* sl, const WMat w, int k0, int kr, int Np) {
+  const int chunks = Np / 8, ld = Np + 8;
+  const uintptr_t rows = reinterpret_cast<uintptr_t>(w.w1) | reinterpret_cast<uintptr_t>(w.w2);
+  const bool vec = w.ldw % 8 == 0 && (rows & 15) == 0;
+  for (int i = threadIdx.x; i < kr * chunks; i += kThreads) {
+    const int r = i / chunks, j = 8 * (i - r * chunks);
+    bf16* dst = sl + r * ld + j;
+    const unsigned short* src = k0 + r < w.Kd ? wrow(w, k0 + r) : nullptr;
+    if (src && vec && j + 8 <= w.Nd) {
+      cp_async16(dst, src + j);
+    } else {
+      uint32_t v[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int cc = j + 2 * t;
+        v[t] = em::pack_raw(src && cc < w.Nd ? src[cc] : 0, src && cc + 1 < w.Nd ? src[cc + 1] : 0);
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  cp_async_commit();
+}
+
+// The weight slabs between products: buffer `buf` of the two holds (or is
+// receiving) the next product's first slab when `staged`.
+struct Slabs {
+  int buf;
+  bool staged;
+};
+
+__device__ __forceinline__ void stage_first(const WMat w, bf16* dst) {
+  const int Np = pad16(w.Nd);
+  stage_w(dst, w, 0, min(pad16(w.Kd), slab_rows(Np)), Np);
+}
+
+// Streams W's rows through the two slabs at `base`, one slab ahead of the
+// products: compute(slab, k0, rows) for each slab of rows [k0, k0 + rows)
+// (multiples of 16; rows past Kd are zero). While the last slab is
+// computed, the first slab of `next` (if next.Kd > 0) is staged, so the
+// next product starts on weights in flight. Ends with __syncthreads().
+template <typename F>
+__device__ __forceinline__ Slabs run_slabs(const WMat w, bf16* base, Slabs sl, const WMat next,
+                                           F compute) {
+  const int Np = pad16(w.Nd), Kp = pad16(w.Kd);
+  const int kr = min(Kp, slab_rows(Np));
+  const int ns = (Kp + kr - 1) / kr;
+  if (!sl.staged) stage_w(base + sl.buf * kSlab, w, 0, kr, Np);
+  for (int si = 0; si < ns; ++si) {
+    const int k0 = si * kr;
+    bf16* nb = base + ((sl.buf + si + 1) & 1) * kSlab;  // free: its slab was computed
+    if (si + 1 < ns)
+      stage_w(nb, w, k0 + kr, min(kr, Kp - k0 - kr), Np);
+    else if (next.Kd > 0)
+      stage_first(next, nb);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // slab si is in place
+    compute(base + ((sl.buf + si) & 1) * kSlab, k0, min(kr, Kp - k0));
+    __syncthreads();  // slab si may be staged over
+  }
+  return Slabs{(sl.buf + ns) & 1, next.Kd > 0};
+}
+
+// out[t][j] = epilogue(sum_k B(t, k) W(k, j)) for the block's kRows rows t
+// and j < w.Nd, as out^T = W^T B^T on the tensor cores: 16 output columns
+// on M (ldmatrix.trans of the staged W slab), the 8 rows on N, k on K,
+// f32 accumulators; warp w takes the column blocks w, w + 16. B(t, k) =
+// in[t ldi + k] (f32 values that are bf16 already: the TPU kernel's cast
+// points; ldi = ld_b(.), in 8-byte aligned), or with kPerHead, for the
+// value fold, the bf16 aggregates qa[t qs + h Cs + k] of each output
+// column's head h = j / hd. The epilogue is `epilogue<bf16>` with the bias,
+// if any, and act. Ends with __syncthreads().
+template <bool kPerHead>
+__device__ Slabs dense_t(const WMat w, const float* in, int ldi, const bf16* qa, int qs,
+                         const Dims& d, int Cs, const bf16* __restrict__ bias, int act, float* out,
+                         int ldo, bf16* base, Slabs sl, const WMat next) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int Np = pad16(w.Nd), lds = Np + 8, nmb = Np / 16;
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float bj[2][2];  // the bias of the lane's output columns, loaded ahead
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = 16 * (warp + 16 * i) + gid + 8 * r;
+      bj[i][r] = bias && j < w.Nd ? to_f(bias[j]) : 0.f;
+    }
+  const int arow = (lane & 7) + ((lane >> 4) << 3), acol = ((lane >> 3) & 1) * 8;
+  sl = run_slabs(w, base, sl, next, [&](const bf16* slab, int k0, int krs) {
+    for (int kk = 0; kk < krs; kk += 16) {
+      const int k = k0 + kk + 2 * tig;
+      uint32_t b0 = 0u, b1 = 0u;
+      if (!kPerHead) {
+        const float2 lo = *reinterpret_cast<const float2*>(in + gid * ldi + k);
+        const float2 hi = *reinterpret_cast<const float2*>(in + gid * ldi + k + 8);
+        b0 = em::pack2(k < w.Kd ? lo.x : 0.f, k + 1 < w.Kd ? lo.y : 0.f);
+        b1 = em::pack2(k + 8 < w.Kd ? hi.x : 0.f, k + 9 < w.Kd ? hi.y : 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int mb = warp + 16 * i;
+        if (mb < nmb) {
+          uint32_t a[4];
+          em::ldsm_x4_t(a, slab + (kk + arow) * lds + 16 * mb + acol);
+          if (!kPerHead) {
+            em::mma16816(acc[i], a, b0, b1);
+          } else {
+            // the column block's heads; rows of A in another head are zeroed
+            const int j0 = 16 * mb + gid;
+            const int hlo = (16 * mb) / d.hd, hhi = min(d.H - 1, (16 * mb + 15) / d.hd);
+            for (int h = hlo; h <= hhi; ++h) {
+              const uint32_t* q = reinterpret_cast<const uint32_t*>(qa + gid * qs + h * Cs + k);
+              const bool lo = j0 / d.hd == h, hi = (j0 + 8) / d.hd == h;
+              const uint32_t am[4] = {lo ? a[0] : 0u, hi ? a[1] : 0u, lo ? a[2] : 0u,
+                                      hi ? a[3] : 0u};
+              em::mma16816(acc[i], am, q[0], q[4]);
+            }
+          }
+        }
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int mb = warp + 16 * i;
+    if (mb < nmb) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = 16 * mb + gid + 8 * (r >> 1), t = 2 * tig + (r & 1);
+        if (j < w.Nd)
+          out[t * ldo + j] = epilogue<bf16>(acc[i][r], bj[i][r >> 1], bias != nullptr, act);
+      }
+    }
+  }
+  __syncthreads();
+  return sl;
+}
+
+// Folds each row's query onto the staged columns, per head, on the tensor
+// cores: qa[t qs + h Cs + c] = bf16(sum_{e < hd} W(c, h hd + e) q[t][h hd +
+// e]) for c < Cs, W = fold (rows c: wkv's for c < D, wkvr's for Dx <= c <
+// Dx + P, zero between; its first I columns, the k half). 16 columns c on
+// M (ldmatrix of the staged rows of W), the 8 rows on N, the head's e on K
+// (q zero outside the head). Stages nothing ahead: the edge rings come
+// next. Ends with __syncthreads().
+__device__ Slabs fold_q(const WMat w, const float* q, int ldq, bf16* qa, int qs, const Dims& d,
+                        int Cs, bf16* base, Slabs sl) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int lds = pad16(w.Nd) + 8;
+  const float* qt = q + gid * ldq;
+  return run_slabs(w, base, sl, WMat{}, [&](const bf16* slab, int c0, int krs) {
+    const int nmb = krs / 16;
+    for (int task = warp; task < nmb * d.H; task += kWarps) {
+      const int h = task / nmb, mb = task - h * nmb;
+      const int e0 = h * d.hd, e1 = e0 + d.hd;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int kb = e0 / 16; kb * 16 < e1; ++kb) {
+        uint32_t a[4];
+        em::ldsm_x4(a, slab + (16 * mb + (lane & 15)) * lds + 16 * kb + (lane >> 4) * 8);
+        const int e = 16 * kb + 2 * tig;
+        auto qv = [&](int i) { return i >= e0 && i < e1 ? qt[i] : 0.f; };
+        em::mma16816(acc, a, em::pack2(qv(e), qv(e + 1)), em::pack2(qv(e + 8), qv(e + 9)));
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = c0 + 16 * mb + gid + 8 * (r >> 1), t = 2 * tig + (r & 1);
+        qa[t * qs + h * Cs + c] = __float2bfloat16_rn(acc[r]);
+      }
+    }
+  });
+}
+
+// The edges of one site and layer on the edge engine: team t (warps 2t and
+// 2t + 1) runs row rowid[t]. On entry qa holds the rows' folded queries
+// (row t at qa + t o.qs, [H][Cs] bf16); on exit the per-head aggregates of the staged
+// [x_g | z] columns, rounded to bf16 (the value fold's operand), and any[t]
+// = 1 if row t has a valid edge. Starts and ends with __syncthreads().
+__device__ void edge_phase_mma(const Site<bf16>& s, const int* rowid, const Dims& d,
+                               const em::Cols& c, const LayoutMma& o, float* sm) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int team = warp >> 1;
+  const int hh = warp & 1;
+  const int row = rowid[team];
+  bf16* qt = reinterpret_cast<bf16*>(sm + o.qa) + team * o.qs;
+  const unsigned short* qr = reinterpret_cast<const unsigned short*>(qt);
+  em::State st;
+  em::reset(st);
+  em::load_queries(st, c, hh, lane, [&](int h, int cc) -> unsigned short {
+    return h < d.H ? qr[h * c.Cs + cc] : 0;
+  });
+  __syncthreads();  // every query is in registers: the rings may overwrite qa
+  if (row >= 0) {
+    int* list_k = reinterpret_cast<int*>(sm + o.list) + 2 * team * em::kListCap;
+    const em::Rows r{s.src + (size_t)(row / d.N) * s.S * d.D, s.z + (size_t)row * s.K * d.Pz,
+                     d.Pz, d.vec, true};
+    em::run_row<false>(st, reinterpret_cast<bf16*>(sm + o.ring) + team * (em::ring_bytes(c) / 2),
+                       list_k, list_k + em::kListCap, reinterpret_cast<int*>(sm + o.count) + team,
+                       reinterpret_cast<float4*>(sm + o.xb) + team * 64, r,
+                       s.idx + (size_t)row * s.K, s.valid + (size_t)row * s.K, s.K, 1, 0, c,
+                       d.scale, 1 + team, hh, lane);
+  }
+  __syncthreads();  // every team is done with its ring: qa may be written
+  em::for_each_out(st, c, hh, lane, [&](int cc, int h, float v, bool) {
+    if (h < d.H) qt[h * c.Cs + cc] = __float2bfloat16_rn(v);
+  });
+  // lane 0 of the team's first warp holds head 0's denominator
+  if (hh == 0 && lane == 0) sm[o.any + team] = st.l[0] > 0.f ? 1.f : 0.f;
+  __syncthreads();
+}
+
+// to_q's weights of layer l of a site, the first product of its layer
+__device__ __forceinline__ WMat wq_mat(const Site<bf16>& s, int l, const Dims& d) {
+  return WMat{weight(s, WQ, l, d), d.D, nullptr, 0, 0, d.I, d.D, d.I};
+}
+
+// One GatedNeighborAttention layer of one site on the block's rows, bf16;
+// `next`: the next layer's to_q weights (staged during this layer's last
+// product), or none (Kd = 0). Returns the slabs' state.
+__device__ Slabs site_layer_mma(const Site<bf16>& s, int l, const int* rowid, const Dims& d,
+                                const em::Cols& c, const LayoutMma& o, float* sm, Slabs sl,
+                                const WMat next) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D = d.D, I = d.I, P = d.P, ldc = o.ldc, ldv = o.ldv, ldb = o.ldb, Cs = c.Cs;
+  float *xs = sm + o.xs, *cat = sm + o.cat, *vec = sm + o.vec, *big = sm + o.big, *any = sm + o.any;
+  bf16* qa = reinterpret_cast<bf16*>(sm + o.qa);
+  bf16* base = reinterpret_cast<bf16*>(sm + o.slab);
+  auto W = [&](int f) { return weight(s, f, l, d); };
+  auto mat = [&](int f, int Kd, int ldw, int Nd) {
+    return WMat{weight(s, f, l, d), Kd, nullptr, 0, 0, ldw, Kd, Nd};
+  };
+  auto fold = [&](int half) {  // wkv's and wkvr's k (0) or v (1) half on the staged columns
+    return WMat{W(WKV) + half * I, D, W(WKVR) + half * I, c.Dx, P, 2 * I, Cs, I};
+  };
+
+  // xn = LN_dst(x), kept in cat[:, I:] (cat = [agg | xn] feeds to_g)
+  if (warp < kRows) warp_norm(xs + warp * D, cat + warp * ldc + I, D, W(GD), W(BD), false, lane);
+  __syncthreads();
+  // q = xn Wq + bq, folded onto the staged columns per head
+  sl = dense_t<false>(wq_mat(s, l, d), cat + I, ldc, nullptr, 0, d, Cs, W(BQ), kNone, vec, ldv,
+                      base, sl, fold(0));
+  sl = fold_q(fold(0), vec, ldv, qa, o.qs, d, Cs, base, sl);
+  // the edges: per-head aggregates over [x_g | z] into qa (the rings
+  // overwrite the slabs: nothing is staged across)
+  edge_phase_mma(s, rowid, d, c, o, sm);
+  // agg = the aggregates through the v halves of wkv / wkvr, + bkv_v * any
+  sl = dense_t<true>(fold(1), nullptr, 0, qa, o.qs, d, Cs, nullptr, kNone, cat, ldc, base, sl,
+                     mat(WG, I + D, I, I));
+  const bf16* bkv = W(BKV);
+  for (int i = threadIdx.x; i < kRows * I; i += kThreads) {
+    const int t = i / I, j = i - t * I;
+    cat[t * ldc + j] = round_to<bf16>(cat[t * ldc + j] + to_f(bkv[I + j]) * any[t]);
+  }
+  __syncthreads();
+  // gate g = sigmoid(to_g [agg, xn]) and s = to_s(xn), then the gated update
+  sl = dense_t<false>(mat(WG, I + D, I, I), cat, ldc, nullptr, 0, d, Cs, W(BG), kSigmoid, big, ldb,
+                      base, sl, mat(WS, D, I, I));
+  sl = dense_t<false>(mat(WS, D, I, I), cat + I, ldc, nullptr, 0, d, Cs, W(BS2), kNone, big + I,
+                      ldb, base, sl, mat(WO, I, D, D));
+  for (int i = threadIdx.x; i < kRows * I; i += kThreads) {
+    const int t = i / I, j = i - t * I;
+    const float agg = cat[t * ldc + j];
+    vec[t * ldv + j] = round_to<bf16>(
+        agg + round_to<bf16>(big[t * ldb + j] * round_to<bf16>(big[t * ldb + I + j] - agg)));
+  }
+  __syncthreads();
+  sl = dense_t<false>(mat(WO, I, D, D), vec, ldv, nullptr, 0, d, Cs, W(BO), kNone, big, ldb, base,
+                      sl, mat(W0, D, 4 * D, 4 * D));
+  // x += LN_post(out); ff_in = LN_ff(x) (warp t owns row t in both)
+  if (warp < kRows) {
+    warp_norm(big + warp * ldb, xs + warp * D, D, W(PNG), W(PNB), true, lane);
+    __syncwarp();
+    warp_norm(xs + warp * D, vec + warp * ldv, D, W(F1G), W(F1B), false, lane);
+  }
+  __syncthreads();
+  // FFN, then x += LN_ffpost(ff)
+  sl = dense_t<false>(mat(W0, D, 4 * D, 4 * D), vec, ldv, nullptr, 0, d, Cs, W(B0), kRelu, big,
+                      ldb, base, sl, mat(W1, 4 * D, D, D));
+  sl = dense_t<false>(mat(W1, 4 * D, D, D), big, ldb, nullptr, 0, d, Cs, W(B1), kNone, vec, ldv,
+                      base, sl, next);
+  if (warp < kRows) warp_norm(vec + warp * ldv, xs + warp * D, D, W(F2G), W(F2B), true, lane);
+  __syncthreads();
+  return sl;
+}
+
+// The bf16 kernel: block i runs the query rows order[8 i .. 8 i + 7], as
+// fused_stack_kernel does.
+__global__ void __launch_bounds__(kThreads, 1) fused_stack_kernel_mma(
+    const bf16* __restrict__ x_in, bf16* __restrict__ x_out, const int* __restrict__ order,
+    const Site<bf16> a, const Site<bf16> mp, const float* __restrict__ fc, const Dims d,
+    const em::Cols c, const LayoutMma o) {
+  extern __shared__ __align__(16) float sm[];
+  const int D = d.D;
+  int* rowid = reinterpret_cast<int*>(sm + o.rowid);
+  if (threadIdx.x < kRows) {
+    const int slot = blockIdx.x * kRows + threadIdx.x;
+    rowid[threadIdx.x] = slot < d.R ? order[slot] : -1;
+  }
+  // the first layer's to_q weights stream in while the rel-PE is expanded
+  stage_first(wq_mat(a, 0, d), reinterpret_cast<bf16*>(sm + o.slab));
+  Slabs sl{0, true};
+  __syncthreads();
+  // the rel-PE of both sites, once for all layers
+  expand_pe(a, rowid, d, fc);
+  expand_pe(mp, rowid, d, fc);
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int g = rowid[i / D];
+    sm[o.xs + i] = g >= 0 ? to_f(x_in[(size_t)g * D + i % D]) : 0.f;
+  }
+  __syncthreads();  // the block's z rows are written before any layer reads them
+  for (int l = 0; l < d.L; ++l) {
+    sl = site_layer_mma(a, l, rowid, d, c, o, sm, sl, wq_mat(mp, l, d));
+    sl = site_layer_mma(mp, l, rowid, d, c, o, sm, sl, l + 1 < d.L ? wq_mat(a, l + 1, d) : WMat{});
+  }
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int g = rowid[i / D];
+    if (g >= 0) x_out[(size_t)g * D + i % D] = from_f<bf16>(sm[o.xs + i]);
+  }
+}
+
+int launch_mma(const bf16* x, bf16* out, const int* order, const bf16* src_a, const int* idx_a,
+               const float* feats_a, const unsigned char* valid_a, const bf16* src_m,
+               const int* idx_m, const float* feats_m, const unsigned char* valid_m, bf16* z_a,
+               bf16* z_m, const void* const* w_a, const void* const* w_m, const float* fconst,
+               int B, int N, int Sa, int Ka, int Sm, int Km, int L, int D, int H, int hd, int F,
+               int P, float scale, void* stream) {
+  const int I = H * hd;
+  if (B < 1 || N < 1 || H < 1 || H > kMaxH || hd < 4 || hd % 4 != 0 || I > 32 * kMaxJ ||
+      D < 1 || D > 32 * kMaxJ || P < 1 || P > 32 * kMaxJ || F < 1 || P % F != 0 || Ka < 0 ||
+      Km < 0)
+    return (int)cudaErrorInvalidValue;
+  Dims d = make_dims<bf16>(B * N, N, L, D, H, hd, F, P, scale);
+  d.vec = D % 8 == 0 &&
+          ((reinterpret_cast<uintptr_t>(src_a) | reinterpret_cast<uintptr_t>(src_m)) & 15) == 0;
+  const em::Cols c = em::make_cols(D, P);
+  const Site<bf16> a = make_site<bf16>(src_a, idx_a, feats_a, valid_a, z_a, w_a, Sa, Ka);
+  const Site<bf16> m = make_site<bf16>(src_m, idx_m, feats_m, valid_m, z_m, w_m, Sm, Km);
+  const LayoutMma o = layout_mma(d, c);
+  const size_t smem = sizeof(float) * (size_t)o.total;
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_stack_kernel_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  const int blocks = (B * N + kRows - 1) / kRows;
+  fused_stack_kernel_mma<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(x, out, order, a, m,
+                                                                           fconst, d, c, o);
+  return (int)cudaGetLastError();
+}
+
+size_t smem_bytes_mma(int D, int H, int hd, int P) {
+  const Dims d = make_dims<bf16>(1, 1, 1, D, H, hd, 1, P, 1.f);
+  return sizeof(float) * (size_t)layout_mma(d, em::make_cols(D, P)).total;
+}
+
+int blocks_per_sm_mma(int D, int H, int hd, int P) {
+  const size_t smem = smem_bytes_mma(D, H, hd, P);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(fused_stack_kernel_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_stack_kernel_mma, kThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 }  // namespace
 
 // order [B N] int32: the query rows (b N + n) in the order the blocks take
@@ -846,9 +1309,9 @@ extern "C" int fused_stack_launch_bf16(
     bf16* z_a, bf16* z_m, const void* const* w_a, const void* const* w_m, const float* fconst,
     int B, int N, int Sa, int Ka, int Sm, int Km, int L, int D, int H, int hd, int F, int P,
     float scale, void* stream) {
-  return launch<bf16>(x, out, order, src_a, idx_a, feats_a, valid_a, src_m, idx_m, feats_m,
-                      valid_m, z_a, z_m, w_a, w_m, fconst, B, N, Sa, Ka, Sm, Km, L, D, H, hd, F,
-                      P, scale, stream);
+  return launch_mma(x, out, order, src_a, idx_a, feats_a, valid_a, src_m, idx_m, feats_m,
+                    valid_m, z_a, z_m, w_a, w_m, fconst, B, N, Sa, Ka, Sm, Km, L, D, H, hd, F, P,
+                    scale, stream);
 }
 
 // For the record of occupancy: the dynamic shared memory of a block at these
@@ -859,7 +1322,7 @@ extern "C" int fused_stack_smem_bytes(int D, int H, int hd, int P) {
 }
 
 extern "C" int fused_stack_smem_bytes_bf16(int D, int H, int hd, int P) {
-  return (int)smem_bytes(make_dims<bf16>(1, 1, 1, D, H, hd, 1, P, 1.f));
+  return (int)smem_bytes_mma(D, H, hd, P);
 }
 
 extern "C" int fused_stack_blocks_per_sm(int D, int H, int hd, int P) {
@@ -867,5 +1330,5 @@ extern "C" int fused_stack_blocks_per_sm(int D, int H, int hd, int P) {
 }
 
 extern "C" int fused_stack_blocks_per_sm_bf16(int D, int H, int hd, int P) {
-  return blocks_per_sm<bf16>(D, H, hd, P);
+  return blocks_per_sm_mma(D, H, hd, P);
 }

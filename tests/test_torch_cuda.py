@@ -23,7 +23,8 @@ goes through the same gates: the wrapper zero-pads D. The backward works
 on each scene's valid rows only (compacted in order), so it is also held
 at masks that stress that: an empty scene, one token a scene, rows only in
 the prompt block, counts off the tiles, the train step's layout, no pad. The bf16
-instantiations of the edge core and the fused stack by the same 2x rule:
+paths of the edge core and the fused stack (tensor-core products) by the
+same 2x rule:
 the kernel's max error against the f32 plain version at most twice the
 bf16 plain version's, plus 1e-5 (BF16_ATOL); rows with no valid edge
 exactly zero, two launches bitwise equal; a wrong or mixed dtype raises.
@@ -239,9 +240,11 @@ def _two_x(got, ref32, ref16, what):
 
 
 # (K, D, Dp, H): both regimes; D and Dp multiples of 8 (16-byte copies of
-# bf16 rows) and not (value by value)
+# bf16 rows) and not (chunks assembled value by value); K off the 16-edge
+# tiles; H < 8 (heads of the mma's n8 left empty)
 EDGE_BF16_CASES = [(7, 128, 96, 8), (33, 128, 96, 8), (160, 128, 96, 8), (768, 128, 96, 8),
-                   (40, 32, 24, 4), (50, 30, 18, 8), (300, 30, 18, 2)]
+                   (40, 32, 24, 4), (50, 30, 18, 8), (300, 30, 18, 2), (1, 128, 96, 3),
+                   (23, 128, 96, 8), (129, 64, 96, 7), (777, 128, 128, 5), (100, 8, 120, 1)]
 
 
 @pytest.mark.parametrize("prefix", [False, True])
@@ -267,6 +270,34 @@ def test_edge_kernel_bf16_matches_plain(cuda, K, D, Dp, H, prefix):
                                                                zip(ref16, got)], "edge bf16")
     empty = ~valid.any(-1)
     assert all(float(o[empty].float().abs().max()) == 0.0 for o in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("K,H", [(32, 8), (32, 3), (600, 8), (600, 5)])
+def test_edge_kernel_bf16_sparse_rows(cuda, K, H):
+    """The bf16 path on rows of 0, 1, 2, 15, 16, 17 and 33 valid edges (a
+    tile's edge, a full tile and one over), the valid edges spread over the
+    row: by the 2x rule, empty rows zero, two launches bitwise equal."""
+    x_src, _, z_r, qx, qp, _ = _edge_inputs(cuda, 2, 7, K, 128, 96, H, 300, seed=K + H)
+    gen = torch.Generator(device=cuda).manual_seed(H)
+    valid = torch.zeros((2, 7, K), dtype=torch.bool, device=cuda)
+    for q, n in enumerate((0, 1, 2, 15, 16, 17, min(33, K))):
+        valid[:, q, torch.randperm(K, generator=gen, device=cuda)[:n]] = True
+    idx = torch.randint(0, 300, (2, 7, K), generator=gen, device=cuda, dtype=torch.int32)
+    idx = torch.where(valid, idx, -1)  # an invalid edge's idx is never read
+    bf = [t.to(torch.bfloat16) for t in (x_src, z_r, qx, qp)]
+    args16 = (bf[0], idx, bf[1], bf[2], bf[3], valid, 0.25)
+    got = edge_attn_core(*args16)
+    again = edge_attn_core(*args16)
+    ref16 = edge_attn_core_plain(*args16)
+    ref32 = edge_attn_core_plain(bf[0].float(), idx, bf[1].float(), bf[2].float(), bf[3].float(),
+                                 valid, 0.25)
+    torch.cuda.synchronize()
+    _two_x(got, [r.expand_as(g) for r, g in zip(ref32, got)], [r.expand_as(g) for r, g in
+                                                               zip(ref16, got)], "edge bf16 sparse")
+    assert all(float(o[:, 0].float().abs().max()) == 0.0 for o in got)
+    assert all(float(o[:, 1:].float().abs().amax((-2, -1)).min()) > 0.0 for o in got[:2])
+    assert torch.equal(got[2][:, 1:], torch.ones_like(got[2][:, 1:]))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -795,7 +826,8 @@ def test_fused_stack_kernel_refuses_other_widths(cuda, D, H, hd, pe_dim, num_fea
 
 
 @pytest.mark.parametrize("case", ["jax_test_widths", "demo_widths", "short_rows", "k1",
-                                  "k_not_multiple_of_8", "d_ne_p"])
+                                  "k_not_multiple_of_8", "d_ne_p", "h1_hd4", "h2_hd32",
+                                  "odd_widths", "n_not_multiple_of_rows", "demo_depth"])
 def test_fused_stack_kernel_bf16_matches_plain(cuda, case):
     """The bf16 instantiation: x, the source tokens and the weights (packed
     in bf16 from the same layers) in bf16, feats f32; by the 2x rule against
