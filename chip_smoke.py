@@ -6,7 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 and 8 and writes their records to chiprun_out/chip_smoke_train.json;
 `--data-only` runs phases 1, 2 and 9, with phases 7 and 8's launch counts
 from their formulas, and writes chiprun_out/chip_smoke_data.json;
-`--data-only --diagnose` adds phase 9's train-step diagnosis.)
+`--data-only --diagnose` adds phase 9's train-step diagnosis;
+`--serve-only` runs phases 1, 2 and 10 and writes
+chiprun_out/chip_smoke_serve.json.)
 Three configurations of the closed loop are driven at full width: the
 default (the policy's a2p/m2p stack as a layer loop), FUSED_STACK=True
 (the stack as one fused kernel per replan step), and the text-conditioned
@@ -179,6 +181,32 @@ tensor-core kernels. Phases:
                 as `chip_smoke.py --data-only` in a process of its own: after
                 phase 8's profiles torch.profiler records no device event in
                 the parent process.
+  10. serve   - the weights and the serving entry points, at
+                configs/waymo_demo.yaml as shipped (demo padding, the f32
+                tiny() Llama), on a synthetic cache of SERVE_SCENES scenes
+                at phase 9's draw (DATA_AGENTS agents and DATA_LANES lanes
+                a scene) under build/: a reference
+                Lightning checkpoint of the architecture at full width
+                (tests/torch_checkpoint_synth.py) converted strictly
+                (no key unmapped) and loaded by InteractiveSim (every leaf
+                in, bitwise), the demo's rollouts before and after its
+                controls (finite, moved, phase 5's launches at B=1, one
+                generator seed bitwise repeatable); a Trainer's rollout
+                request served by the farm at M=SERVE_M (one npz a scene,
+                each valid at M and 80 steps; the realism metrics finite;
+                the submission manifest; launches SERVE_SCENES x phase 5's;
+                per-scene host ms by stage, agents scored and scenes/s);
+                two workers
+                writing the one-worker files bit for bit; one farm scene's
+                kernel path within PARITY_TOL_M of its plain path, and its
+                device busy time; `python -m prosim_torch.main` rollout and
+                data_debug as child processes (exit 0, their outputs);
+                HF-layout bf16 shards of a Llama at Llama3-8B width
+                (LLAMA8_LAYERS layers deep) written from the card and
+                loaded back bitwise (load seconds, peak host RSS); and
+                TEXT.LLM.WEIGHTS_PATH (tiny f32 shards) through ProSim into
+                one conditioned rollout through B4's f32 path. In a process
+                of its own, as phase 9.
 Any failure raises and exits non-zero. Each phase prints its time. The
 kernels JSON line (B2 and B3 in bf16 as entries of their own) comes just
 before the last line, which is the device JSON.
@@ -219,6 +247,8 @@ DATA_AGENTS, DATA_LANES = (64, 160), (16, 48)  # a scene's draw (womd_synth defa
 DENSE_SCENES, DENSE_LANES = 32, (96, 160)
 DATA_ENV = "waymo_train"
 DATA_COND_SETS = ["goal_1.0", "all_no_text_0.25"]  # configs/cond_sampler sets of phase 9
+SERVE_SCENES, SERVE_M = 8, 32  # phase 10's farm: scenes, joint futures a scene (WOSAC's M)
+LLAMA8_LAYERS = 4  # phase 10's Llama3-8B-width shards: 4 of 32 layers, ~2.8 GB
 FLASH_BWD_REPLACES = (  # the library Pallas kernels B4's backward replaces (jax 0.9.0)
     "jax/experimental/pallas/ops/tpu/flash_attention.py:941",   # _flash_attention_bwd_dkv
     "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")  # _flash_attention_bwd_dq
@@ -2267,6 +2297,409 @@ def profile_train_step(torch, trainer, batch, host=True):
             "top_kernels": [(n[:110], ms, count[n]) for n, ms in top]}
 
 
+def demo_launches():
+    """Each kernel's launches per forward of configs/waymo_demo.yaml as
+    shipped (phase 5): the layer loop's, the condition GNN's layers through
+    B2, and the f32 tiny() Llama's layers through B4."""
+    from prosim_torch.config import get_config
+    from prosim_torch.models.llm.llama import LlamaConfig
+
+    want, _ = forward_launches()
+    nlayer = get_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                     TEXT_YAML)).MODEL.CONDITION_TRANSFORMER.NLAYER
+    return dict(want, edge_attn_core=want["edge_attn_core"] + nlayer,
+                causal_attention=LlamaConfig.tiny().num_layers)
+
+
+def reset_launches():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def hf_llama_tensors(model):
+    """{HF checkpoint name: tensor} of a LlamaModel's body (the layout
+    load_hf_llama_params reads: no agent-token rows, no LoRA)."""
+    c = model.cfg
+    out = {"model.embed_tokens.weight": model.embed_tokens[: c.vocab_size],
+           "model.norm.weight": model.final_norm.weight}
+    for i in range(c.num_layers):
+        b, p = getattr(model, f"layer_{i}"), f"model.layers.{i}"
+        out[f"{p}.input_layernorm.weight"] = b.input_norm.weight
+        out[f"{p}.post_attention_layernorm.weight"] = b.post_attn_norm.weight
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            out[f"{p}.self_attn.{proj}.weight"] = getattr(b, proj).weight
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            out[f"{p}.mlp.{proj}.weight"] = getattr(b, proj).weight
+    return out
+
+
+def write_hf_shards(model, out_dir):
+    """The model's body as HF-layout safetensors shards, one for the
+    embedding and final norm and one per layer. Returns the bytes written."""
+    from prosim_torch.utils.safetensors_io import save_file
+
+    os.makedirs(out_dir, exist_ok=True)
+    tensors = hf_llama_tensors(model)
+    groups = [{k: v for k, v in tensors.items() if not k.startswith("model.layers.")}]
+    groups += [{k: v for k, v in tensors.items() if k.startswith(f"model.layers.{i}.")}
+               for i in range(model.cfg.num_layers)]
+    total = 0
+    for i, g in enumerate(groups):
+        path = os.path.join(out_dir, f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors")
+        save_file(g, path)
+        total += os.path.getsize(path)
+    return total
+
+
+def peak_rss_during(fn):
+    """(fn's result, its seconds, the process's peak resident host memory in
+    GiB while it ran, sampled every 5 ms from /proc/self/statm, and the
+    resident memory before it)."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    before = rss()
+    peak, stop = [before], threading.Event()
+
+    def watch():
+        while not stop.wait(0.005):
+            peak[0] = max(peak[0], rss())
+
+    t = threading.Thread(target=watch)
+    t.start()
+    t0 = time.perf_counter()
+    try:
+        res = fn()
+    finally:
+        secs = time.perf_counter() - t0
+        stop.set()
+        t.join()
+    return res, secs, max(peak[0], rss()) / 2**30, before / 2**30
+
+
+def serve_phase(torch, root, want_d, device="cuda", opts=(), m=SERVE_M):
+    """Phase 10: the serving entry points at the demo architecture's full
+    width and padding (see the module docstring). Returns the phase's
+    record; raises on a failed gate."""
+    import dataclasses
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data import womd_ingest, womd_synth
+    from prosim_torch.data.dataset import ProSimImitationDataset
+    from prosim_torch.demo.api import InteractiveSim
+    from prosim_torch.models.condition.transformer import load_text_llm_weights
+    from prosim_torch.models.llm.llama import LlamaConfig, LlamaModel, load_hf_llama_params
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.ops.edge_attn import edge_attn_core_plain
+    from prosim_torch.ops.flash_attn import causal_attention_plain
+    from prosim_torch.ops.fused_stack import fused_two_site_stack_plain
+    from prosim_torch.ops.neighbors import neighbor_topk_plain
+    from prosim_torch.rollout import runner
+    from prosim_torch.rollout.rollout import parallel_rollout
+    from prosim_torch.rollout.wosac import (load_rollouts_npz, package_submission,
+                                            validate_scenario_rollouts)
+    from prosim_torch.train.trainer import Trainer
+    from prosim_torch.utils.checkpoint_convert import load_reference_checkpoint
+    from prosim_torch.utils.params import init_params
+
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from torch_checkpoint_synth import reference_state_dict  # numpy and the port alone
+
+    out = os.path.join(root, "build", "chip_smoke_serve")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    src = ["DATASET.SOURCE.TRAIN", f"['{DATA_ENV}']", "DATASET.SOURCE.VAL", f"['{DATA_ENV}']",
+           "DATASET.SOURCE.ROLLOUT", f"['{DATA_ENV}']", *opts]
+    yaml = os.path.join(root, TEXT_YAML)
+    cfg = get_config(yaml, src)
+    horizon = cfg.ROLLOUT.POLICY.MAX_STEPS
+    rec = {"cut": f"synthetic WOMD scenes (no WOMD data in the repository): {SERVE_SCENES} "
+                  f"scenes at phase 9's draw, {DATA_AGENTS[0]}-{DATA_AGENTS[1]} agents and "
+                  f"{DATA_LANES[0]}-{DATA_LANES[1]} lanes a scene; random weights; the "
+                  f"Llama3-8B-width shards {LLAMA8_LAYERS} of 32 layers deep",
+           "m": m, "section_s": {}}
+    log(f"serve: CUT: {rec['cut']}")
+    last = [time.perf_counter()]
+
+    def lap(section):
+        now = time.perf_counter()
+        rec["section_s"][section] = now - last[0]
+        log(f"serve: {section}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    shards = womd_synth.synthesize_shards(os.path.join(out, "shards"), SERVE_SCENES, 2, seed=1,
+                                          agents=DATA_AGENTS, lanes=DATA_LANES)
+    cache = os.path.join(out, "cache")
+    womd_ingest.ingest_shards(shards, cache, DATA_ENV)
+    lap("synthetic cache")
+
+    # 1. a reference (Lightning) checkpoint of the demo architecture at full
+    # width, converted strictly
+    sd = reference_state_dict(cfg, seed=0)
+    ckpt = os.path.join(out, "reference.ckpt")
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, ckpt)
+    t0 = time.perf_counter()
+    state, unmapped = load_reference_checkpoint(ckpt, strict=True)
+    rec["reference_ckpt"] = {"keys": len(sd), "converted_leaves": len(state),
+                             "mb": os.path.getsize(ckpt) / 1e6,
+                             "convert_s": time.perf_counter() - t0}
+    if unmapped:
+        raise AssertionError(f"serve: {len(unmapped)} reference keys unmapped: {unmapped[:5]}")
+    log(f"serve: reference checkpoint {rec['reference_ckpt']}")
+
+    # 2. the demo API on the card: the converted checkpoint, controls, rollouts
+    sim = InteractiveSim(cfg, cache, device=device)
+    sim.load_scene(0)
+    unloaded = sim.load_checkpoint(ckpt)
+    if unloaded:
+        raise AssertionError(f"serve: converted leaves the model lacks: {unloaded[:5]}")
+    own = sim.model.state_dict()
+    bad = [k for k, v in state.items() if not torch.equal(own[k].cpu(), torch.from_numpy(v))]
+    rest = [k for k in own if k not in state and not (".llm." in k and "lora" not in k)]
+    if bad or rest:
+        raise AssertionError(f"serve: leaves not loaded {bad[:5]}; parameters the checkpoint "
+                             f"did not cover (beyond the Llama body) {rest[:5]}")
+    sim.rollout()  # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    out1 = sim.rollout()
+    sync()
+    rec["demo_rollout_ms"] = 1e3 * (time.perf_counter() - t0)
+    rec["demo_launches"] = launch_counts()
+    if rec["demo_launches"] != want_d:
+        raise AssertionError(f"serve: demo launches {rec['demo_launches']} != {want_d}")
+    mask = sim.batch.prompt.mask[0]
+    agents = [int(i) for i in torch.nonzero(mask)[:3, 0]]
+    sim.set_goal(agents[0], (20.0, 2.0))
+    sim.set_drag_points(agents[1], [(3.0, 0.0), (8.0, 1.0), (14.0, 3.0)])
+    sim.set_action_tag(agents[2], "Stopping")
+    sim.set_text("slows down and yields", agents=[agents[0], agents[2]])
+    out2 = sim.rollout()
+    for o in (out1, out2):
+        if not bool(torch.isfinite(o["rollout_traj"][0][mask]).all()):
+            raise AssertionError("serve: a demo rollout has non-finite values")
+    moved = float((out2["rollout_traj"] - out1["rollout_traj"])[0][mask].abs().max())
+    if not moved > 0:
+        raise AssertionError("serve: the controls did not change the rollout")
+    rep = [sim.rollout(torch.Generator(device=device).manual_seed(7))["rollout_traj"]
+           for _ in range(2)]
+    if not torch.equal(rep[0], rep[1]):
+        raise AssertionError("serve: two demo rollouts from one generator seed differ")
+    rec["demo_controls_moved_m"] = moved
+    log(f"serve: demo: checkpoint loaded ({len(state)} leaves), B=1 rollout "
+        f"{rec['demo_rollout_ms']:.1f} ms, launches {rec['demo_launches']}; controls moved the "
+        f"rollout by up to {moved:.3f} m; same seed bitwise equal")
+    lap("reference checkpoint and demo")
+
+    # 3. the farm through the request path: a trainer's checkpoint and
+    # request, served at M joint futures a scene
+    cfg_farm = get_config(yaml, src + ["EXPERIMENT_DIR", out, "EXPERIMENT_NAME", "farm",
+                                       "ROLLOUT_REQUEST_PATH", os.path.join(out, "requests")])
+    trainer = Trainer(cfg_farm, device=device)
+    trainer.setup()
+    with open(trainer.submit_rollout_request(0)) as f:
+        req = json.load(f)
+    del trainer
+    reset_launches()
+    t0 = time.perf_counter()
+    served = runner.serve_rollout_requests(cfg_farm, cache, once=True, m=m,
+                                           max_scenes=SERVE_SCENES, max_failures=0, device=device)
+    sync()
+    farm_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want_farm = {k: v * SERVE_SCENES for k, v in want_d.items()}
+    if served != 1 or launches != want_farm:
+        raise AssertionError(f"serve: {served} requests served, launches {launches} != "
+                             f"{want_farm}")
+    farm_dir = os.path.join(req["exp_folder"], "rollouts_ep0")
+    files = sorted(glob.glob(os.path.join(farm_dir, "*.npz")))
+    if len(files) != SERVE_SCENES:
+        raise AssertionError(f"serve: {len(files)} npz files for {SERVE_SCENES} scenes")
+    scored = []  # agents a scene
+    for path in files:
+        sr = load_rollouts_npz(path)
+        validate_scenario_rollouts(sr, num_rollouts=m, steps=horizon)
+        scored.append(len(sr.joint_scenes[0].object_ids))
+    with open(os.path.join(farm_dir, "wosac_metrics.json")) as f:
+        realism = json.load(f)
+    if not realism or not all(np.isfinite(v) for v in realism.values()):
+        raise AssertionError(f"serve: wosac_metrics.json {realism}")
+    with open(package_submission(farm_dir, os.path.join(out, "submission"))) as f:
+        if json.load(f)["num_scenarios"] != SERVE_SCENES:
+            raise AssertionError("serve: the submission manifest misses scenes")
+    with open(os.path.join(farm_dir, "timing_w0.json")) as f:
+        timing = json.load(f)
+    per = {k: [t[k] for t in timing] for k in timing[0] if k.endswith("_ms")}
+    rec["farm"] = {"scenes": SERVE_SCENES, "seconds": farm_s,
+                   "scenes_per_s": SERVE_SCENES / farm_s, "launches": launches,
+                   "agents_per_scene": scored,
+                   "per_scene_ms": {k: {"median": float(np.median(v)), "max": max(v)}
+                                    for k, v in per.items()},
+                   "realism": realism}
+    log(f"serve: farm: {SERVE_SCENES} scenes ({min(scored)}-{max(scored)} agents scored, "
+        f"median {float(np.median(scored)):.1f}) at M={m} in {farm_s:.2f} s "
+        f"({rec['farm']['scenes_per_s']:.3f} scenes/s, the checkpoint restore included); "
+        "per scene host ms (median / max): " + ", ".join(
+            f"{k} {v['median']:.1f} / {v['max']:.1f}" for k, v in rec["farm"]["per_scene_ms"].items())
+        + f"; launches {launches}; realism {({k: round(v, 4) for k, v in realism.items() if '/' not in k})}")
+    lap("farm (request path, W=1)")
+
+    # two workers, run one after the other, write the W=1 files bit for bit
+    model = runner.restore_eval_params(cfg_farm, req["ckpt_path"], device=device)
+    w2 = os.path.join(out, "rollouts_w2")
+    for w in (0, 1):
+        runner.run_rollout_eval(cfg_farm, cache, out_dir=w2, worker_id=w, num_workers=2, m=m,
+                                model=model, compute_metrics=False, max_failures=0)
+    names = [os.path.basename(p) for p in files]
+    if sorted(os.path.basename(p) for p in glob.glob(os.path.join(w2, "*.npz"))) != names:
+        raise AssertionError("serve: the W=2 run wrote other files")
+    for name in names:
+        a, b = np.load(os.path.join(farm_dir, name)), np.load(os.path.join(w2, name))
+        if any(not np.array_equal(a[k], b[k]) for k in a.files):
+            raise AssertionError(f"serve: {name} differs between W=1 and W=2")
+    lap("farm W=2")
+
+    # one scene's kernel path against its plain path (TOP_K=1, no sampler),
+    # and its device time under the profiler
+    batch = ProSimImitationDataset(cfg_farm, "rollout", cache).get_scene_batch(0, device=device)
+
+    def roll():
+        gen = torch.Generator(device=device).manual_seed(runner.scene_seed(cfg.SEED, 0))
+        return parallel_rollout(model, batch, m, generator=gen)
+
+    k_out = roll()
+    with kernel_calls(neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain,
+                      causal_attention_plain):
+        p_out = roll()
+    valid = batch.prompt.mask[0]
+    err = float((k_out["rollout_traj"] - p_out["rollout_traj"])[:, valid][..., :2].abs().max())
+    log(f"serve: farm scene 0 at M={m}: kernel path vs plain path max |dxy| {err:.3e} m")
+    if not err <= PARITY_TOL_M:
+        raise AssertionError(f"serve: farm kernel path {err} m from its plain path")
+    rec["farm"]["parity_m"] = err
+    if device == "cuda":
+        wall_ms, busy_ms, _, _ = device_busy(torch, roll)
+        rec["farm"]["scene_rollout"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms}
+        log(f"serve: farm scene rollout (B={m}, profiled): wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    del model, k_out, p_out
+    lap("farm parity and profile")
+
+    # 4. the CLI as child processes: a rollout of SERVE_SCENES/4 scenes at
+    # M=4, and data_debug
+    cli = os.path.join(out, "cli")
+    over = src + ["EXPERIMENT_DIR", cli, "ROLLOUT.SAMPLE_NUM", "4",
+                  "DATASET.SCENE.SAMPLE_RATE.ROLLOUT", "4", "TRAIN.BATCH_SIZE", "4"]
+    base = [sys.executable, "-m", "prosim_torch.main", "--exp-config", yaml,
+            "--cache-dir", cache, "--device", device]
+    procs = {rt: subprocess.Popen(base + ["--run-type", rt] + over, cwd=root, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for rt in ("rollout", "data_debug")}
+    logs = {}
+    try:
+        for rt, p in procs.items():
+            logs[rt] = p.communicate(timeout=300)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = {rt: p.returncode for rt, p in procs.items()}
+    cli_npz = glob.glob(os.path.join(cli, cfg.EXPERIMENT_NAME, "rollouts", "*.npz"))
+    batches = [l for l in logs["data_debug"].splitlines() if l.startswith("batch ")]
+    rec["cli"] = {"rcs": rcs, "rollout_npz": len(cli_npz), "data_debug_batches": len(batches)}
+    log(f"serve: CLI: {rec['cli']}")
+    if rcs != {"rollout": 0, "data_debug": 0} or len(cli_npz) != SERVE_SCENES // 4 or \
+            len(batches) != SERVE_SCENES // 4:
+        for rt, text in logs.items():
+            log(f"--- {rt} ---\n{text[-4000:]}")
+        raise AssertionError(f"serve: CLI children {rec['cli']}")
+    lap("CLI")
+
+    # 5. the HF Llama loader at Llama3-8B width (depth cut), bf16 shards
+    # written from a model drawn on the card
+    c8 = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=LLAMA8_LAYERS)
+    with torch.device(device):
+        src8 = LlamaModel(c8)
+    src8.init_weights(3)
+    shard_dir = os.path.join(out, "llama3_8b_width")
+    t0 = time.perf_counter()
+    nbytes = write_hf_shards(src8, shard_dir)
+    write_s = time.perf_counter() - t0
+    with torch.device(device):
+        dst = LlamaModel(c8)
+    dst.init_weights(4)
+    _, load_s, rss_gib, rss0 = peak_rss_during(lambda: load_hf_llama_params(shard_dir, dst))
+    sync()
+    V = c8.vocab_size
+    want = hf_llama_tensors(src8)
+    got = hf_llama_tensors(dst)
+    diff = [k for k in want if not torch.equal(got[k], want[k])]
+    mean = src8.embed_tokens[:V].float().mean(0).to(c8.dtype)
+    rows_ok = bool((dst.embed_tokens[V:] == mean).all())
+    zero_b = all(float(p.detach().abs().max()) == 0 for n, p in dst.named_parameters()
+                 if n.endswith(("lora_b", "lora_embed_b")))
+    rec["llama8b_load"] = {"layers": LLAMA8_LAYERS, "shard_gb": nbytes / 1e9,
+                           "write_s": write_s, "load_s": load_s, "peak_rss_gib": rss_gib,
+                           "rss_before_gib": rss0,
+                           "load_gb_per_s": nbytes / 1e9 / load_s}
+    log(f"serve: Llama3-8B width, {LLAMA8_LAYERS} layers (CUT from 32): {nbytes / 1e9:.2f} GB "
+        f"of bf16 shards written in {write_s:.1f} s, loaded onto the card in {load_s:.2f} s "
+        f"({nbytes / 1e9 / load_s:.2f} GB/s), peak host RSS {rss_gib:.2f} GiB ({rss0:.2f} "
+        "before the load)")
+    if diff or not rows_ok or not zero_b:
+        raise AssertionError(f"serve: 8B-width load: leaves differ {diff[:5]}, agent rows "
+                             f"{rows_ok}, lora_b zero {zero_b}")
+    del src8, dst, want, got
+    shutil.rmtree(shard_dir)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    lap("Llama loader at 8B width")
+
+    # waymo_demo with TEXT.LLM.WEIGHTS_PATH (tiny f32 shards) through ProSim,
+    # one conditioned rollout through B4's f32 path
+    lc = LlamaConfig.tiny(lora_rank=cfg.MODEL.CONDITION_TRANSFORMER.TEXT_ATTN.LORA.R)
+    with torch.device(device):
+        src_t = LlamaModel(lc)
+    src_t.init_weights(5)
+    tiny_dir = os.path.join(out, "llama_tiny")
+    write_hf_shards(src_t, tiny_dir)
+    llm_opts = "MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM."
+    cfg_w = get_config(yaml, src + [llm_opts + "ARCH", "tiny", llm_opts + "WEIGHTS_PATH", tiny_dir])
+    model_w = ProSim(cfg_w, device=device)
+    init_params(model_w, 0)
+    load_text_llm_weights(cfg_w, model_w)
+    llm = model_w.condition_transformer_policy_decoder.text_attn.llm
+    want, got = hf_llama_tensors(src_t), hf_llama_tensors(llm)
+    if any(not torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("serve: WEIGHTS_PATH did not load the shards into ProSim's Llama")
+    reset_launches()
+    out_w = model_w(sim.batch)
+    sync()
+    lw = launch_counts()
+    if lw["causal_attention"] != lc.num_layers or not bool(
+            torch.isfinite(out_w["rollout_traj"][0][mask]).all()):
+        raise AssertionError(f"serve: WEIGHTS_PATH rollout launches {lw} or non-finite")
+    rec["weights_path_launches"] = lw
+    log(f"serve: WEIGHTS_PATH (tiny, f32 shards) through ProSim: loaded; conditioned rollout "
+        f"launches {lw}")
+    lap("WEIGHTS_PATH through ProSim")
+    return rec
+
+
 def check_instantiations(label, prof, dtype_tag):
     """Every B2 and B3 launch of a profiled forward ran the kernel of the
     model's dtype (f32: the f32 instantiation; bf16: the tensor-core kernel,
@@ -2340,6 +2773,13 @@ def main(argv):
         phase_done("phase 9, data pipeline")
         os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
         with open(os.path.join(root, "chiprun_out", "chip_smoke_data.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        return 0
+    if "--serve-only" in argv:
+        rec = {"card": smi, "serve": serve_phase(torch, root, demo_launches())}
+        phase_done("phase 10, serving")
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out", "chip_smoke_serve.json"), "w") as f:
             json.dump(rec, f, indent=1)
         return 0
     if "--train-only" in argv:
@@ -2631,6 +3071,19 @@ def main(argv):
         data = json.load(f)["data"]
     phase_done("phase 9, data pipeline (its own process)")
 
+    # 10. serving: the weights and the serving entry points (checkpoint
+    # converter, demo API, the WOSAC farm through a trainer's request, the
+    # CLI, the HF Llama loader), in a process of its own for the same
+    # reason as phase 9 (its farm scene is profiled)
+    if want_d != demo_launches():
+        raise AssertionError(f"phase 5's demo launches {want_d} != demo_launches()")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-only"], cwd=root)
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 10 (chip_smoke.py --serve-only) exited {child.returncode}")
+    with open(os.path.join(root, "chiprun_out", "chip_smoke_serve.json")) as f:
+        serve = json.load(f)["serve"]
+    phase_done("phase 10, serving (its own process)")
+
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
     by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
@@ -2639,7 +3092,9 @@ def main(argv):
                f"train ({train['steps']} steps)": train["launches"],
                "train eval (B=2)": train["eval_launches"],
                **{f"text train {k} ({v['timed_steps']} steps)": v["launches"]
-                  for k, v in text_train.items()}}
+                  for k, v in text_train.items()},
+               "serve demo (B=1)": serve["demo_launches"],
+               f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})": serve["farm"]["launches"]}
     bwd_path = {k: f"text train {k} ({v['timed_steps']} steps)" for k, v in text_train.items()}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
@@ -2694,7 +3149,8 @@ def main(argv):
     paths = {"edge_attn_core": f32_paths, "fused_two_site_stack": f32_paths,
              "edge_attn_core_bf16": bf16_paths, "fused_two_site_stack_bf16": bf16_paths,
              "causal_attention": ("layer loop", "fused", "text", bwd_path["llama3_8b"]),
-             "causal_attention_f32": ("demo (B=2)", bwd_path["as_shipped"]),
+             "causal_attention_f32": ("demo (B=2)", bwd_path["as_shipped"], "serve demo (B=1)",
+                                      f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})"),
              "causal_attention_bwd": (bwd_path["llama3_8b"],),
              "causal_attention_bwd_f32": (bwd_path["as_shipped"],)}
     for k in kernels:
@@ -2718,6 +3174,7 @@ def main(argv):
                                               "per_site": per_site_f16}},
                    "flash_d40": d40_rows,
                    "parity_m": parity, "train": train, "text_train": text_train, "data": data,
+                   "serve": serve,
                    "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

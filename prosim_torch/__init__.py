@@ -13,10 +13,14 @@ hand-written CUDA kernels on that path (`ops/neighbors.py`,
 under `csrc/`); the network body in bf16 (`ProSim(config, device,
 dtype)`); and closed-loop imitation training (`train/`) of
 configs/no_text.yaml and of configs/with_text.yaml, whose causal attention
-has its backward as a CUDA kernel too. Entry points run on the card unless
-the caller passes `device="cpu"`. What is left (the host data pipeline,
-the weight loaders, the farm, CLI and demo, bf16 training) is listed in
-ROADMAP.md.
+has its backward as a CUDA kernel too; the host data pipeline (`data/`);
+the weights (`utils/safetensors_io.py`, the HF Llama and tokenizer
+loaders, `utils/checkpoint_convert.py`) and the serving entry points: the
+WOSAC farm (`rollout/runner.py`, `wosac.py`, `wosac_metrics.py`), the demo
+API (`demo/api.py`), the plots (`viz/`) and the CLI (`main.py`). Entry
+points run on the card unless the caller passes `device="cpu"`. What is
+left (bf16 training, data-parallel training, the modes no shipped config
+reaches) is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -39,7 +39,7 @@ from prosim_torch.data.motion_tags import (
     filter_to_interval,
     process_tags,
 )
-from prosim_torch.models.llm.tokenizer import AGENT_TEMPLATE, ByteTokenizer
+from prosim_torch.models.llm.tokenizer import AGENT_TEMPLATE, ByteTokenizer, HFTokenizer
 from prosim_torch.data.text_conditions import (
     build_one_text_condition,
     concat_one_text,
@@ -130,9 +130,8 @@ class ConditionGenerator:
         if self._tokenizer is None:
             llm_cfg = self.config.MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM
             if llm_cfg.TOKENIZER_PATH:
-                raise NotImplementedError(
-                    "TEXT.LLM.TOKENIZER_PATH needs the HF tokenizer loader, which is not "
-                    "ported yet (ROADMAP.md queue A8)")
+                self._tokenizer = HFTokenizer(llm_cfg.TOKENIZER_PATH,
+                                              add_bos_eos=llm_cfg.ADD_BOS_EOS)
             else:
                 # matches LlamaConfig.tiny() used when no weights are set
                 self._tokenizer = ByteTokenizer(base_vocab=512, num_agent_tokens=128)

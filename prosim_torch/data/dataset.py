@@ -86,10 +86,12 @@ class ProSimImitationDataset:
         return scene
 
     def get_scene_batch(self, idx: int, seed: Optional[int] = None,
-                        device="cuda") -> SceneBatch:
+                        device="cuda", out_meta: Optional[dict] = None) -> SceneBatch:
         """Format one scene (B=1) and put it on `device`. device=None keeps
         every leaf a host numpy array (what the loader's workers collate;
-        the JAX package's device=False)."""
+        the JAX package's device=False). `out_meta` receives the
+        formatter's metadata (format_scene's out_meta: the agent names by
+        slot)."""
         env, scene_name, ts = self.index[idx]
         rng = np.random.default_rng(seed if seed is not None else idx)
         fkey = (env, scene_name, ts)
@@ -110,6 +112,8 @@ class ProSimImitationDataset:
                         self._fmt_cache.pop(next(iter(self._fmt_cache)))
                     self._fmt_cache[fkey] = (batch, meta)
 
+        if out_meta is not None:
+            out_meta.update(meta)
         if self.cond_gen.types:
             conds = self.cond_gen.generate(
                 self._load(env, scene_name), batch, ts,

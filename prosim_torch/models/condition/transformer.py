@@ -30,7 +30,7 @@ from prosim_torch.models.condition.encoders import (
     VActionTagEncoder,
 )
 from prosim_torch.models.condition.text import BagOfTokensTextAttn, NoTextAttn
-from prosim_torch.models.llm.llama import LlamaConfig
+from prosim_torch.models.llm.llama import LlamaConfig, load_hf_llama_params
 from prosim_torch.models.llm.text_attn import LlamaTextAttn
 
 
@@ -92,7 +92,8 @@ class ConditionTransformer(nn.Module):
 
 def _resolve_llm_config(arch: str, weights_path: str, lora_rank: int) -> LlamaConfig:
     """'tiny', or 'auto' without weights -> LlamaConfig.tiny(); otherwise
-    the Llama3-8B widths."""
+    (with a WEIGHTS_PATH, 'auto' means the released model) the Llama3-8B
+    widths."""
     if arch == "tiny" or (arch == "auto" and not weights_path):
         return LlamaConfig.tiny(lora_rank=lora_rank)
     return LlamaConfig.llama3_8b(lora_rank=lora_rank)
@@ -106,10 +107,6 @@ def build_condition_transformer(config, dtype=torch.float32) -> ConditionTransfo
     text_attn_type = ct.TEXT_ATTN.TYPE if text_types else "none"
     llm_config = None
     if text_attn_type == "llama":
-        if llm.WEIGHTS_PATH:
-            raise NotImplementedError(
-                "loading Llama weights (TEXT.LLM.WEIGHTS_PATH) is not ported yet "
-                "(see ROADMAP.md queue A8)")
         llm_config = _resolve_llm_config(llm.ARCH, llm.WEIGHTS_PATH,
                                          ct.TEXT_ATTN.LORA.R if ct.TEXT_ATTN.LORA.ENABLE else 0)
     return ConditionTransformer(
@@ -133,3 +130,21 @@ def build_condition_transformer(config, dtype=torch.float32) -> ConditionTransfo
         dropout=ct.DROPOUT,
         dtype=dtype,
     )
+
+
+def load_text_llm_weights(config, model) -> None:
+    """With TEXT.LLM.WEIGHTS_PATH set, load the HF Llama weights into every
+    condition transformer's Llama of `model` (port of
+    prosim_tpu/models/condition/transformer.py load_text_llm_weights): the
+    frozen body from the shards, the LoRA leaves drawn afresh, the same in
+    each transformer, as the JAX ProSim.init does after its draw
+    (prosim_tpu/models/prosim.py:80-85). Callers run it right after
+    utils/params.py init_params, so a later load_flax_params or checkpoint
+    load still wins."""
+    path = config.MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.WEIGHTS_PATH
+    if not path:
+        return
+    for m in model.modules():
+        if isinstance(m, ConditionTransformer) and isinstance(
+                getattr(m, "text_attn", None), LlamaTextAttn):
+            load_hf_llama_params(path, m.text_attn.llm)

@@ -32,12 +32,18 @@ At `tiny()` (cfg.dtype float32) this is the JAX CPU computation. On the
 card the attention is csrc/flash_attn.cu (ops/flash_attn.py) in cfg.dtype:
 its bf16 instantiation at the Llama3-8B widths, its f32 one at `tiny()`.
 
-Left for later (ROADMAP.md queue A8): `load_hf_llama_params` (needs
-weight files and safetensors) and the LM head (`return_logits`, used only
-by the training-time QA probe).
+`load_hf_llama_params` writes HF-layout safetensors shards (f32, f16 or
+bf16) into a built `LlamaModel`, tensor by tensor on the model's device.
+Left for later (ROADMAP.md queue A4): the LM head (`return_logits`, used
+only by the training-time QA probe); the loader returns the head's weights
+when asked, as the JAX loader does.
 """
 
 import dataclasses
+import glob
+import os
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from prosim_torch.ops.flash_attn import causal_attention
+from prosim_torch.utils.safetensors_io import SafetensorsFile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,3 +264,77 @@ def embed_with_agent_tokens(base, agent_embs, agent_slot_ids, add_mode: bool = F
     if add_mode:
         repl = base + repl
     return torch.where((agent_slot_ids >= 0)[..., None], repl, base)
+
+
+@torch.no_grad()
+def load_hf_llama_params(path: str, model: LlamaModel, rng_seed: int = 0,
+                         with_lm_head: bool = False):
+    """Load HF-format Llama weights (`*.safetensors` shards under `path`,
+    the HF hub layout) into `model` (port of prosim_tpu/models/llm/llama.py
+    load_hf_llama_params; the reference loads them through
+    AutoModelForCausalLM and resizes the embedding for the agent tokens,
+    text_attns.py:78-138).
+
+    Each tensor goes from its shard's memory map straight into the model's
+    parameter on the model's device and in its dtype; no host copy of the
+    whole model is made. As in the JAX loader: shards are read in name
+    order (a later shard's tensor wins), a missing weight raises KeyError,
+    the embedding rows of the agent tokens are the mean row, taken in f32,
+    and the LoRA leaves are drawn from np.random.default_rng(rng_seed) in
+    the JAX order (lora_embed_a, then q/k/v lora_a layer by layer, N(0,
+    0.02); every lora_b zero), so they equal the JAX loader's bit for bit.
+    With with_lm_head, returns the LM head [H, V + agent tokens] in f32
+    (lm_head.weight, or the embedding when the checkpoint ties them);
+    otherwise None."""
+    shards = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if not shards:
+        raise FileNotFoundError(f"no .safetensors under {path}")
+    where = {}
+    for f in map(SafetensorsFile, shards):
+        where.update(dict.fromkeys(f.keys(), f))
+
+    def t(key):
+        if key not in where:
+            raise KeyError(f"missing weight '{key}' in {path}")
+        return where[key].get_tensor(key)
+
+    def put(param, value):
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{path}: shape {tuple(value.shape)} does not fit a parameter "
+                             f"of shape {tuple(param.shape)}")
+        param.copy_(value)
+
+    c = model.cfg
+    dev = model.embed_tokens.device
+
+    def extend_vocab(w):  # [V, H] -> [V + agent tokens, H], f32, on the model's device
+        w = w.to(dev).float()
+        return torch.cat([w, w.mean(dim=0, keepdim=True).expand(c.num_agent_tokens, -1)])
+
+    rng = np.random.default_rng(rng_seed)
+
+    def lora_a(shape):
+        return torch.from_numpy(rng.normal(0, 0.02, shape).astype(np.float32))
+
+    put(model.embed_tokens, extend_vocab(t("model.embed_tokens.weight")))
+    put(model.final_norm.weight, t("model.norm.weight"))
+    if c.lora_rank:
+        put(model.lora_embed_a, lora_a((c.total_vocab, c.lora_rank)))
+        model.lora_embed_b.zero_()
+    for i in range(c.num_layers):
+        block, hf = getattr(model, f"layer_{i}"), f"model.layers.{i}"
+        put(block.input_norm.weight, t(f"{hf}.input_layernorm.weight"))
+        put(block.post_attn_norm.weight, t(f"{hf}.post_attention_layernorm.weight"))
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            put(getattr(block, proj).weight, t(f"{hf}.self_attn.{proj}.weight"))
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            put(getattr(block, proj).weight, t(f"{hf}.mlp.{proj}.weight"))
+        if c.lora_rank:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                lin = getattr(block, proj)
+                put(lin.lora_a, lora_a((lin.weight.shape[1], c.lora_rank)))
+                lin.lora_b.zero_()
+    if with_lm_head:
+        key = "lm_head.weight" if "lm_head.weight" in where else "model.embed_tokens.weight"
+        return extend_vocab(t(key)).T
+    return None

@@ -5,10 +5,12 @@ the prompt-token block and the prompt builder).
 The device path needs static [B, L] int arrays; all string handling happens
 here. Agent references use the `<A{i}>` template (reference:
 prosim/dataset/text_utils.py:1-2; 128 agent tokens appended to the
-vocabulary, no BOS/EOS for the demo configuration). `ByteTokenizer` is the
-dependency-free tokenizer: UTF-8 bytes plus the agent tokens. A real Llama3
-tokenizer (the JAX package's `HFTokenizer`) waits for tokenizer files in the
-repository (ROADMAP.md queue A8).
+vocabulary, no BOS/EOS for the demo configuration). Two tokenizers:
+  * HFTokenizer - a Llama3 tokenizer loaded through `transformers` from a
+    local directory (TEXT.LLM.TOKENIZER_PATH; no network), with the
+    reference's ids. `transformers` is imported when one is built, and only
+    on a host that has it: the card's machine does not.
+  * ByteTokenizer - dependency-free (UTF-8 bytes plus the agent tokens).
 """
 
 import re
@@ -40,6 +42,33 @@ class ByteTokenizer:
 
     def agent_token_id(self, i: int) -> int:
         return self.base_vocab + i
+
+
+class HFTokenizer:
+    """Llama3 tokenizer via transformers from a local directory, extended
+    with the 128 <A{i}> tokens (the reference's added-token layout: agent
+    token i gets id base_vocab + i)."""
+
+    def __init__(self, path: str, num_agent_tokens: int = MAX_AGENT_NUM,
+                 add_bos_eos: bool = False):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.base_vocab = len(self.tok)
+        self.num_agent_tokens = num_agent_tokens
+        self.tok.add_special_tokens({"additional_special_tokens": [
+            AGENT_TEMPLATE.format(i) for i in range(num_agent_tokens)]})
+        self.add_bos_eos = add_bos_eos
+
+    @property
+    def vocab_size(self):
+        return self.base_vocab + self.num_agent_tokens
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok.encode(text, add_special_tokens=self.add_bos_eos)
+
+    def agent_token_id(self, i: int) -> int:
+        return self.tok.convert_tokens_to_ids(AGENT_TEMPLATE.format(i))
 
 
 def tokenize_batch(tokenizer, texts: List[str], max_len: int, num_agents: int,

@@ -12,9 +12,11 @@ the model (the frozen Llama body stripped), the optimizer and scheduler
 state, the step, the best loss and the training generator's state, so a
 resumed run continues the interrupted one exactly.
 
-Not ported yet (ROADMAP.md): `visualization_callback` (queue A7, needs
-viz/), `submit_rollout_request` (the rollout farm, A7), `enable_wandb`, and
-data-parallel training (A7).
+`visualization_callback` renders a validation rollout (viz/plots.py, on
+the host with matplotlib) and `submit_rollout_request` hands a checkpoint
+to the WOSAC farm (rollout/runner.py serve_rollout_requests) in the JAX
+package's request format. Not ported yet (ROADMAP.md queue A7):
+`enable_wandb` and data-parallel training.
 """
 
 import glob
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from prosim_torch.data.batch import tree_leaves_with_path
+from prosim_torch.models.condition.transformer import load_text_llm_weights
 from prosim_torch.models.prosim import ProSim
 from prosim_torch.train.metrics import compute_metrics, merge_metric_states
 from prosim_torch.train.optim import build_optimizer
@@ -43,6 +46,19 @@ def find_latest_checkpoint(run_dir: str):
         return last
     cands = [p for p in glob.glob(os.path.join(run_dir, "ckpt_*.pt")) if os.path.isfile(p)]
     return max(cands, key=os.path.getmtime) if cands else None
+
+
+def load_model_state(model, path: str) -> dict:
+    """Non-strict restore of a Trainer checkpoint's model (reference:
+    models/base.py:141-147): parameters absent from the checkpoint (the
+    stripped Llama body) keep their current values; a checkpoint parameter
+    the model lacks raises. Returns the whole checkpoint."""
+    device = next(model.parameters()).device
+    state = torch.load(path, map_location=device, weights_only=False)
+    _, unexpected = model.load_state_dict(state["model"], strict=False)
+    if unexpected:
+        raise KeyError(f"checkpoint {path} has parameters the model lacks: {unexpected}")
+    return state
 
 
 def _batches(source):
@@ -74,6 +90,7 @@ class Trainer:
         the config, so `example_batch` (the JAX trainer's init input) is not
         needed."""
         init_params(self.model, self.config.SEED if seed is None else seed)
+        load_text_llm_weights(self.config, self.model)
         self.optimizer, self.scheduler = build_optimizer(self.config, self.model)
         self._train_step = make_train_step(self.model, self.optimizer, self.scheduler, self.config)
         self._eval_step = make_eval_step(self.model, self.config)
@@ -164,12 +181,51 @@ class Trainer:
 
     # -------------------------------------------------------------- callbacks
     def visualization_callback(self, batch, output, tag: str = "val", make_gif: bool = False):
-        raise NotImplementedError("rollout visualization (ENABLE_VIS) is not ported yet "
-                                  "(see ROADMAP.md queue A7)")
+        """Render the first scene's closed-loop rollout (map + GT + predicted
+        trajectories) and log the image path, plus optionally a GIF
+        (reference: models/utils/visualization.py:303-329 visualization
+        callback logging wandb images/videos during validation)."""
+        from prosim_torch.viz.plots import save_rollout_gif, save_scene_png
+
+        vis_dir = os.path.join(self.run_dir, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        record = {"step": self.step}
+        record[f"vis/{tag}_rollout"] = save_scene_png(
+            batch, os.path.join(vis_dir, f"step{self.step}_{tag}.png"), output=output)
+        if make_gif:
+            record[f"vis/{tag}_rollout_gif"] = save_rollout_gif(
+                batch, output, os.path.join(vis_dir, f"step{self.step}_{tag}.gif"))
+        self.log(record)
+        return record
 
     def submit_rollout_request(self, epoch: int) -> str:
-        raise NotImplementedError("rollout requests to the WOSAC farm are not ported yet "
-                                  "(see ROADMAP.md queue A7)")
+        """Save a mid-training checkpoint and drop a JSON request file for an
+        external WOSAC rollout farm (reference: rollout/callbacks.py:373-399
+        submit_rollout_request). A farm worker watches ROLLOUT_REQUEST_PATH,
+        loads the checkpoint and runs rollout.runner.run_rollout_eval. The
+        request has the JAX package's fields; ckpt_path is the port's
+        checkpoint file."""
+        import datetime
+
+        ckpt = self.save_checkpoint(f"rollout_ep{epoch}")
+        req_dir = self.config.ROLLOUT_REQUEST_PATH
+        os.makedirs(req_dir, exist_ok=True)
+        exp_name = os.path.join(self.config.EXPERIMENT_DIR,
+                                self.config.EXPERIMENT_NAME).replace("/", "_")
+        time_str = datetime.datetime.now().strftime("%m-%d-%Y_%H-%M-%S")
+        request = {
+            "ckpt_path": os.path.abspath(ckpt),
+            "exp_folder": os.path.abspath(self.run_dir),
+            "time_str": time_str,
+            "epoch": epoch,
+            "global_step": self.step,
+            "m": self.config.ROLLOUT.SAMPLE_NUM,
+        }
+        path = os.path.join(req_dir, f"{exp_name}_{time_str}_epoch_{epoch}.json")
+        with open(path, "w") as f:
+            json.dump(request, f)
+        self.log({"step": self.step, "rollout_request": path})
+        return path
 
     def rollout_callback(self, val_batches, m: Optional[int] = None,
                          max_batches: int = 1) -> Dict[str, float]:
@@ -287,10 +343,7 @@ class Trainer:
         current values. With trainer_state=True (LOAD_CHECKPOINT_TRAINER) the
         optimizer, scheduler, best loss and training generator come back
         too."""
-        state = torch.load(path, map_location=self.device, weights_only=False)
-        missing, unexpected = self.model.load_state_dict(state["model"], strict=False)
-        if unexpected:
-            raise KeyError(f"checkpoint {path} has parameters the model lacks: {unexpected}")
+        state = load_model_state(self.model, path)
         self.step = int(state["step"])
         if trainer_state:
             self.optimizer.load_state_dict(state["optimizer"])

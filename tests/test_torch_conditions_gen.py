@@ -9,6 +9,7 @@ packages get the same inputs and the same rng seeds; tolerance: exact (the
 same numpy and the same draws in the same order).
 """
 
+import os
 import random
 
 import numpy as np
@@ -238,11 +239,28 @@ def test_generate_takes_tensor_batches(scenes):
 
 
 def test_tokenizer_path_raises_until_the_hf_loader_is_ported():
-    cfg = get_config(opts=SMALL + [
-        "PROMPT.CONDITION.TYPES", "['motion_tag_OneText']",
-        "MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.TOKENIZER_PATH", "/some/dir"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        ConditionGenerator(cfg, "val").tokenizer()
+    """The HF loader is ported: TOKENIZER_PATH builds an HFTokenizer from a
+    local directory (the committed fixture), and the ids of a motion-tag
+    text equal the JAX generator's; a path with no tokenizer files raises
+    the loader's own error."""
+    from prosim_torch.models.llm.tokenizer import HFTokenizer
+
+    def cfgs(path):
+        opts = SMALL + ["PROMPT.CONDITION.TYPES", "['motion_tag_OneText']",
+                        "MODEL.CONDITION_TRANSFORMER.CONDITION_ENCODER.TEXT.LLM.TOKENIZER_PATH",
+                        path]
+        return get_config(opts=opts), jax_get_config(opts=opts)
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                           "tiny_tokenizer")
+    cfg, jcfg = cfgs(fixture)
+    tok = ConditionGenerator(cfg, "val").tokenizer()
+    jtok = JaxConditionGenerator(jcfg, "val").tokenizer()
+    assert isinstance(tok, HFTokenizer)
+    text = "<A3> turns left. <A0> keeps speed."
+    assert tok.encode(text) == jtok.encode(text)
+    with pytest.raises((OSError, ValueError)):
+        ConditionGenerator(cfgs("/some/dir")[0], "val").tokenizer()
 
 
 @pytest.mark.parametrize("split", ["train", "val"])

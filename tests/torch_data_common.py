@@ -43,6 +43,13 @@ def build_cache(root, n_scenes=12, n_shards=3, seed=7):
     return shards, cache
 
 
+def scale_weight_matrices(params, scale):
+    """A flax params tree with every leaf of two or more axes (the weight
+    matrices and embeddings) multiplied by `scale`; biases and norms kept."""
+    return jtu.tree_map(lambda x: (np.asarray(x) * scale).astype(np.asarray(x).dtype)
+                        if np.ndim(x) >= 2 else x, params)
+
+
 def as_numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
