@@ -8,7 +8,9 @@ and 8 and writes their records to chiprun_out/chip_smoke_train.json;
 from their formulas, and writes chiprun_out/chip_smoke_data.json;
 `--data-only --diagnose` adds phase 9's train-step diagnosis;
 `--serve-only` runs phases 1, 2 and 10 and writes
-chiprun_out/chip_smoke_serve.json.)
+chiprun_out/chip_smoke_serve.json; `--bf16-train-only` runs phases 1, 2
+and 11 and writes chiprun_out/chip_smoke_bf16_train.json; `--dp-child` is
+phase 11 (d) alone, as phase 11 starts it.)
 Three configurations of the closed loop are driven at full width: the
 default (the policy's a2p/m2p stack as a layer loop), FUSED_STACK=True
 (the stack as one fused kernel per replan step), and the text-conditioned
@@ -207,7 +209,42 @@ tensor-core kernels. Phases:
                 TEXT.LLM.WEIGHTS_PATH (tiny f32 shards) through ProSim into
                 one conditioned rollout through B4's f32 path. In a process
                 of its own, as phase 9.
-Any failure raises and exits non-zero. Each phase prints its time. The
+  11. bf16 train - training with the network body in bf16 (ProSim(cfg,
+                device, dtype=bf16); parameters, gradients and AdamW state
+                f32), in a process of its own, as phase 9: (a)
+                configs/no_text.yaml as phase 7 (B=16, demo padding, full
+                width and depth, REMAT full) through Trainer.fit, one
+                warm-up and three timed steps: step ms, peak memory, B1
+                launches a step (phase 7's), every loss term finite,
+                parameters moved, B2/B3 not launched, one profiled step's
+                busy share; then evaluate and rollout_callback (M=4, B=2)
+                through B2's bf16 kernel, and with FUSED_STACK through B3's.
+                (b) bench.py --mode train's defaults (bench.py:116-122,
+                :261-321): B=BENCH_TRAIN_B, the body in bf16, every
+                condition type (BENCH_CONDITIONS; the text one through the
+                f32 tiny() Llama), synthetic batches at the demo padding, 8
+                replan steps, the default config's optimizer and schedule;
+                one warm-up and two timed steps through Trainer.fit: step
+                ms, train scenes/s, peak memory (B=BENCH_TRAIN_B or the
+                phase fails: it is not cut to fit), B1 and B4's forward and
+                backward launches a step (exact), every loss term finite.
+                (c) for both models at B=2 and one replan step: the bf16
+                step's f32 gradients with the kernels against the same step
+                with the plain versions, each leaf within GRAD_DIRECT_TOL of
+                its largest plain gradient plus twice the spread of two
+                plain steps (B1 is bit-equal to its plain version, B4 in f32
+                within 1e-5), the loss likewise; and, as a second check,
+                each leaf by BF16_RULE's 2x rule against an f32 copy's plain
+                step (plus 1e-5 of the leaf's largest). (d) `--dp-child`: no_text in bf16, one
+                Trainer.fit step on DP_B scenes twice in one process, then
+                as rank 0 of an NCCL group of one through the data-parallel
+                path (global counts, the gradients' all-reduce): its loss,
+                gradients and parameters within 2x the spread of the two
+                one-process steps plus 1e-6 of each leaf's largest, the
+                collectives counted.
+Any failure raises and exits non-zero. Each phase prints its time. Every
+torch.profiler trace records the device only: processing the host's records
+of one ~100k-operation train step took about a minute. The
 kernels JSON line (B2 and B3 in bf16 as entries of their own) comes just
 before the last line, which is the device JSON.
 """
@@ -248,6 +285,11 @@ DENSE_SCENES, DENSE_LANES = 32, (96, 160)
 DATA_ENV = "waymo_train"
 DATA_COND_SETS = ["goal_1.0", "all_no_text_0.25"]  # configs/cond_sampler sets of phase 9
 SERVE_SCENES, SERVE_M = 8, 32  # phase 10's farm: scenes, joint futures a scene (WOSAC's M)
+# phase 11 (b): bench.py --mode train's defaults (bench.py:116-122, :261-270)
+BENCH_TRAIN_B, BENCH_TRAIN_STEPS = 64, 3  # one warm-up step, two timed
+BENCH_CONDITIONS = ["goal", "v_action_tag", "drag_point", "llm_text_OneText"]  # --conditions all
+DP_B = 4  # phase 11 (d)'s scenes
+GRAD_DIRECT_TOL = 1e-5  # phase 11 (c): kernel vs plain bf16 step, of each leaf's largest
 LLAMA8_LAYERS = 4  # phase 10's Llama3-8B-width shards: 4 of 32 layers, ~2.8 GB
 FLASH_BWD_REPLACES = (  # the library Pallas kernels B4's backward replaces (jax 0.9.0)
     "jax/experimental/pallas/ops/tpu/flash_attention.py:941",   # _flash_attention_bwd_dkv
@@ -1116,7 +1158,7 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
             recs.clear()
         before = launch_counts()
         with kernel_calls(topk, edge, fused, flash), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             model(batch)
             torch.cuda.synchronize()
@@ -1820,11 +1862,11 @@ def assert_batches_equal(torch, got, want, what):
 
 def device_busy(torch, fn):
     """(wall ms, device busy ms, the host-to-device copies' profiler events,
-    fn's result): fn under torch.profiler; busy is the union of the device
-    operations' intervals."""
+    fn's result): fn under torch.profiler, tracing the device only; busy is
+    the union of the device operations' intervals."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -2085,7 +2127,7 @@ def data_phase(torch, root, want, want_f, topk_per_step, text_per_step, device="
             log(f"rollout[{label}, dataset]: fed from the loader ({tag} format cache) "
                 f"{n / fwall * 1e3:.3f} scenes/s over {n} scenes")
         # the device's busy share of the warm loader-fed pass, profiled apart
-        # (the profiler's host records slow a host-bound loop)
+        # (the profiler slows a host-bound loop)
         pwall, pbusy, _, _ = device_busy(torch, fed_pass)
         r["loader_fed_warm"].update(profiled_wall_ms=pwall, busy_ms=pbusy)
         log(f"rollout[{label}, dataset]: profiled warm loader-fed pass: device busy "
@@ -2173,8 +2215,8 @@ def data_phase(torch, root, want, want_f, topk_per_step, text_per_step, device="
                               "total": torch.cuda.memory_stats().get("num_alloc_retries", 0)},
             "valid_agents": {"dataset": int(held_t[0].prompt.mask.sum()),
                              "synthetic": int(synth[0].prompt.mask.sum())},
-            "profiled": {"dataset": profile_train_step(torch, trainer, held_t[0], host=False),
-                         "synthetic": profile_train_step(torch, trainer, synth[0], host=False)}})
+            "profiled": {"dataset": profile_train_step(torch, trainer, held_t[0]),
+                         "synthetic": profile_train_step(torch, trainer, synth[0])}})
         log(f"data train: step ms fed by the producer {['%.1f' % t for t in step_ms]}; the "
             f"same batches held on the card {['%.1f' % t for t in held_ms]}; phase 7's "
             f"synthetic batches {['%.1f' % t for t in synth_ms]}; allocator retries "
@@ -2271,14 +2313,12 @@ def data_phase(torch, root, want, want_f, topk_per_step, text_per_step, device="
     return rec
 
 
-def profile_train_step(torch, trainer, batch, host=True):
+def profile_train_step(torch, trainer, batch):
     """One more train step under torch.profiler: its wall time, the device
-    time by kernel family and the busiest kernels. host=False traces the
-    device only (a shorter trace to process)."""
+    time by kernel family and the busiest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         float(trainer._train_step(batch, 0)["full_loss"])
         wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -2700,6 +2740,368 @@ def serve_phase(torch, root, want_d, device="cuda", opts=(), m=SERVE_M):
     return rec
 
 
+def _train_record(torch, trainer, steps):
+    """(step ms between consecutive logged steps, finite-terms failures,
+    the last step's terms) from a trainer's JSONL log."""
+    import numpy as np
+
+    recs = [r for r in map(json.loads, open(trainer.log_path)) if "train/full_loss" in r]
+    walls = [r["wall"] for r in recs]
+    if len(recs) != steps:
+        raise AssertionError(f"train: {len(recs)} logged steps, expected {steps}")
+    bad = [(r["step"], k) for r in recs for k, v in r.items()
+           if k.startswith("train/") and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train: non-finite loss terms {bad}")
+    return ([1e3 * (b - a) for a, b in zip(walls, walls[1:])],
+            {k: v for k, v in recs[-1].items() if k.startswith("train/")})
+
+
+def bf16_fit(torch, cfg, B, shape, steps, device, seed0=10):
+    """A bf16-body model (ProSim(cfg, device, dtype=bf16)) through
+    Trainer.setup and Trainer.fit for `steps` steps of synthetic batches of
+    B scenes; running out of device memory fails the phase. Returns
+    (trainer, batches, start parameters, launches, peak bytes)."""
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, model=ProSim(cfg, device=device, dtype=torch.bfloat16), device=device)
+    trainer.setup()
+    batches = [make_synthetic_batch(cfg, batch_size=B, seed=seed0 + i, device=device, **shape)
+               for i in range(steps)]
+    p0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(batches, max_steps=steps)
+    torch.cuda.synchronize()
+    return trainer, batches, p0, launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def bf16_grad_gate(torch, cfg, model16, shape, device, label):
+    """Phase 11 (c): at B=2 and one replan step, the bf16 train step's f32
+    gradients with the kernels against the same step with their plain
+    versions. Direct gate: each leaf within GRAD_DIRECT_TOL of the plain
+    step's largest plus twice the distance between two plain steps (the
+    bf16 gather backward's atomics need not repeat), the loss likewise.
+    Second check: each leaf by BF16_RULE's 2x rule against the step of an
+    f32 copy of the model with the plain versions (plus 1e-5 of the leaf's
+    largest f32 gradient). Returns the record."""
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.ops.edge_attn import edge_attn_core_plain
+    from prosim_torch.ops.flash_attn import causal_attention_plain
+    from prosim_torch.ops.fused_stack import fused_two_site_stack_plain
+    from prosim_torch.ops.neighbors import neighbor_topk_plain
+    from prosim_torch.train.losses import paired_mse_k
+
+    small = make_synthetic_batch(cfg, batch_size=2, seed=1, device=device,
+                                 **dict(shape, num_replan=1))
+    m32 = ProSim(cfg, device=device)
+    m32.load_state_dict(model16.state_dict())
+    for p32, p16 in zip(m32.parameters(), model16.parameters()):
+        p32.requires_grad_(p16.requires_grad)
+
+    def grad_step(model):
+        model.zero_grad(set_to_none=True)
+        out = model.forward_train(small, seed=7)
+        if out["motion_pred"].dtype != model.dtype:
+            raise AssertionError(f"{label}: the {model.dtype} body gave {out['motion_pred'].dtype}")
+        loss = paired_mse_k(small, out, cfg)["full_loss"]
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().float().clone()
+                                      for n, p in model.named_parameters() if p.grad is not None}
+
+    reset_launches()
+    loss_k, g_k = grad_step(model16)
+    kernel_launches = launch_counts()
+    plain = (neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain,
+             causal_attention_plain)
+    with kernel_calls(*plain):
+        loss_p, g_p = grad_step(model16)
+        loss_p2, g_p2 = grad_step(model16)
+        loss_32, g_32 = grad_step(m32)
+    if launch_counts() != kernel_launches:
+        raise AssertionError(f"{label}: the plain path launched a kernel")
+    model16.zero_grad(set_to_none=True)
+    del m32
+    direct = (-1.0, None, 0.0, 0.0)  # (share of the bar, leaf, kernel vs plain, plain repeat)
+    for n, g in g_p.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        err = float((g_k[n] - g).abs().max()) / scale
+        spread = float((g_p2[n] - g).abs().max()) / scale
+        share = err / (2 * spread + GRAD_DIRECT_TOL)
+        if share > direct[0]:
+            direct = (share, n, err, spread)
+    loss_bar = 2 * abs(loss_p2 - loss_p) + GRAD_DIRECT_TOL * abs(loss_p)
+    log(f"{label} (B=2, R=1), direct: kernel vs plain bf16 step, worst leaf {direct[1]}: "
+        f"{direct[2]:.3e} of its max, two plain steps {direct[3]:.3e} ({direct[0]:.3f} of the "
+        f"bar); loss {loss_k:.8g} vs {loss_p:.8g}, repeat {loss_p2:.8g}")
+    if set(g_k) != set(g_p) or direct[0] > 1.0 or abs(loss_k - loss_p) > loss_bar:
+        raise AssertionError(f"{label}: the bf16 kernel step is not the plain bf16 step: "
+                             f"{direct}, loss {loss_k} vs {loss_p} (bar {loss_bar})")
+    worst = (0.0, None, 0.0, 0.0)
+    for n, g in g_32.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        err_k = float((g_k[n] - g).abs().max()) / scale
+        err_p = float((g_p[n] - g).abs().max()) / scale
+        ratio = err_k / (BF16_RULE[0] * err_p + 1e-5)
+        if ratio > worst[0]:
+            worst = (ratio, n, err_k, err_p)
+    loss_rule = BF16_RULE[0] * abs(loss_p - loss_32) + 1e-5 * abs(loss_32)
+    log(f"{label} (B=2, R=1): kernel launches {kernel_launches}; loss kernel {loss_k:.8g}, "
+        f"plain bf16 {loss_p:.8g}, plain f32 {loss_32:.8g}; worst gradient leaf {worst[1]}: "
+        f"{worst[2]:.3e} of its max against the plain bf16 path's {worst[3]:.3e} "
+        f"({worst[0]:.3f} of the 2x bar)")
+    if set(g_k) != set(g_32) or worst[0] > 1.0 or abs(loss_k - loss_32) > loss_rule:
+        raise AssertionError(f"{label}: the bf16 kernel step fails the 2x rule: {worst}, loss "
+                             f"{loss_k} vs {loss_32} (bar {loss_rule})")
+    if not kernel_launches["neighbor_topk"]:
+        raise AssertionError(f"{label}: the kernel step launched no B1")
+    return {"loss": [loss_k, loss_p, loss_32], "loss_plain_repeat": loss_p2,
+            "direct_worst_leaf": direct[1], "direct_share_of_bar": direct[0],
+            "direct_err": direct[2], "plain_repeat_err": direct[3], "worst_leaf": worst[1],
+            "worst_ratio_of_bar": worst[0], "kernel_err": worst[2], "plain_bf16_err": worst[3],
+            "kernel_launches": kernel_launches}
+
+
+def bf16_train_phase(torch, root, shape, device="cuda"):
+    """Phase 11: bf16 training (see the module docstring). Returns the
+    phase's record; raises on a failed gate."""
+    import shutil
+
+    import numpy as np
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.train.trainer import Trainer
+    from prosim_torch.utils.params import init_params
+
+    build = os.path.join(root, "build")
+    t0 = time.perf_counter()
+    rec = {}
+    topk_per_step, text_per_step = train_launches()
+
+    # (a) configs/no_text.yaml, the body in bf16, as phase 7
+    name = "chip_smoke_train_bf16"
+    shutil.rmtree(os.path.join(build, name), ignore_errors=True)
+    cfg = get_config(os.path.join(root, TRAIN_YAML), [
+        "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", name,
+        "TRAIN.SCHEDULER.WARMUP_STEPS", "0", "TRAIN.REMAT_POLICY", "full"])
+    B = cfg.TRAIN.BATCH_SIZE
+    trainer, batches, p0, launches, peak = bf16_fit(torch, cfg, B, shape, TRAIN_STEPS, device)
+    step_ms, terms = _train_record(torch, trainer, TRAIN_STEPS)
+    moved = max(float((p.detach() - p0[n]).abs().max())
+                for n, p in trainer.model.named_parameters())
+    if {p.dtype for p in trainer.model.parameters()} != {torch.float32} or trainer.model.dtype \
+            != torch.bfloat16:
+        raise AssertionError("train bf16: the model is not a bf16 body on f32 parameters")
+    if moved == 0.0:
+        raise AssertionError("train bf16: no parameter moved")
+    if launches["neighbor_topk"] != TRAIN_STEPS * topk_per_step:
+        raise AssertionError(f"train bf16: neighbor_topk launched {launches['neighbor_topk']} "
+                             f"times, expected {TRAIN_STEPS * topk_per_step}")
+    if launches["edge_attn_core"] or launches["fused_two_site_stack"]:
+        raise AssertionError(f"train bf16: a forward-only kernel ran in training: {launches}")
+    log(f"train bf16: fit {time.perf_counter() - t0:.1f} s")
+    prof = profile_train_step(torch, trainer, batches[0])
+    log(f"train bf16: {TRAIN_YAML} B={B} steps {TRAIN_STEPS}: step ms (synchronised host clock) "
+        f"{['%.1f' % t for t in step_ms]}, median {sorted(step_ms)[len(step_ms) // 2]:.1f}; "
+        f"peak memory {peak / 2**30:.2f} GiB; B1 launches per step "
+        f"{launches['neighbor_topk'] / TRAIN_STEPS:g}; profiled step: wall {prof['wall_ms']:.1f} "
+        f"ms, device busy {prof['busy_ms']:.1f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), {prof['launches']} device operations")
+    for fam, ms in prof["families_ms"].items():
+        log(f"  {fam:22s} {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} %")
+    for kname, ms, n in prof["top_kernels"]:
+        log(f"    {ms:9.3f} ms x{n:<6d} {kname}")
+    rec["no_text"] = {"config": TRAIN_YAML, "batch_size": B, "steps": TRAIN_STEPS,
+                      "step_ms": step_ms, "peak_memory_bytes": peak, "launches": launches,
+                      "neighbor_topk_per_step": launches["neighbor_topk"] / TRAIN_STEPS,
+                      "terms": terms, "profile": prof}
+    del batches
+    torch.cuda.empty_cache()
+    # the validation rollout in bf16: evaluate and rollout_callback (M=4)
+    # through B1 and B2's bf16 kernel, and with FUSED_STACK through B3's
+    small = make_synthetic_batch(cfg, batch_size=2, seed=1, device=device, **shape)
+    reset_launches()
+    ev = trainer.evaluate([small])
+    roll = trainer.rollout_callback([small], m=4)
+    ev_launches = launch_counts()
+    cfg_f = get_config(os.path.join(root, TRAIN_YAML), [
+        "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", name + "_fused",
+        "MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"])
+    fused = Trainer(cfg_f, model=ProSim(cfg_f, device=device, dtype=torch.bfloat16),
+                    device=device)
+    fused.model.load_state_dict(trainer.model.state_dict())
+    reset_launches()
+    roll_f = fused.rollout_callback([small], m=4)
+    torch.cuda.synchronize()
+    ev_launches_f = launch_counts()
+    log(f"train bf16 eval (B=2): evaluate {ev}; rollout_callback M=4 {roll}, launches "
+        f"{ev_launches}; FUSED_STACK {roll_f}, launches {ev_launches_f}")
+    if not all(np.isfinite(v) for v in [*ev.values(), *roll.values(), *roll_f.values()]):
+        raise AssertionError("train bf16: evaluate or rollout_callback gave a non-finite metric")
+    if not (ev_launches["edge_attn_core"] and ev_launches_f["fused_two_site_stack"]):
+        raise AssertionError("train bf16: the validation rollout ran no B2 or no B3")
+    rec["no_text"].update(eval=ev, rollout=roll, rollout_fused=roll_f,
+                          eval_launches=ev_launches, eval_launches_fused=ev_launches_f)
+    log(f"train bf16: profile and the validation rollouts {time.perf_counter() - t0:.1f} s")
+    del fused
+    rec["grad_gate_no_text"] = bf16_grad_gate(torch, cfg, trainer.model, shape, device,
+                                              "train bf16 gradient gate, no_text")
+    log(f"== phase 11 (a), (c): {time.perf_counter() - t0:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) bench.py --mode train's defaults (bench.py:261-321): B=64, the body
+    # in bf16, every condition type (the text one through the tiny() Llama),
+    # synthetic batches at the demo padding, 8 replan steps
+    t1 = time.perf_counter()
+    name = "chip_smoke_bench_train"
+    shutil.rmtree(os.path.join(build, name), ignore_errors=True)
+    cfg_b = get_config(opts=[
+        "DATASET.FORMAT.PAD.NUM_LANES", str(LANES),
+        "DATASET.FORMAT.PAD.NUM_OBS_AGENTS", str(OBS_AGENTS),
+        "DATASET.FORMAT.PAD.NUM_AGENTS", str(AGENTS),
+        "MODEL.DTYPE", "bfloat16",
+        "PROMPT.CONDITION.TYPES", repr(BENCH_CONDITIONS),
+        "PROMPT.CONDITION.SAMPLE_MODE.TRAIN", "fix", "PROMPT.CONDITION.SAMPLE_MODE.VAL", "fix",
+        "PROMPT.CONDITION.RANDOM_SAMPLE.TRAIN", "True", "PROMPT.CONDITION.SAMPLE_RATE", "1.0",
+        "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", name, "SAVE_CHECKPOINT", "False"])
+    Bb = BENCH_TRAIN_B
+    trainer, batches, _, launches_b, peak_b = bf16_fit(torch, cfg_b, Bb, shape,
+                                                      BENCH_TRAIN_STEPS, device)
+    step_ms_b, terms_b = _train_record(torch, trainer, BENCH_TRAIN_STEPS)
+    want_b = {k: BENCH_TRAIN_STEPS * v for k, v in text_per_step.items()}
+    got_b = {k: launches_b[k] for k in want_b}
+    med = sorted(step_ms_b)[len(step_ms_b) // 2]
+    log(f"bench train (bf16, conditions {BENCH_CONDITIONS}): B={Bb} steps {BENCH_TRAIN_STEPS}: "
+        f"step ms {['%.1f' % t for t in step_ms_b]}, median {med:.1f} = "
+        f"{1e3 * Bb / med:.3f} train scenes/s; peak memory {peak_b / 2**30:.2f} GiB; launches "
+        f"{launches_b} ({ {k: v / BENCH_TRAIN_STEPS for k, v in got_b.items()} } B4 a step); "
+        f"grad norm {terms_b.get('train/grad_norm')}")
+    if got_b != want_b or launches_b["neighbor_topk"] != BENCH_TRAIN_STEPS * topk_per_step:
+        raise AssertionError(f"bench train: launches {launches_b}, expected B4 {want_b} and "
+                             f"B1 {BENCH_TRAIN_STEPS * topk_per_step}")
+    if launches_b["edge_attn_core"] or launches_b["fused_two_site_stack"]:
+        raise AssertionError(f"bench train: a forward-only kernel ran in training: {launches_b}")
+    rec["bench_train"] = {"batch_size": Bb, "conditions": BENCH_CONDITIONS, "steps": BENCH_TRAIN_STEPS,
+                          "step_ms": step_ms_b, "train_scenes_per_s": 1e3 * Bb / med,
+                          "peak_memory_bytes": peak_b, "launches": launches_b,
+                          "b4_per_step": {k: v / BENCH_TRAIN_STEPS for k, v in got_b.items()},
+                          "terms": terms_b}
+    del batches
+    torch.cuda.empty_cache()
+    rec["grad_gate_bench"] = bf16_grad_gate(torch, cfg_b, trainer.model, shape, device,
+                                            "bench train gradient gate")
+    log(f"== phase 11 (b), (c): {time.perf_counter() - t1:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) data-parallel on NCCL at world size 1, in a process of its own
+    t2 = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--dp-child"], cwd=root)
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 11 (d) (chip_smoke.py --dp-child) exited {child.returncode}")
+    with open(os.path.join(root, "chiprun_out", "chip_smoke_dp.json")) as f:
+        rec["data_parallel"] = json.load(f)
+    log(f"== phase 11 (d): {time.perf_counter() - t2:.1f} s")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def dp_child(torch, root, device="cuda"):
+    """Phase 11 (d), in a process of its own: configs/no_text.yaml with the
+    body in bf16, one Trainer.fit step on DP_B scenes at full width, twice
+    in one process without a process group, then once as rank 0 of an NCCL
+    group of one through the data-parallel path (global counts, the
+    gradients' all-reduce, the losses' sum). Gates: the data-parallel
+    step's loss, gradients and parameters within 2x the spread of the two
+    one-process steps plus 1e-6 (each leaf relative to its largest), and
+    the collectives ran. Returns the record."""
+    import datetime
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.parallel import mesh as pm
+    from prosim_torch.train.trainer import Trainer
+
+    build = os.path.join(root, "build")
+    shape = dict(num_lanes=LANES, num_obs_agents=OBS_AGENTS, num_agents=AGENTS, num_replan=REPLAN)
+
+    def one_step(tag):
+        name = f"chip_smoke_dp_{tag}"
+        shutil.rmtree(os.path.join(build, name), ignore_errors=True)
+        cfg = get_config(os.path.join(root, TRAIN_YAML), [
+            "EXPERIMENT_DIR", build, "EXPERIMENT_NAME", name, "SAVE_CHECKPOINT", "False",
+            "TRAIN.SCHEDULER.WARMUP_STEPS", "0", "TRAIN.REMAT_POLICY", "full"])
+        trainer = Trainer(cfg, model=ProSim(cfg, device=device, dtype=torch.bfloat16),
+                          device=device)
+        trainer.setup()
+        batch = make_synthetic_batch(cfg, batch_size=DP_B, seed=20, device=device, **shape)
+        t = time.perf_counter()
+        trainer.fit([batch], max_steps=1)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        loss = [r for r in map(json.loads, open(trainer.log_path)) if "train/full_loss" in r]
+        out = (loss[-1]["train/full_loss"],
+               {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
+                if p.grad is not None},
+               {n: p.detach().clone() for n, p in trainer.model.named_parameters()}, ms,
+               pm.data_parallel(trainer.mesh))
+        del trainer
+        return out
+
+    def leaf_err(a, b):
+        return max(float((a[n] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                   for n, v in b.items())
+
+    s1, s2 = one_step("single_1"), one_step("single_2")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    calls = {"all_reduce": 0}
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **k):
+        calls["all_reduce"] += 1
+        return all_reduce(*a, **k)
+
+    dist.all_reduce = counted
+    world = pm.initialize_multihost(f"127.0.0.1:{port}", 1, 0, device=device,
+                                    timeout=datetime.timedelta(seconds=60))
+    try:
+        backend = dist.get_backend()
+        dp = one_step("nccl")
+    finally:
+        dist.destroy_process_group()
+        dist.all_reduce = all_reduce
+    spread = {"loss": abs(s2[0] - s1[0]) / abs(s1[0]), "grads": leaf_err(s2[1], s1[1]),
+              "params": leaf_err(s2[2], s1[2])}
+    err = {"loss": abs(dp[0] - s1[0]) / abs(s1[0]), "grads": leaf_err(dp[1], s1[1]),
+           "params": leaf_err(dp[2], s1[2])}
+    log(f"data-parallel (NCCL, world size {world}, backend {backend}, B={DP_B}): "
+        f"{calls['all_reduce']} all-reduces; step ms one-process {s1[3]:.1f}, {s2[3]:.1f}, "
+        f"data-parallel {dp[3]:.1f}; data-parallel vs one-process {err}; two one-process "
+        f"steps {spread}")
+    if not dp[4] or s1[4] or world != 1 or backend != "nccl" or not calls["all_reduce"]:
+        raise AssertionError(f"data-parallel: the path did not run on NCCL: world {world}, "
+                             f"backend {backend}, {calls}")
+    bad = {k: (err[k], spread[k]) for k in err if err[k] > 2 * spread[k] + 1e-6}
+    if bad:
+        raise AssertionError(f"data-parallel step outside the one-process spread: {bad}")
+    return {"world_size": world, "backend": backend, "batch_size": DP_B,
+            "all_reduces": calls["all_reduce"], "err": err, "spread": spread,
+            "step_ms": {"single": [s1[3], s2[3]], "data_parallel": dp[3]}}
+
+
 def check_instantiations(label, prof, dtype_tag):
     """Every B2 and B3 launch of a profiled forward ran the kernel of the
     model's dtype (f32: the f32 instantiation; bf16: the tensor-core kernel,
@@ -2780,6 +3182,19 @@ def main(argv):
         phase_done("phase 10, serving")
         os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
         with open(os.path.join(root, "chiprun_out", "chip_smoke_serve.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        return 0
+    if "--bf16-train-only" in argv:
+        rec = {"card": smi, "bf16_train": bf16_train_phase(torch, root, shape)}
+        phase_done("phase 11, bf16 and data-parallel training")
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out", "chip_smoke_bf16_train.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        return 0
+    if "--dp-child" in argv:
+        rec = dp_child(torch, root)
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out", "chip_smoke_dp.json"), "w") as f:
             json.dump(rec, f, indent=1)
         return 0
     if "--train-only" in argv:
@@ -3084,6 +3499,24 @@ def main(argv):
         serve = json.load(f)["serve"]
     phase_done("phase 10, serving (its own process)")
 
+    # 11. bf16 training (no_text and bench.py's train default) and the
+    # data-parallel step on NCCL, in a process of its own for the same
+    # reason as phase 9 (its train step is profiled)
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--bf16-train-only"],
+                           cwd=root)
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 11 (chip_smoke.py --bf16-train-only) exited {child.returncode}")
+    with open(os.path.join(root, "chiprun_out", "chip_smoke_bf16_train.json")) as f:
+        bf16_train = json.load(f)["bf16_train"]
+    a16 = bf16_train["no_text"]
+    for label, r in (("f32 (phase 7)", train), ("bf16 (phase 11)", a16)):
+        pr = r["profile"]
+        log(f"train {label}: B={r['batch_size']} median step "
+            f"{sorted(r['step_ms'])[len(r['step_ms']) // 2]:.1f} ms, peak "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, B1 {r['neighbor_topk_per_step']:g} a step, "
+            f"busy {pr['busy_ms']:.1f} of {pr['wall_ms']:.1f} ms, {pr['launches']} operations")
+    phase_done("phase 11, bf16 and data-parallel training (its own process)")
+
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
     by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
@@ -3094,7 +3527,11 @@ def main(argv):
                **{f"text train {k} ({v['timed_steps']} steps)": v["launches"]
                   for k, v in text_train.items()},
                "serve demo (B=1)": serve["demo_launches"],
-               f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})": serve["farm"]["launches"]}
+               f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})": serve["farm"]["launches"],
+               f"train bf16 ({TRAIN_STEPS} steps)": a16["launches"],
+               "train bf16 eval (B=2)": a16["eval_launches"],
+               "train bf16 eval FUSED_STACK (B=2)": a16["eval_launches_fused"],
+               f"bench train bf16 ({BENCH_TRAIN_STEPS} steps)": bf16_train["bench_train"]["launches"]}
     bwd_path = {k: f"text train {k} ({v['timed_steps']} steps)" for k, v in text_train.items()}
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
@@ -3145,14 +3582,17 @@ def main(argv):
     # B4's one launch count covers both instantiations: bf16 in the text
     # configuration, f32 in the shipped demo one
     f32_paths = [p for p in by_path if "bf16" not in p]
-    bf16_paths = ("layer loop bf16", "fused bf16", "demo bf16 (B=2)")
+    bf16_paths = ("layer loop bf16", "fused bf16", "demo bf16 (B=2)", "train bf16 eval (B=2)",
+                  "train bf16 eval FUSED_STACK (B=2)")
+    bench_path = f"bench train bf16 ({BENCH_TRAIN_STEPS} steps)"  # its tiny() Llama is f32
     paths = {"edge_attn_core": f32_paths, "fused_two_site_stack": f32_paths,
              "edge_attn_core_bf16": bf16_paths, "fused_two_site_stack_bf16": bf16_paths,
              "causal_attention": ("layer loop", "fused", "text", bwd_path["llama3_8b"]),
              "causal_attention_f32": ("demo (B=2)", bwd_path["as_shipped"], "serve demo (B=1)",
-                                      f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})"),
+                                      f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})",
+                                      bench_path),
              "causal_attention_bwd": (bwd_path["llama3_8b"],),
-             "causal_attention_bwd_f32": (bwd_path["as_shipped"],)}
+             "causal_attention_bwd_f32": (bwd_path["as_shipped"], bench_path)}
     for k in kernels:
         wrapper = k["name"].removesuffix("_f32").removesuffix("_bf16")
         k["launches_per_path"] = {p: by_path[p][wrapper] for p in paths.get(k["name"], by_path)}
@@ -3174,7 +3614,7 @@ def main(argv):
                                               "per_site": per_site_f16}},
                    "flash_d40": d40_rows,
                    "parity_m": parity, "train": train, "text_train": text_train, "data": data,
-                   "serve": serve,
+                   "serve": serve, "bf16_train": bf16_train,
                    "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

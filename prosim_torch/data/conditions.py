@@ -17,8 +17,9 @@ Sampling policies fix/uniform/normal/none with per-scene and per-batch quotas
 
 Port of prosim_tpu/data/conditions.py on the port's containers and
 tokenizer: the same numpy draws in the same order, so one rng seed gives the
-same conditions in both packages. A TOKENIZER_PATH needs the HF tokenizer
-loader, which is not ported yet (ROADMAP.md queue A8): it raises.
+same conditions in both packages. A TOKENIZER_PATH builds the HF tokenizer
+(`models/llm/tokenizer.py` HFTokenizer) from that directory's files; without
+one the byte tokenizer serves, as in the JAX package.
 """
 
 import os

@@ -28,6 +28,11 @@ from prosim_torch.data.trajdata_cache import SceneData, list_scenes, load_scene
 class ProSimImitationDataset:
     def __init__(self, config, split: str = "train",
                  cache_dir: Optional[str] = None):
+        # pyarrow is imported here, in the thread that builds the dataset:
+        # imported first inside the loader's producer thread, its IPC reader
+        # segfaulted now and then in two-rank CPU training runs
+        import pyarrow.ipc  # noqa: F401
+
         self.config = config
         self.split = split
         self.cache_dir = cache_dir or config.DATASET.DATA_PATHS.CACHE_DIR

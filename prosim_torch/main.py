@@ -4,8 +4,15 @@
         --exp-config path/to/exp.yaml [--cache-dir DIR] [--device cuda] [KEY VALUE ...]
 
 (reference: prosim/main.py:19-91). Runs on the card unless --device says
-otherwise. Training runs on one device (data-parallel training is ROADMAP.md
-queue A7).
+otherwise.
+
+Training runs data-parallel when started as several processes: under
+torchrun (`torchrun --nproc_per_node N -m prosim_torch.main --run-type train
+...`), or one process per rank with COORDINATOR_ADDRESS=host:port, WORLD_SIZE
+and RANK set. Each rank joins the group (NCCL on the card, gloo with
+--device cpu), reads the same global batches of TRAIN.BATCH_SIZE scenes and
+trains on its rows (train/trainer.py); rank 0 logs and writes checkpoints.
+Without that environment it is one process.
 """
 
 import argparse
@@ -42,16 +49,25 @@ def run_exp(run_type: str, exp_config, opts, cache_dir=None, device="cuda"):
         return
 
     if run_type == "train":
-        train_ds = ProSimImitationDataset(config, "train", cache_dir)
-        val_ds = ProSimImitationDataset(config, "val", cache_dir)
-        trainer = Trainer(config, device=device)
-        trainer.setup()
-        trainer.fit(
-            lambda: train_ds.batches(config.TRAIN.BATCH_SIZE, shuffle=True,
-                                     num_workers=config.TRAIN.NUM_WORKERS, device=device),
-            lambda: val_ds.batches(config.VAL.BATCH_SIZE, num_workers=config.VAL.NUM_WORKERS,
-                                   device=device),
-        )
+        import torch.distributed as dist
+
+        from prosim_torch.parallel.mesh import initialize_multihost
+
+        initialize_multihost(device=device)  # no-op unless a coordinator is configured
+        try:
+            train_ds = ProSimImitationDataset(config, "train", cache_dir)
+            val_ds = ProSimImitationDataset(config, "val", cache_dir)
+            trainer = Trainer(config, device=device)
+            trainer.setup()
+            trainer.fit(
+                lambda: train_ds.batches(config.TRAIN.BATCH_SIZE, shuffle=True,
+                                         num_workers=config.TRAIN.NUM_WORKERS, device=device),
+                lambda: val_ds.batches(config.VAL.BATCH_SIZE,
+                                       num_workers=config.VAL.NUM_WORKERS, device=device),
+            )
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
         return
 
     if run_type == "eval":

@@ -37,6 +37,7 @@ from torch import nn
 from prosim_torch.data.batch import Prompt
 from prosim_torch.models.llm.llama import LlamaConfig, LlamaModel
 from prosim_torch.ops.mlp import MLP, LayerNorm
+from prosim_torch.parallel.mesh import global_count
 
 
 class LlamaTextAttn(nn.Module):
@@ -100,5 +101,5 @@ class LlamaTextAttn(nn.Module):
         target = text_cond["prompt_mask"].float()
         bce = -(target * F.logsigmoid(logits) + (1 - target) * F.logsigmoid(-logits))
         valid = prompt.mask
-        loss = torch.where(valid, bce, 0.0).sum() / valid.sum().clamp_min(1)
+        loss = torch.where(valid, bce, 0.0).sum() / global_count(valid)
         return out, {"prompt_mask_pred_loss": loss}

@@ -49,8 +49,11 @@ the type and time one-hots are built in it, `step_env` writes back in the
 logged buffers' dtype (f32), the policy takes the agents' poses in it, and
 the trajectory state is integrated in f32
 (prosim_tpu/models/prosim.py:195-208, :296-297, :346-351, :406-407, :435).
-In bf16 the kernels run their bf16 instantiations. Training is f32 only:
-a model in another dtype refuses mode="train".
+In bf16 the kernels run their bf16 instantiations. A bf16 model trains as
+an f32 one does (`bench.py --mode train`'s default): the body computes in
+bf16, the parameters and their gradients stay f32 (each cast's gradient
+returns to the f32 leaf), the remat policies save and recompute bf16
+tensors, and the losses take the bf16 outputs where the JAX losses do.
 """
 
 import contextlib
@@ -236,10 +239,6 @@ class ProSim(nn.Module):
         """The train-mode closed loop, differentiable. `seed` makes the
         integer seeds of `prepare` and of each replan step, as the JAX package
         splits its key (prosim_tpu/models/prosim.py:266-283, 386-389)."""
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"training a {self.dtype} model is not ported yet; train in float32 "
-                "(bf16 training is queued in ROADMAP.md queue A)")
         seeds = torch.Generator().manual_seed(seed)
         R = int(batch.fut_obs.feat.shape[1])
         prep_seed, *step_seeds = torch.randint(0, 2**62, (R + 1,), generator=seeds).tolist()

@@ -46,6 +46,43 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
+class _Einsum32(torch.autograd.Function):
+    """torch.einsum(eq, a.float(), b.float()) of two operands in a narrower
+    dtype: each product exact in f32 and the sum accumulated in f32, with
+    the operands upcast inside the forward and again inside the backward, so
+    autograd keeps the bf16 operands and no f32 copy of them (a per-edge
+    table in f32 is twice its bf16 size, and each layer kept two). Each
+    operand's gradient is accumulated in f32 and rounded once to its dtype,
+    as the transpose of the JAX package's bf16 einsum rounds it. eq is
+    "X,Y->Z" with every index of X and of Y in Z or in the other operand."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b):
+        ctx.save_for_backward(a, b)
+        ctx.eq = eq
+        return torch.einsum(eq, a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        operands, z = ctx.eq.split("->")
+        x, y = operands.split(",")
+        ga = gb = None
+        if ctx.needs_input_grad[1]:
+            ga = torch.einsum(f"{z},{y}->{x}", g, b.float()).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = torch.einsum(f"{z},{x}->{y}", g, a.float()).to(b.dtype)
+        return None, ga, gb
+
+
+def _einsum32(eq, a, b):
+    """torch.einsum(eq, a.float(), b.float()): f32 products and sums; in a
+    narrower dtype under autograd through _Einsum32."""
+    if a.dtype == b.dtype == torch.float32 or not torch.is_grad_enabled():
+        return torch.einsum(eq, a.float(), b.float())
+    return _Einsum32.apply(eq, a, b)
+
+
 def attend_gathered(x_g, z_r, qx, qp, edge_valid, scale: float, bias=None, drop=None):
     """The differentiable einsum/softmax block of prosim_tpu/ops/attention.py
     (:346-366) over gathered source rows x_g [B,Q,K,D] -> (agg_x, agg_z,
@@ -54,11 +91,11 @@ def attend_gathered(x_g, z_r, qx, qp, edge_valid, scale: float, bias=None, drop=
     aggregate; the plain core passes neither. Products accumulate in f32;
     in bf16 the values round through x_g.dtype where the TPU kernel
     (`_edge_attn_kernel`) rounds them: the scaled score, exp(s - max), the
-    weights, and each output (every cast is the identity in f32)."""
+    weights, and each output (every cast is the identity in f32). Under
+    autograd in bf16 the products go through _Einsum32, which keeps the
+    bf16 tables for the backward and no f32 copy of them."""
     dt = x_g.dtype
-    x32, z32 = x_g.float(), z_r.float()
-    sim = (torch.einsum("bqhd,bqkd->bqkh", qx.float(), x32)
-           + torch.einsum("bqhd,bqkd->bqkh", qp.float(), z32))
+    sim = _einsum32("bqhd,bqkd->bqkh", qx, x_g) + _einsum32("bqhd,bqkd->bqkh", qp, z_r)
     if bias is not None:
         sim = sim + bias[:, :, None]
     sim = (sim * scale).to(dt).float()
@@ -71,8 +108,8 @@ def attend_gathered(x_g, z_r, qx, qp, edge_valid, scale: float, bias=None, drop=
     attn = (expw / denom.clamp_min(1e-9)).to(dt)  # [B,Q,K,H]
     if drop is not None:
         attn = drop(attn)
-    agg_x = torch.einsum("bqkh,bqkd->bqhd", attn.float(), x32).to(dt)
-    agg_z = torch.einsum("bqkh,bqkd->bqhd", attn.float(), z32).to(dt)
+    agg_x = _einsum32("bqkh,bqkd->bqhd", attn, x_g).to(dt)
+    agg_z = _einsum32("bqkh,bqkd->bqhd", attn, z_r).to(dt)
     return agg_x, agg_z, attn
 
 

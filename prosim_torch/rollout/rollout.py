@@ -13,6 +13,7 @@ from typing import Dict, Optional
 import torch
 
 from prosim_torch.data.batch import Condition, SceneBatch, SceneTokens
+from prosim_torch.parallel.mesh import global_count
 from prosim_torch.utils.geometry import rotate_2d, wrap_angle
 
 
@@ -82,7 +83,7 @@ def crash_and_goal_metrics(world_xyh, extents, agent_mask, goals_world,
         d = torch.linalg.vector_norm(xb[:, :, :, None] - xb[:, :, None, :], dim=-1)
         c = (d < rsum[:, None] * 0.7) & pair_mask[:, None]
         crashed |= c.any(dim=3).any(dim=1)
-    n_agents = agent_mask.sum().clamp_min(1)
+    n_agents = global_count(agent_mask)
     crash_rate = (crashed & agent_mask).sum() / n_agents
 
     goal_d = torch.linalg.vector_norm(xy - goals_world[:, :, None], dim=-1).amin(dim=-1)
@@ -114,7 +115,7 @@ def replica_rollout_metrics(output: Dict, batch: SceneBatch, m: int) -> Dict:
     w = gt_valid[:, None].to(pred.dtype)                # [B, 1, N, T]
     ade_r = (err * w).sum((2, 3)) / w.sum((2, 3)).clamp_min(1)  # [B, m]
     scene_has = gt_valid.any(2).any(1)                  # [B]
-    denom = scene_has.sum().clamp_min(1)
+    denom = global_count(scene_has)
     min_ade = torch.where(scene_has, ade_r.amin(1), 0.0).sum() / denom
     mean_ade = torch.where(scene_has, ade_r.mean(1), 0.0).sum() / denom
 

@@ -16,6 +16,7 @@ from typing import Dict
 import torch
 
 from prosim_torch.core.registry import registry
+from prosim_torch.parallel.mesh import global_count
 from prosim_torch.utils.geometry import rotate_2d, wrap_angle
 
 
@@ -94,7 +95,7 @@ def compute_rollout_loss(tgt_rt, pred_rt, step_valid, config, gmm_params=None):
 
     agent_valid = step_valid.any(dim=-1)
     denom_t = step_valid.sum(dim=-1).clamp_min(1)
-    denom_a = agent_valid.sum().clamp_min(1)
+    denom_a = global_count(agent_valid)
 
     loss, per_agent = {}, {}
     for k, d in dists.items():
@@ -141,21 +142,21 @@ def step_loss_k_way(tgt, tgt_valid, pred, prob, config):
         best_gmm = _pick(gmm, min_idx, lead)
         nll = gmm_nll(tgt[..., :2], best[..., :2], best_gmm)  # [*, S]
         m2 = pos_mask.all(-1)
-        pos_l = torch.where(m2, nll, 0.0).sum() / m2.sum().clamp_min(1)
+        pos_l = torch.where(m2, nll, 0.0).sum() / global_count(m2)
     else:
         pos = torch.where(pos_mask, crit(tgt[..., :2], best[..., :2]), 0.0)
-        pos_l = pos.sum() / pos_mask.sum().clamp_min(1) * 2
+        pos_l = pos.sum() / global_count(pos_mask) * 2
 
     tgt_h = torch.stack([torch.sin(tgt[..., 2]), torch.cos(tgt[..., 2])], dim=-1)
     pred_h = torch.stack([torch.sin(best[..., 2]), torch.cos(best[..., 2])], dim=-1)
     h_mask = tgt_valid[..., 2:3].repeat_interleave(2, dim=-1)
     head = torch.where(h_mask, (tgt_h - pred_h).abs(), 0.0)
-    head_l = head.sum() / h_mask.sum().clamp_min(1) * 2
+    head_l = head.sum() / global_count(h_mask) * 2
 
     cls_mask = tgt_valid[..., 0].any(-1)
     logp = torch.log_softmax(prob, dim=-1)
     cls = -logp.gather(-1, min_idx[..., None])[..., 0]
-    cls_l = torch.where(cls_mask, cls, 0.0).sum() / cls_mask.sum().clamp_min(1)
+    cls_l = torch.where(cls_mask, cls, 0.0).sum() / global_count(cls_mask)
 
     result = {
         "pos_loss": pos_l * config.LOSS.STEP_TRAJ.POS_WEIGHT,
@@ -165,7 +166,7 @@ def step_loss_k_way(tgt, tgt_valid, pred, prob, config):
     if tgt.shape[-1] >= 5:
         v_mask = tgt_valid[..., 3:5]
         vel = torch.where(v_mask, (tgt[..., 3:5] - best[..., 3:5]).abs(), 0.0)
-        vel_l = vel.sum() / v_mask.sum().clamp_min(1) * 2
+        vel_l = vel.sum() / global_count(v_mask) * 2
         result["vel_loss"] = vel_l * config.LOSS.STEP_TRAJ.VEL_WEIGHT
     result["full_loss"] = sum(result.values())
     return result, min_idx
@@ -330,7 +331,7 @@ def goal_recon_loss(batch, output, config):
     out = {}
     for name, m in (("cond", base_mask & cond_mask), ("uncond", base_mask & ~cond_mask)):
         se = ((recon - goal) ** 2).sum(-1) / 2  # mean over the 2 coords
-        out[f"{name}_goal"] = torch.where(m, se, 0.0).sum() / m.sum().clamp_min(1)
+        out[f"{name}_goal"] = torch.where(m, se, 0.0).sum() / global_count(m)
     return out
 
 
@@ -349,7 +350,7 @@ def condition_type_breakdown(batch, per_agent):
         masks[ctype] = pm & agent_valid
     masks["none"] = agent_valid & ~union
     for ctype, m in masks.items():
-        denom = m.sum().clamp_min(1)
+        denom = global_count(m)
         for lname in ("pos", "heading", "vel"):
             if lname in per_agent:
                 val = torch.where(m, per_agent[lname], 0.0).sum() / denom
@@ -396,7 +397,7 @@ def goal_prob_pred_loss(batch, output, config):
 
     logp = torch.log_softmax(goal_prob, dim=-1)
     ce = -logp.gather(-1, sel[..., None])[..., 0]
-    denom = mask.sum().clamp_min(1)
+    denom = global_count(mask)
     prob_loss = torch.where(mask, ce, 0.0).sum() / denom
 
     best = _pick(goal_point, sel, 2)

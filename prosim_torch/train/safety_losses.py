@@ -18,6 +18,7 @@ leading scene axis here.
 import torch
 import torch.nn.functional as F
 
+from prosim_torch.parallel.mesh import global_count
 from prosim_torch.utils.geometry import rotate_2d
 
 
@@ -105,7 +106,7 @@ def offroad_loss_centerline(
                                     seg_valid)
         gt_on_road = (gt_d <= margin).all(dim=-1)  # [B, N]
         valid = valid & gt_on_road[..., None]
-    return torch.where(valid, pen, 0.0).sum() / valid.sum().clamp_min(1)
+    return torch.where(valid, pen, 0.0).sum() / global_count(valid)
 
 
 def offroad_loss(
@@ -129,7 +130,7 @@ def offroad_loss(
     valid = agent_mask[..., None].expand(pen.shape)
     if gt_offroad is not None:
         valid = valid & ~gt_offroad[..., None]
-    return torch.where(valid, pen, 0.0).sum() / valid.sum().clamp_min(1)
+    return torch.where(valid, pen, 0.0).sum() / global_count(valid)
 
 
 def _sat_signed_distance(xy_a, h_a, ext_a, xy_b, h_b, ext_b):
@@ -220,4 +221,4 @@ def collision_loss(
             gather(gxy, nbr), gather(gh, nbr), ext_n[:, :, :, None, :],
         )
         valid = valid & ~((threshold - gsd) > 0).any(dim=-1, keepdim=True)
-    return torch.where(valid, pen, 0.0).sum() / valid.sum().clamp_min(1)
+    return torch.where(valid, pen, 0.0).sum() / global_count(valid)

@@ -1,9 +1,21 @@
-"""Training orchestration (port of prosim_tpu/train/trainer.py), on one
-device.
+"""Training orchestration (port of prosim_tpu/train/trainer.py).
 
 Builds the model and optimizer, runs train and eval steps, accumulates
 metrics, runs the M-replica validation rollout, checkpoints with torch.save
-and logs as JSONL (wandb-compatible key naming).
+and logs as JSONL (wandb-compatible key naming; `enable_wandb` mirrors it).
+The model may compute in f32 or bf16 (`Trainer(config, model=ProSim(config,
+device, dtype=torch.bfloat16))`, as the JAX package's bench trains it); its
+parameters, gradients and optimizer state are f32 either way.
+
+Data-parallel over the processes of a torch.distributed group
+(`parallel/mesh.py`; PARALLEL.NUM_DATA x NUM_MODEL, the model axis not
+ported): every rank holds the model, which `setup` replicates from rank 0,
+and takes its rows of each global batch (`shard_batch`); the train step sums
+the gradients over the ranks with the losses normalised over the global
+batch, so each step is the one-process step on the global batch. Evaluation
+and the validation rollout sum their metrics over the ranks the same way;
+the rollout's chunks are multiples of the data-axis size. Only rank 0 logs
+and writes checkpoints; every rank restores the same checkpoint.
 
 Checkpoint/resume semantics follow the reference: save every
 CHECKPOINT_INTERVAL steps, keep the best by train/full_loss, and save_last
@@ -15,8 +27,7 @@ resumed run continues the interrupted one exactly.
 `visualization_callback` renders a validation rollout (viz/plots.py, on
 the host with matplotlib) and `submit_rollout_request` hands a checkpoint
 to the WOSAC farm (rollout/runner.py serve_rollout_requests) in the JAX
-package's request format. Not ported yet (ROADMAP.md queue A7):
-`enable_wandb` and data-parallel training.
+package's request format.
 """
 
 import glob
@@ -31,6 +42,8 @@ import torch
 from prosim_torch.data.batch import tree_leaves_with_path
 from prosim_torch.models.condition.transformer import load_text_llm_weights
 from prosim_torch.models.prosim import ProSim
+from prosim_torch.parallel.mesh import (all_reduce_sum, global_counts, make_mesh,
+                                        process_index, replicate, shard_batch)
 from prosim_torch.train.metrics import compute_metrics, merge_metric_states
 from prosim_torch.train.optim import build_optimizer
 from prosim_torch.train.train_step import make_eval_step, make_train_step
@@ -67,8 +80,11 @@ def _batches(source):
 
 class Trainer:
     def __init__(self, config, model: Optional[ProSim] = None, log_path: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.config = config
+        self.mesh = mesh or make_mesh(num_data=config.PARALLEL.NUM_DATA,
+                                      num_model=config.PARALLEL.NUM_MODEL)
+        self.is_main = process_index() == 0  # logs and writes checkpoints
         self.model = model if model is not None else ProSim(config, device=device)
         self.device = next(self.model.parameters()).device
         self.run_dir = os.path.join(config.EXPERIMENT_DIR, config.EXPERIMENT_NAME)
@@ -82,6 +98,7 @@ class Trainer:
         self.scheduler = None
         self._train_step = None
         self._eval_step = None
+        self._wandb_run = None
 
     # ----------------------------------------------------------------- setup
     def setup(self, example_batch=None, seed: Optional[int] = None):
@@ -91,9 +108,11 @@ class Trainer:
         needed."""
         init_params(self.model, self.config.SEED if seed is None else seed)
         load_text_llm_weights(self.config, self.model)
+        replicate(self.model, self.mesh)
         self.optimizer, self.scheduler = build_optimizer(self.config, self.model)
-        self._train_step = make_train_step(self.model, self.optimizer, self.scheduler, self.config)
-        self._eval_step = make_eval_step(self.model, self.config)
+        self._train_step = make_train_step(self.model, self.optimizer, self.scheduler, self.config,
+                                           self.mesh)
+        self._eval_step = make_eval_step(self.model, self.config, self.mesh)
         if self.config.LOAD_CHECKPOINT_MODEL or self.config.LOAD_CHECKPOINT_TRAINER:
             path = self.config.LOAD_CHECKPOINT_PATH
             if not path and self.config.LOAD_CHECKPOINT_TRAINER:
@@ -112,11 +131,12 @@ class Trainer:
         ckpt_every = max(1, self.config.CHECKPOINT_INTERVAL)
         for epoch in range(self.config.MAX_EPOCHES):
             for batch in _batches(train_batches):
+                batch = shard_batch(batch, self.mesh)
                 losses = self._train_step(batch, self._next_seed())
                 self.step += 1
                 if self.step % 10 == 0 or max_steps:
                     loss = float(losses["full_loss"])
-                    if not np.isfinite(loss):
+                    if not np.isfinite(loss) and self.is_main:
                         self._dump_error_batch(batch, losses)
                     rec = {
                         "step": self.step,
@@ -161,16 +181,22 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(0)
         states, losses_acc, vis_pair = [], [], None
         for batch in _batches(val_batches):
+            batch = shard_batch(batch, self.mesh)
             losses, metric_state, output = self._eval_step(batch, gen)
-            states.append({k: (float(s), float(c)) for k, (s, c) in metric_state.items()})
-            losses_acc.append(float(losses["full_loss"]))
-            if vis_pair is None and self.config.ENABLE_VIS:
+            # sums and counts over the ranks (identity in one process)
+            flat = all_reduce_sum({"full_loss": losses["full_loss"], **{
+                f"{k}/{i}": v for k, sc in metric_state.items() for i, v in enumerate(sc)}},
+                self.mesh)
+            states.append({k: (float(flat[f"{k}/0"]), float(flat[f"{k}/1"]))
+                           for k in metric_state})
+            losses_acc.append(float(flat["full_loss"]))
+            if vis_pair is None and self.config.ENABLE_VIS and self.is_main:
                 vis_pair = (batch, output)
         merged = merge_metric_states(states) if states else {}
         metrics = compute_metrics(merged) if states else {}
         metrics["full_loss"] = float(np.mean(losses_acc)) if losses_acc else float("nan")
         self.log({"step": self.step, **{f"val/{k}": v for k, v in metrics.items()}})
-        if save_tag:
+        if save_tag and self.is_main:
             # metric sums and counts + scalars for offline analysis
             # (reference: trainer.py:287-292 _save_metric -> {mode}_metrics.npy)
             np.save(os.path.join(self.run_dir, f"{save_tag}_metrics.npy"),
@@ -204,10 +230,13 @@ class Trainer:
         submit_rollout_request). A farm worker watches ROLLOUT_REQUEST_PATH,
         loads the checkpoint and runs rollout.runner.run_rollout_eval. The
         request has the JAX package's fields; ckpt_path is the port's
-        checkpoint file."""
+        checkpoint file. Rank 0 writes both; the other ranks return the
+        checkpoint's path."""
         import datetime
 
         ckpt = self.save_checkpoint(f"rollout_ep{epoch}")
+        if not self.is_main:
+            return ckpt
         req_dir = self.config.ROLLOUT_REQUEST_PATH
         os.makedirs(req_dir, exist_ok=True)
         exp_name = os.path.join(self.config.EXPERIMENT_DIR,
@@ -248,23 +277,28 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self.config.SEED + 2)
         # B_chunk * m stays within ROLLOUT.MAX_TILE (at the WOSAC default
         # M=32 a whole val batch would not fit), with chunks that divide B
+        # and are multiples of the data-axis size; if MAX_TILE is tighter
+        # than one row a rank, exceed it minimally
         max_tile = max(int(self.config.ROLLOUT.MAX_TILE), m)
+        n_data = self.mesh.shape[self.mesh.data_axis]
         acc = []
         for i, batch in enumerate(_batches(val_batches)):
             if i >= max_batches:
                 break
             B = int(batch.prompt.mask.shape[0])
             lim = max(1, min(max_tile // m, B))
-            c = max(d for d in range(1, lim + 1) if B % d == 0)
+            even = [d for d in range(1, B + 1) if B % d == 0 and d % n_data == 0]
+            under = [d for d in even if d <= lim]
+            c = max(under) if under else (min(even) if even else B)
             for s in range(0, B, c):
-                sub = batch.map_batch_leaves(lambda x: x[s : s + c])
+                sub = shard_batch(batch.map_batch_leaves(lambda x: x[s : s + c]), self.mesh)
                 if use_sampler:
                     out = parallel_rollout_with_sampler(self.model, sub, m, self.model, top_k=3,
                                                         generator=gen)
                 else:
                     out = parallel_rollout(self.model, sub, m, generator=gen)
-                with torch.inference_mode():
-                    metrics = replica_rollout_metrics(out, sub, m)
+                with torch.inference_mode(), global_counts(self.mesh):
+                    metrics = all_reduce_sum(replica_rollout_metrics(out, sub, m), self.mesh)
                 acc.append({k: float(v) for k, v in metrics.items()})
         out = {k: float(np.mean([a[k] for a in acc])) for k in acc[0]} if acc else {}
         self.log({"step": self.step, **{f"rollout/{k}": v for k, v in out.items()}})
@@ -331,10 +365,13 @@ class Trainer:
         }
 
     def save_checkpoint(self, tag: str) -> str:
+        """Write ckpt_<tag>.pt (rank 0 only: every rank holds the same
+        state) and return its path."""
         path = os.path.join(self.run_dir, f"ckpt_{tag}.pt")
-        tmp = path + ".tmp"
-        torch.save(self._trainer_state(), tmp)
-        os.replace(tmp, path)
+        if self.is_main:
+            tmp = path + ".tmp"
+            torch.save(self._trainer_state(), tmp)
+            os.replace(tmp, path)
         return path
 
     def load_checkpoint(self, path: str, trainer_state: bool = False):
@@ -374,6 +411,28 @@ class Trainer:
 
     # ---------------------------------------------------------------- logging
     def log(self, record: Dict):
+        """Append a record to the JSONL log and print it (rank 0 only), and
+        mirror it to wandb after `enable_wandb`."""
+        if not self.is_main:
+            return
         with open(self.log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         print(json.dumps(record), flush=True)
+        if self._wandb_run is not None:
+            self._wandb_run.log(record, step=record.get("step"))
+
+    def enable_wandb(self, **init_kwargs):
+        """Optional wandb mirror of the JSONL log (the reference logs
+        everything to wandb, prosim/trainer.py:227-242), on rank 0. A no-op
+        when wandb is absent or cannot start."""
+        if not self.is_main:
+            return
+        try:
+            import wandb
+
+            self._wandb_run = wandb.init(project=self.config.WANDB_PROJ,
+                                         name=self.config.EXPERIMENT_NAME,
+                                         config=self.config.to_dict(), **init_kwargs)
+        except Exception as e:
+            print(f"wandb unavailable: {e}")
+            self._wandb_run = None

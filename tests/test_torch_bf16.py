@@ -464,6 +464,14 @@ def test_default_is_f32_and_params_stay_f32(goal_case):
     assert all(torch.equal(sd32[k], sd16[k]) for k in sd32)
 
 
-def test_bf16_training_raises(goal_case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        goal_case.tm[16](goal_case.tb, mode="train")
+def test_bf16_training_runs_and_edge_kernel_refuses_grad(goal_case):
+    """bf16 training runs (tests/test_torch_bf16_train.py holds it against
+    the JAX package): the train-mode forward keeps the bf16 body and its
+    autograd graph. What still raises in it is the eval-only edge-core
+    kernel, which has no backward: its wrapper refuses bf16 inputs that
+    require grad, so training takes the differentiable branch."""
+    out = goal_case.tm[16](goal_case.tb, mode="train")
+    assert out["motion_pred"].dtype == torch.bfloat16 and out["motion_pred"].requires_grad
+    x_src_n, idx, z_r, qx, qp, valid = _edge_inputs(0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tea.edge_attn_core(x_src_n, idx, z_r, qx.requires_grad_(True), qp, valid, 8 ** -0.5)

@@ -238,7 +238,7 @@ def test_generate_takes_tensor_batches(scenes):
     assert_trees_equal(a, b, ref_is_jax=False)
 
 
-def test_tokenizer_path_raises_until_the_hf_loader_is_ported():
+def test_tokenizer_path_builds_the_hf_tokenizer_with_jax_ids():
     """The HF loader is ported: TOKENIZER_PATH builds an HFTokenizer from a
     local directory (the committed fixture), and the ids of a motion-tag
     text equal the JAX generator's; a path with no tokenizer files raises

@@ -104,12 +104,14 @@ def test_entry_points_default_to_cuda():
     from prosim_torch.data.loader import PackedTransfer, SlabCollator, pipelined_batches, \
         sequential_batches
     from prosim_torch.data.scene_bank import DeviceSceneBank, banked_batches
+    from prosim_torch.parallel.mesh import initialize_multihost
     from prosim_torch.train.trainer import Trainer
 
     for fn in (ProSim.__init__, make_synthetic_batch, Trainer.__init__,
                ProSimImitationDataset.get_scene_batch, ProSimImitationDataset.batches,
                PackedTransfer.__init__, SlabCollator.__init__, pipelined_batches,
-               sequential_batches, DeviceSceneBank.__init__, banked_batches):
+               sequential_batches, DeviceSceneBank.__init__, banked_batches,
+               initialize_multihost):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
