@@ -10,7 +10,8 @@ from their formulas, and writes chiprun_out/chip_smoke_data.json;
 `--serve-only` runs phases 1, 2 and 10 and writes
 chiprun_out/chip_smoke_serve.json; `--bf16-train-only` runs phases 1, 2
 and 11 and writes chiprun_out/chip_smoke_bf16_train.json; `--dp-child` is
-phase 11 (d) alone, as phase 11 starts it.)
+phase 11 (d) alone, as phase 11 starts it; `--modes-only` runs phases 1, 2
+and 12 and writes chiprun_out/chip_smoke_modes.json.)
 Three configurations of the closed loop are driven at full width: the
 default (the policy's a2p/m2p stack as a layer loop), FUSED_STACK=True
 (the stack as one fused kernel per replan step), and the text-conditioned
@@ -120,7 +121,8 @@ tensor-core kernels. Phases:
                 loss at PROMPT_WEIGHT 1000) through Trainer.setup and
                 Trainer.fit in two configurations: as shipped (the f32
                 tiny() Llama) and at Llama3-8B width (TEXT.LLM.ARCH
-                llama3_8b: 32 layers, random bf16 body drawn on the card,
+                llama3_8b, TEXT8_TRAIN_LAYERS of its 32 layers deep, a cut
+                of the script's time limit; random bf16 body drawn on the card,
                 per-block remat); demo padding, B=16 (halved until it fits,
                 the cut recorded), REMAT full, WARMUP_STEPS 0; one warm-up
                 step and three timed: step ms, peak memory, B4 forward and
@@ -242,6 +244,39 @@ tensor-core kernels. Phases:
                 gradients and parameters within 2x the spread of the two
                 one-process steps plus 1e-6 of each leaf's largest, the
                 collectives counted.
+  12. modes   - the modes no shipped configuration reaches, in a process of
+                its own, as phase 9: (a) four models at get_config()'s
+                full width (HIDDEN_DIM 128, 6 layers a stack), demo padding,
+                B=16, R=8, TOP_K=1, random weights from a seed, synthetic
+                batches whose map vectors carry lane types 0-3 and light
+                states -1-2 in channels 4-5 (`with_map_ids`): enc-mlp (the
+                MLP map and obs encoders, pools 'max'), obs-update (FUSION
+                'mlp' and ATTN_UPDATE: 2 more B1 and 2 x 6 more B2
+                launches each replan step after the first), goal-cluster
+                (PRED_MODE 'cluster' on MODES_K goals written to
+                chiprun_out/ from a seed, CONTEXT.GOAL with USE_POSE_EMB)
+                as a layer loop and with FUSED_STACK (B3 on the goal
+                context's query rows). Each in f32 and with the body in
+                bf16: phase 4's rollout gates (launches per forward exact,
+                `modes_launches`), every B2/B3 launch its dtype's kernel, a
+                profiled forward's busy share; at B=2 the kernel path's
+                first replan step within PARITY_TOL_M of the plain path,
+                and the rollout on average (`modes_parity`; bf16: phase
+                5's 2x rule); one bf16 Trainer.fit step at B=MODES_TRAIN_B, every
+                loss term finite and each new module moved. (b) B1 and B2
+                (f32 and bf16) at ATTN_UPDATE's two sites (a2a: radius
+                AGENT_RADIUS without self-loops; m2a: agents to the map at
+                SCENE_RADIUS) by phase 3's gates and timings. (c) the QA
+                probe (LlamaTextAttnQA) at Llama3-8B width, LLAMA8_LAYERS
+                of 32 layers, bf16 body with its LM head [4096, vocab +
+                128], f32 LoRA r=16, on build_qa_batch's ByteTokenizer
+                batch at the 8B vocabulary (B=QA_B, QA_LEN tokens): one
+                forward and backward with the body frozen; qa_loss finite
+                and > 0, the agent-embedding gradient non-zero, B4 2 x
+                LLAMA8_LAYERS forward (block remat) and LLAMA8_LAYERS
+                backward launches a step, and the loss and the gradient
+                against a plain path with f32 attention by BF16_RULE's 2x
+                rule; step ms (median of 3) and peak memory.
 Any failure raises and exits non-zero. Each phase prints its time. Every
 torch.profiler trace records the device only: processing the host's records
 of one ~100k-operation train step took about a minute. The
@@ -250,6 +285,7 @@ before the last line, which is the device JSON.
 """
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -290,7 +326,11 @@ BENCH_TRAIN_B, BENCH_TRAIN_STEPS = 64, 3  # one warm-up step, two timed
 BENCH_CONDITIONS = ["goal", "v_action_tag", "drag_point", "llm_text_OneText"]  # --conditions all
 DP_B = 4  # phase 11 (d)'s scenes
 GRAD_DIRECT_TOL = 1e-5  # phase 11 (c): kernel vs plain bf16 step, of each leaf's largest
-LLAMA8_LAYERS = 4  # phase 10's Llama3-8B-width shards: 4 of 32 layers, ~2.8 GB
+LLAMA8_LAYERS = 4  # phase 10's Llama3-8B-width shards, phase 12's QA probe: 4 of 32 layers
+# phase 8's Llama3-8B-width training: 8 of 32 layers (CUT from 32 when phase 12
+# came, to keep the script inside its time limit; each layer's shapes are
+# the full model's, only their count is cut)
+TEXT8_TRAIN_LAYERS = 8
 FLASH_BWD_REPLACES = (  # the library Pallas kernels B4's backward replaces (jax 0.9.0)
     "jax/experimental/pallas/ops/tpu/flash_attention.py:941",   # _flash_attention_bwd_dkv
     "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")  # _flash_attention_bwd_dq
@@ -1314,6 +1354,47 @@ def run_rollout(torch, cfg, model, batch, want, label):
     return launches, times
 
 
+def traj_err(torch, a, b, what, mask):
+    """Max |dxy| of two B=2 rollouts over the valid agents `mask`, within
+    PARITY_TOL_M."""
+    diff = (a["rollout_traj"] - b["rollout_traj"])[mask][..., :2].abs()
+    err_m = float(diff.max())
+    per_step = diff.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)
+    log(f"parity: B=2 rollout {what} max |dxy| {err_m:.3e} m (mean {float(diff.mean()):.3e}); "
+        f"max per replan step {['%.2e' % float(x) for x in per_step]}")
+    if not err_m <= PARITY_TOL_M:
+        raise AssertionError(f"{what}: {err_m} m > {PARITY_TOL_M} m")
+    return err_m
+
+
+def bf16_parity(torch, out, out_plain16, out_plain32, what, mask):
+    """The bf16 kernel path's rollout sits no further from the f32 plain
+    rollout than 2x the bf16 plain rollout does, plus PARITY_TOL_M: over
+    the first replan step, before the random weights' drift compounds
+    (bf16 against f32 reaches metres by the last step, on both paths),
+    and over the whole rollout."""
+    def dev(a):  # max |dxy| from the f32 plain rollout, per replan step
+        d = (a["rollout_traj"] - out_plain32["rollout_traj"])[mask][..., :2].abs()
+        return [float(x) for x in d.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)]
+
+    if not bool(torch.isfinite(out["rollout_traj"][mask]).all()):
+        raise AssertionError(f"{what} bf16: rollout_traj has non-finite values")
+    dk, dp = dev(out), dev(out_plain16)
+    log(f"parity: B=2 rollout {what} bf16, max |dxy| from the f32 plain path per replan "
+        f"step: kernel path {['%.2e' % x for x in dk]} m, bf16 plain path "
+        f"{['%.2e' % x for x in dp]} m")
+    for span, k, p in (("first replan step", dk[0], dp[0]),
+                       ("rollout", max(dk), max(dp))):
+        if not k <= 2 * p + PARITY_TOL_M:
+            raise AssertionError(f"{what} bf16, {span}: the kernel path is {k} m from the "
+                                 f"f32 plain path, more than 2x the bf16 plain path's {p} "
+                                 f"+ {PARITY_TOL_M}")
+    return {"first_step_kernel_vs_f32_plain_m": dk[0],
+            "first_step_bf16_plain_vs_f32_plain_m": dp[0],
+            "kernel_vs_f32_plain_m": max(dk), "bf16_plain_vs_f32_plain_m": max(dp),
+            "per_step_kernel_m": dk, "per_step_bf16_plain_m": dp}
+
+
 def log_profile(label, per_site, prof):
     log(f"profile[{label}]: forward wall {prof['wall_ms']:.3f} ms, device busy "
         f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), "
@@ -1836,9 +1917,19 @@ def text_grad_parity(torch, cfg, model, trained, dtype, shape, label, device):
 def text_train_phases(torch, root, shape):
     """Phase 8 in both configurations: configs/with_text.yaml as shipped
     (ARCH auto without weights: the f32 tiny() Llama) and at Llama3-8B width
-    (random bf16 body drawn on the card)."""
-    return {"as_shipped": text_train_phase(torch, root, shape, "as_shipped", []),
-            "llama3_8b": text_train_phase(torch, root, shape, "llama3_8b", TEXT_OPTS)}
+    (random bf16 body drawn on the card), TEXT8_TRAIN_LAYERS layers deep."""
+    from prosim_torch.models.llm.llama import LlamaConfig
+
+    rec = {"as_shipped": text_train_phase(torch, root, shape, "as_shipped", [])}
+    full = LlamaConfig.__dict__["llama3_8b"]
+    LlamaConfig.llama3_8b = classmethod(lambda cls, lora_rank=16: dataclasses.replace(
+        full.__func__(cls, lora_rank), num_layers=TEXT8_TRAIN_LAYERS))
+    try:
+        log(f"text train[llama3_8b]: CUT: {TEXT8_TRAIN_LAYERS} of 32 layers")
+        rec["llama3_8b"] = text_train_phase(torch, root, shape, "llama3_8b", TEXT_OPTS)
+    finally:
+        LlamaConfig.llama3_8b = full
+    return rec
 
 
 
@@ -1871,12 +1962,17 @@ def device_busy(torch, fn):
         res = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
         raise RuntimeError("the profiler recorded no device time")
+    h2d = [e for e in device if "HtoD" in e.name]
+    return wall_ms, busy_union_ms(device), h2d, res
+
+
+def busy_union_ms(device):
+    """The union of device events' intervals, in ms."""
     busy, end = 0.0, None
-    for e in device:
+    for e in sorted(device, key=lambda e: e.time_range.start):
         s, t = e.time_range.start, e.time_range.end
         if end is None or s >= end:
             busy += t - s
@@ -1884,8 +1980,7 @@ def device_busy(torch, fn):
         elif t > end:
             busy += t - end
             end = t
-    h2d = [e for e in device if "HtoD" in e.name]
-    return wall_ms, busy / 1e3, h2d, res
+    return busy / 1e3
 
 
 def producer_rate(torch, cfg, cache, batch_size):
@@ -3102,6 +3197,350 @@ def dp_child(torch, root, device="cuda"):
             "step_ms": {"single": [s1[3], s2[3]], "data_parallel": dp[3]}}
 
 
+MODES_K = 6  # phase 12's cluster goals (TRAJ.K)
+MODES_TRAIN_B = 4  # phase 12's bf16 train step
+QA_B, QA_LEN = 4, 128  # phase 12 (c): QA probe scenes and tokens a scene
+
+
+def modes_configs(goals_path):
+    """Phase 12's models: {label: options over get_config()'s defaults}."""
+    cluster = ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "cluster",
+               "MODEL.POLICY.ACT_DECODER.TRAJ.CLUSTER_PATH", goals_path,
+               "MODEL.POLICY.ACT_DECODER.TRAJ.K", str(MODES_K),
+               "MODEL.POLICY.ACT_DECODER.CONTEXT.GOAL", "True",
+               "MODEL.POLICY.ACT_DECODER.CONTEXT.USE_POSE_EMB", "True"]
+    return {
+        "enc-mlp": ["MODEL.SCENE_ENCODER.MAP_TYPE", "mlp", "MODEL.SCENE_ENCODER.OBS_TYPE", "mlp",
+                    "MODEL.MAP_ENCODER.MLP.POOL", "max", "MODEL.OBS_ENCODER.MLP.POOL", "max"],
+        "obs-update": ["MODEL.OBS_UPDATE.FUSION", "mlp", "MODEL.OBS_UPDATE.ATTN_UPDATE", "True"],
+        "goal-cluster": cluster,
+        "goal-cluster fused": cluster + ["MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK", "True"],
+    }
+
+
+# the parameters each phase-12 model adds, which its train step must move
+MODES_NEW_PARAMS = {
+    "enc-mlp": ("scene_encoder.map_encoder.lane_encode.", "scene_encoder.map_encoder.type_embedding.",
+                "scene_encoder.map_encoder.traf_embedding.", "scene_encoder.obs_encoder.hist_encoder."),
+    "obs-update": ("scene_encoder.obs_update_mlp.",),
+    "goal-cluster": ("policy.goal_encoder.", "policy.context_fuse.", "policy.cluster_mlp."),
+    "goal-cluster fused": ("policy.goal_encoder.", "policy.context_fuse.", "policy.cluster_mlp."),
+}
+
+
+def modes_launches(cfg):
+    """Each kernel's launches per forward of a phase-12 model: phase 4's
+    layer loop or fused loop, plus, with ATTN_UPDATE, each update_obs call's
+    (one per replan step after the first) two graphs through B1 and its
+    2 x NUM_LAYER re-attention layers through B2."""
+    want, want_f = forward_launches()
+    w = dict(want_f if cfg.MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK else want)
+    if cfg.MODEL.OBS_UPDATE.ATTN_UPDATE:
+        w["neighbor_topk"] += 2 * (REPLAN - 1)
+        w["edge_attn_core"] += 2 * cfg.MODEL.SCENE_ENCODER.ATTN.NUM_LAYER * (REPLAN - 1)
+    return w
+
+
+def with_map_ids(torch, batch, seed):
+    """The batch with its map vectors' lane-type (channel 4) and
+    traffic-light (channel 5) values drawn in the formatter's ranges, 0-3 and
+    -1-2: a synthetic batch draws every channel N(0, 1), and the MLP map
+    encoder, as the JAX package's, gives a NaN row for an id out of range."""
+    vec = batch.init_map.vectors.clone()
+    gen = torch.Generator(device=vec.device).manual_seed(seed)
+    shape = vec.shape[:-1]
+    vec[..., 4] = torch.randint(0, 4, shape, generator=gen, device=vec.device).to(vec.dtype)
+    vec[..., 5] = torch.randint(-1, 3, shape, generator=gen, device=vec.device).to(vec.dtype)
+    return batch.replace(init_map=batch.init_map.replace(vectors=vec))
+
+
+def forward_profile(torch, fn):
+    """(wall ms, device busy ms, B2's and B3's instantiations) of one call
+    under torch.profiler, tracing the device only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("the profiler recorded no device time")
+    inst = {k: sorted({"bf16" if mma in e.name else "f32" if F32_TAG in e.name else e.name[:80]
+                       for e in device if KERNEL_NAMES[k] in e.name})
+            for k, mma in BF16_KERNELS.items()}
+    return wall_ms, busy_union_ms(device), inst
+
+
+def modes_fit(torch, root, label, opts, shape, device):
+    """One Trainer.fit step of a phase-12 model with the body in bf16 at
+    B=MODES_TRAIN_B: every loss term finite and each of the model's new
+    modules moved. Returns the record."""
+    import shutil
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.train.trainer import Trainer
+
+    build = os.path.join(root, "build")
+    name = "chip_smoke_modes_" + label.replace(" ", "_")
+    shutil.rmtree(os.path.join(build, name), ignore_errors=True)
+    cfg = get_config(opts=opts + ["EXPERIMENT_DIR", build, "EXPERIMENT_NAME", name,
+                                  "TRAIN.BATCH_SIZE", str(MODES_TRAIN_B),
+                                  "TRAIN.SCHEDULER.WARMUP_STEPS", "0",
+                                  "TRAIN.REMAT_POLICY", "full"])
+    trainer = Trainer(cfg, model=ProSim(cfg, device=device, dtype=torch.bfloat16), device=device)
+    trainer.setup()
+    batch = with_map_ids(torch, make_synthetic_batch(cfg, batch_size=MODES_TRAIN_B, seed=10,
+                                                     device=device, **shape), 10)
+    p0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit([batch], max_steps=1)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = launch_counts()
+    _, terms = _train_record(torch, trainer, 1)
+    moved = {pre: max(float((p.detach() - p0[n]).abs().max())
+                      for n, p in trainer.model.named_parameters() if n.startswith(pre))
+             for pre in MODES_NEW_PARAMS[label]}
+    log(f"modes[{label}] bf16 train step B={MODES_TRAIN_B}: {1e3 * step_s:.1f} ms (with the "
+        f"first call's setup), launches {launches}, new modules' largest move {moved}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"modes[{label}] bf16 train step: a new module did not move: {moved}")
+    if launches["edge_attn_core"] or launches["fused_two_site_stack"]:
+        raise AssertionError(f"modes[{label}]: a forward-only kernel ran in training: {launches}")
+    return {"batch_size": MODES_TRAIN_B, "step_s": step_s, "launches": launches, "terms": terms,
+            "moved": moved}
+
+
+def qa_phase(torch, device="cuda"):
+    """Phase 12 (c): the QA probe (LlamaTextAttnQA) at Llama3-8B width,
+    LLAMA8_LAYERS layers deep, bf16 body with its LM head, f32 LoRA r=16,
+    on build_qa_batch's ByteTokenizer batch at the 8B vocabulary; one
+    forward and backward with the body frozen, as a train step has it.
+    Gates in the module docstring. Returns the record."""
+    import numpy as np
+
+    from prosim_torch.models.llm.llama import LlamaConfig
+    from prosim_torch.models.llm.text_attn import LlamaTextAttnQA
+    from prosim_torch.models.llm.tokenizer import ByteTokenizer, build_qa_batch
+    from prosim_torch.ops.flash_attn import causal_attention_plain
+    from prosim_torch.utils.params import init_params
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(lora_rank=16), num_layers=LLAMA8_LAYERS)
+    D = 128
+    rng = np.random.default_rng(0)
+    tok = ByteTokenizer(base_vocab=cfg.vocab_size, num_agent_tokens=cfg.num_agent_tokens)
+    valid = rng.random((QA_B, AGENTS)) > 0.2
+    gt = rng.normal(scale=20, size=(QA_B, AGENTS, 2)).astype(np.float32)
+    qa = {k: torch.from_numpy(v).to(device) for k, v in
+          build_qa_batch(tok, gt, valid, QA_LEN, rng).items()}
+    t0 = time.perf_counter()
+    with torch.device(device):
+        probe = LlamaTextAttnQA(D, cfg)
+    init_params(probe, seed=0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    with torch.no_grad():
+        for n, p in probe.named_parameters():
+            if n.endswith(("lora_b", "lora_embed_b")):  # adapters that do work in both factors
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+            if n.startswith("llm.") and "lora" not in n:
+                p.requires_grad_(False)  # the frozen body and LM head, as build_optimizer has it
+    emb = torch.randn((QA_B, AGENTS, D), generator=gen, device=device)
+    torch.cuda.synchronize()
+    log(f"qa: probe built and drawn on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{cfg.num_layers} of 32 layers (CUT), LM head {tuple(probe.llm.lm_head.shape)} "
+        f"{probe.llm.lm_head.dtype}")
+
+    def step():
+        probe.zero_grad(set_to_none=True)
+        e = emb.clone().requires_grad_(True)
+        loss = probe(qa, e, None)[1]["qa_loss"]
+        loss.backward()
+        return float(loss.detach()), e.grad.detach().clone()
+
+    fns = kernel_fns()
+    originals = (fns["neighbor_topk"], fns["edge_attn_core"], fns["fused_two_site_stack"])
+
+    def attention(fn):
+        return kernel_calls(*originals, fn)
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        loss, grad = step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v / 3 for k, v in launch_counts().items()}
+    want = {"causal_attention": (2 if cfg.remat else 1) * cfg.num_layers,
+            "causal_attention_bwd": cfg.num_layers}
+    log(f"qa: qa_loss {loss:.6f}, agent-embedding gradient max {float(grad.abs().max()):.3e}; "
+        f"step ms {['%.1f' % t for t in step_ms]}, peak {peak / 2**30:.2f} GiB; launches a step "
+        f"{launches} (B4 expected {want})")
+    if not (np.isfinite(loss) and loss > 0):
+        raise AssertionError(f"qa: qa_loss {loss}")
+    if not float(grad.abs().max()) > 0:
+        raise AssertionError("qa: the agent-embedding gradient is zero")
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"qa: B4 launches a step {launches}, expected {want}")
+    before = launch_counts()
+    with attention(lambda q, k, v, m, s: causal_attention_plain(
+            q.float(), k.float(), v.float(), m, s).to(q.dtype)):
+        loss_32, grad_32 = step()
+    with attention(causal_attention_plain):
+        loss_16, grad_16 = step()
+    if launch_counts() != before:
+        raise AssertionError("qa: the plain path launched a kernel")
+    scale = max(float(grad_32.abs().max()), 1e-30)
+    errs = {"loss": abs(loss - loss_32), "loss_plain_bf16": abs(loss_16 - loss_32),
+            "grad": float((grad - grad_32).abs().max()) / scale,
+            "grad_plain_bf16": float((grad_16 - grad_32).abs().max()) / scale}
+    log(f"qa: kernel path vs the plain path with f32 attention: loss {errs['loss']:.3e} "
+        f"(bf16 plain {errs['loss_plain_bf16']:.3e}), agent-embedding gradient "
+        f"{errs['grad']:.3e} of its largest (bf16 plain {errs['grad_plain_bf16']:.3e})")
+    for k in ("loss", "grad"):
+        bar = BF16_RULE[0] * errs[f"{k}_plain_bf16"] + BF16_RULE[1]
+        if not errs[k] <= bar:
+            raise AssertionError(f"qa: {k} deviates by {errs[k]} > {bar}")
+    return {"layers": cfg.num_layers, "batch": QA_B, "tokens": QA_LEN,
+            "lm_head_shape": list(probe.llm.lm_head.shape), "qa_loss": loss,
+            "step_ms": step_ms, "peak_memory_bytes": peak, "launches_per_step": launches,
+            "parity": errs}
+
+
+def modes_parity(torch, out, out_plain, out_noisy, what, mask):
+    """Phase 12's f32 gate at B=2: the kernel path's first replan step
+    within PARITY_TOL_M of the plain path's (each kernel of the step against
+    its plain version in the loop, before any step feeds the next), and
+    the whole rollout within PARITY_TOL_M on average over the valid
+    agent-steps. The rollout's largest distance is recorded beside the
+    plain path's own distance when its weights move by 1e-7 relative: at
+    random weights a top-K graph or a max pool that a tiny position change
+    flips moves one agent by centimetres (seen in the first chip call of
+    the enc-mlp model at replan step 6 of 8), so the maximum is not a
+    gate."""
+    d = (out["rollout_traj"] - out_plain["rollout_traj"])[mask][..., :2].abs()
+    own = (out_noisy["rollout_traj"] - out_plain["rollout_traj"])[mask][..., :2].abs()
+    per_step = [float(x) for x in d.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)]
+    own_step = [float(x) for x in own.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)]
+    rec = {"first_step_m": per_step[0], "mean_m": float(d.mean()), "max_m": float(d.max()),
+           "per_step_m": per_step, "plain_own_per_step_m": own_step,
+           "agents_over_tol": int((d.amax(dim=(1, 2)) > PARITY_TOL_M).sum()),
+           "agents": int(d.shape[0])}
+    log(f"parity: B=2 rollout {what} kernel path vs plain path, max |dxy| per replan step "
+        f"{['%.2e' % x for x in per_step]} m, mean {rec['mean_m']:.3e} m, "
+        f"{rec['agents_over_tol']} of {rec['agents']} agents over {PARITY_TOL_M} m; the plain "
+        f"path with its weights moved by 1e-7: {['%.2e' % x for x in own_step]} m")
+    if not (per_step[0] <= PARITY_TOL_M and rec["mean_m"] <= PARITY_TOL_M):
+        raise AssertionError(f"{what}: the first replan step {per_step[0]} m or the mean "
+                             f"{rec['mean_m']} m over {PARITY_TOL_M} m")
+    return rec
+
+
+def modes_phase(torch, root, shape, ptxas, device="cuda"):
+    """Phase 12: the modes no shipped configuration reaches (see the module
+    docstring). Returns the record; raises on a failed gate."""
+    import numpy as np
+
+    from prosim_torch.config import get_config
+    from prosim_torch.data.synthetic import make_synthetic_batch
+    from prosim_torch.models.prosim import ProSim
+    from prosim_torch.ops.edge_attn import edge_attn_core_plain
+    from prosim_torch.ops.flash_attn import causal_attention_plain
+    from prosim_torch.ops.fused_stack import fused_two_site_stack_plain
+    from prosim_torch.ops.neighbors import neighbor_topk_plain
+    from prosim_torch.utils.params import init_params
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    goals_path = os.path.join(out_dir, "chip_smoke_modes_goals.npy")
+    np.save(goals_path, np.random.default_rng(0).normal(scale=20, size=(MODES_K, 2))
+            .astype(np.float32))
+    plain = (neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain,
+             causal_attention_plain)
+    rec = {"models": {}}
+    for label, opts in modes_configs(goals_path).items():
+        cfg = get_config(opts=opts)
+        batch = with_map_ids(torch, make_synthetic_batch(cfg, batch_size=B_FULL, seed=0,
+                                                         device=device, **shape), 0)
+        small = with_map_ids(torch, make_synthetic_batch(cfg, batch_size=2, seed=1,
+                                                         device=device, **shape), 1)
+        m2 = small.prompt.mask
+        want = modes_launches(cfg)
+        r, plain32 = {"launches_expected": want}, None
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model = ProSim(cfg, device=device, dtype=dt)
+            init_params(model, seed=0)
+            launches, fwd_s = run_rollout(torch, cfg, model, batch, want, f"modes {label} {tag}")
+            wall_ms, busy_ms, inst = forward_profile(torch, lambda: model(batch))
+            check_instantiations(f"modes {label} {tag}", {"instantiations": inst}, tag)
+            out = model(small)
+            before = launch_counts()
+            with kernel_calls(*plain):
+                out_plain = model(small)
+            if launch_counts() != before:
+                raise AssertionError(f"modes {label} {tag}: the plain path launched a kernel")
+            if plain32 is None:
+                plain32 = out_plain
+                with torch.no_grad():  # the loop's own conditioning: weights moved by 1e-7
+                    gen = torch.Generator(device=device).manual_seed(3)
+                    saved = [p.detach().clone() for p in model.parameters()]
+                    for p in model.parameters():
+                        p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen, device=device))
+                    with kernel_calls(*plain):
+                        out_noisy = model(small)
+                    for p, v in zip(model.parameters(), saved):
+                        p.copy_(v)
+                par = modes_parity(torch, out, out_plain, out_noisy, f"[modes {label}]", m2)
+            else:
+                par = bf16_parity(torch, out, out_plain, plain32, f"[modes {label}]", m2)
+            log(f"modes[{label}] {tag}: profiled forward wall {wall_ms:.1f} ms, device busy "
+                f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+            r[tag] = {"launches": launches, "forward_s": fwd_s, "scenes_per_s": B_FULL / fwd_s[1],
+                      "busy_ms": busy_ms, "wall_ms": wall_ms, "parity": par}
+            del model, out, out_plain
+        r["train_bf16"] = modes_fit(torch, root, label, opts, shape, device)
+        rec["models"][label] = r
+        torch.cuda.empty_cache()
+    log(f"== phase 12 (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) B1 and B2 at ATTN_UPDATE's two new sites, at the batch's positions
+    t1 = time.perf_counter()
+    cfg = get_config()
+    batch = make_synthetic_batch(cfg, batch_size=B_FULL, seed=0, device=device, **shape)
+    se = cfg.MODEL.SCENE_ENCODER.ATTN
+    o_pos, m_pos = batch.init_obs.pos, batch.init_map.pos
+    o_mask, m_mask = batch.init_obs.token_mask, batch.init_map.token_mask
+    sites = {"a2a_update": (o_pos, o_pos, o_mask, o_mask, se.MAX_NUM_NEIGH, se.AGENT_RADIUS, True),
+             "m2a_update": (o_pos, m_pos, o_mask, m_mask, se.MAX_NUM_NEIGH, se.SCENE_RADIUS, False)}
+    topk_rows, graphs = check_topk(torch, sites)
+    D = cfg.MODEL.HIDDEN_DIM
+    graphs = {n: (idx, v, sites[n][1].shape[1], 3 * D // 4) for n, (idx, v) in graphs.items()}
+    scale = se.FF_DIM ** -0.5
+    edge_rows = check_edge(torch, graphs, se.NUM_HEAD, D, scale)
+    edge_rows16 = check_edge_bf16(torch, graphs, se.NUM_HEAD, D, scale, edge_rows, ptxas)
+    rec["sites"] = {"neighbor_topk": topk_rows, "edge_attn_core": edge_rows,
+                    "edge_attn_core_bf16": edge_rows16}
+    del graphs, batch
+    torch.cuda.empty_cache()
+    log(f"== phase 12 (b): {time.perf_counter() - t1:.1f} s")
+
+    t2 = time.perf_counter()
+    rec["qa"] = qa_phase(torch, device)
+    torch.cuda.empty_cache()
+    log(f"== phase 12 (c): {time.perf_counter() - t2:.1f} s")
+    return rec
+
+
 def check_instantiations(label, prof, dtype_tag):
     """Every B2 and B3 launch of a profiled forward ran the kernel of the
     model's dtype (f32: the f32 instantiation; bf16: the tensor-core kernel,
@@ -3195,6 +3634,13 @@ def main(argv):
         rec = dp_child(torch, root)
         os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
         with open(os.path.join(root, "chiprun_out", "chip_smoke_dp.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        return 0
+    if "--modes-only" in argv:
+        rec = {"card": smi, "modes": modes_phase(torch, root, shape, ptxas)}
+        phase_done("phase 12, the modes no shipped configuration reaches")
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out", "chip_smoke_modes.json"), "w") as f:
             json.dump(rec, f, indent=1)
         return 0
     if "--train-only" in argv:
@@ -3323,43 +3769,6 @@ def main(argv):
                                  num_replan=REPLAN, seed=1, device="cuda")
     m2 = small.prompt.mask
 
-    def traj_err(a, b, what, mask=m2):
-        diff = (a["rollout_traj"] - b["rollout_traj"])[mask][..., :2].abs()
-        err_m = float(diff.max())
-        per_step = diff.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)
-        log(f"parity: B=2 rollout {what} max |dxy| {err_m:.3e} m (mean {float(diff.mean()):.3e}); "
-            f"max per replan step {['%.2e' % float(x) for x in per_step]}")
-        if not err_m <= PARITY_TOL_M:
-            raise AssertionError(f"{what}: {err_m} m > {PARITY_TOL_M} m")
-        return err_m
-
-    def bf16_parity(out, out_plain16, out_plain32, what, mask=m2):
-        """The bf16 kernel path's rollout sits no further from the f32 plain
-        rollout than 2x the bf16 plain rollout does, plus PARITY_TOL_M: over
-        the first replan step, before the random weights' drift compounds
-        (bf16 against f32 reaches metres by the last step, on both paths),
-        and over the whole rollout."""
-        def dev(a):  # max |dxy| from the f32 plain rollout, per replan step
-            d = (a["rollout_traj"] - out_plain32["rollout_traj"])[mask][..., :2].abs()
-            return [float(x) for x in d.amax(dim=(0, 2)).view(REPLAN, -1).amax(dim=1)]
-
-        if not bool(torch.isfinite(out["rollout_traj"][mask]).all()):
-            raise AssertionError(f"{what} bf16: rollout_traj has non-finite values")
-        dk, dp = dev(out), dev(out_plain16)
-        log(f"parity: B=2 rollout {what} bf16, max |dxy| from the f32 plain path per replan "
-            f"step: kernel path {['%.2e' % x for x in dk]} m, bf16 plain path "
-            f"{['%.2e' % x for x in dp]} m")
-        for span, k, p in (("first replan step", dk[0], dp[0]),
-                           ("rollout", max(dk), max(dp))):
-            if not k <= 2 * p + PARITY_TOL_M:
-                raise AssertionError(f"{what} bf16, {span}: the kernel path is {k} m from the "
-                                     f"f32 plain path, more than 2x the bf16 plain path's {p} "
-                                     f"+ {PARITY_TOL_M}")
-        return {"first_step_kernel_vs_f32_plain_m": dk[0],
-                "first_step_bf16_plain_vs_f32_plain_m": dp[0],
-                "kernel_vs_f32_plain_m": max(dk), "bf16_plain_vs_f32_plain_m": max(dp),
-                "per_step_kernel_m": dk, "per_step_bf16_plain_m": dp}
-
     plain = (neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain)
     outs, parity, plain32 = {}, {}, {}
     for label, m in (("layer loop", model), ("fused", model_f)):
@@ -3369,7 +3778,8 @@ def main(argv):
             out_plain = plain32[label] = m(small)
         if launch_counts() != before:
             raise AssertionError(f"{label}: the plain path launched a kernel")
-        parity[label] = traj_err(outs[label], out_plain, f"[{label}] kernel path vs plain path")
+        parity[label] = traj_err(torch, outs[label], out_plain,
+                                 f"[{label}] kernel path vs plain path", m2)
     for label, m in (("layer loop", model16), ("fused", model_f16)):
         out16 = m(small)
         before = launch_counts()
@@ -3377,10 +3787,11 @@ def main(argv):
             out_plain16 = m(small)
         if launch_counts() != before:
             raise AssertionError(f"{label} bf16: the plain path launched a kernel")
-        parity[f"{label} bf16"] = bf16_parity(out16, out_plain16, plain32[label], f"[{label}]")
+        parity[f"{label} bf16"] = bf16_parity(torch, out16, out_plain16, plain32[label],
+                                              f"[{label}]", m2)
     del model16, model_f16, out16, out_plain16, plain32
-    parity["fused vs layer loop"] = traj_err(outs["fused"], outs["layer loop"],
-                                             "fused stack vs layer loop (kernel paths)")
+    parity["fused vs layer loop"] = traj_err(torch, outs["fused"], outs["layer loop"],
+                                          "fused stack vs layer loop (kernel paths)", m2)
     out_gpu = outs["layer loop"]
     parity["text"] = text_parity(torch, model_t, make_synthetic_batch(
         cfg_text, batch_size=2, seed=1, device="cuda", **shape), plain, causal_attention_plain)
@@ -3411,8 +3822,8 @@ def main(argv):
         out_dp = model_d(small_d)
     if launch_counts() != before:
         raise AssertionError("demo: the plain path launched a kernel")
-    parity["demo"] = traj_err(out_d, out_dp, "[demo, f32 Llama] kernel path vs plain path",
-                              mask=small_d.prompt.mask)
+    parity["demo"] = traj_err(torch, out_d, out_dp, "[demo, f32 Llama] kernel path vs plain path",
+                              small_d.prompt.mask)
     per_site_d, prof_d = profile_forward(torch, model_d, small_d, topk_rows, edge_rows)
     log_profile("demo B=2", per_site_d, prof_d)
     del model_d
@@ -3439,8 +3850,8 @@ def main(argv):
         out_dp16 = model_d16(small_d)
     if launch_counts() != before:
         raise AssertionError("demo bf16: the plain path launched a kernel")
-    parity["demo bf16"] = bf16_parity(out_d16, out_dp16, out_dp, "[demo, f32 Llama]",
-                                      mask=small_d.prompt.mask)
+    parity["demo bf16"] = bf16_parity(torch, out_d16, out_dp16, out_dp, "[demo, f32 Llama]",
+                                      small_d.prompt.mask)
     del model_d16, out_d16, out_dp16
 
     # 6. M-replica rollout
@@ -3517,6 +3928,23 @@ def main(argv):
             f"busy {pr['busy_ms']:.1f} of {pr['wall_ms']:.1f} ms, {pr['launches']} operations")
     phase_done("phase 11, bf16 and data-parallel training (its own process)")
 
+    # 12. the modes no shipped configuration reaches (the MLP encoders, the
+    # 'mlp' fusion and ATTN_UPDATE, goal context and the cluster head, the
+    # QA probe), in a process of its own for the same reason as phase 9
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--modes-only"], cwd=root)
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 12 (chip_smoke.py --modes-only) exited {child.returncode}")
+    with open(os.path.join(root, "chiprun_out", "chip_smoke_modes.json")) as f:
+        modes = json.load(f)["modes"]
+    phase_done("phase 12, the modes no shipped configuration reaches (its own process)")
+    modes_paths = {}
+    for label, r in modes["models"].items():
+        modes_paths[f"modes {label}"] = r["f32"]["launches"]
+        modes_paths[f"modes {label} bf16"] = r["bf16"]["launches"]
+        modes_paths[f"modes {label} train bf16 (1 step)"] = r["train_bf16"]["launches"]
+    qa_path = "modes QA probe (a step)"
+    modes_paths[qa_path] = modes["qa"]["launches_per_step"]
+
     # B1, B2 and B4 are read from the text configuration (it runs every site
     # of B1 and B2, the GNN's included), B3 from the fused one
     by_path = {"layer loop": launches, "fused": launches_f, "text": launches_t,
@@ -3531,8 +3959,13 @@ def main(argv):
                f"train bf16 ({TRAIN_STEPS} steps)": a16["launches"],
                "train bf16 eval (B=2)": a16["eval_launches"],
                "train bf16 eval FUSED_STACK (B=2)": a16["eval_launches_fused"],
-               f"bench train bf16 ({BENCH_TRAIN_STEPS} steps)": bf16_train["bench_train"]["launches"]}
+               f"bench train bf16 ({BENCH_TRAIN_STEPS} steps)": bf16_train["bench_train"]["launches"],
+               **modes_paths}
     bwd_path = {k: f"text train {k} ({v['timed_steps']} steps)" for k, v in text_train.items()}
+    # the sites of phase 12 (ATTN_UPDATE's a2a and m2a) join phase 3's
+    topk_rows += modes["sites"]["neighbor_topk"]
+    edge_rows += modes["sites"]["edge_attn_core"]
+    edge_rows16 += modes["sites"]["edge_attn_core_bf16"]
     kernels = [
         summarize("neighbor_topk", "cuda", "prosim_torch/csrc/neighbor_topk.cu",
                   "prosim_tpu/ops/pallas_topk.py:95", topk_rows,
@@ -3583,15 +4016,16 @@ def main(argv):
     # configuration, f32 in the shipped demo one
     f32_paths = [p for p in by_path if "bf16" not in p]
     bf16_paths = ("layer loop bf16", "fused bf16", "demo bf16 (B=2)", "train bf16 eval (B=2)",
-                  "train bf16 eval FUSED_STACK (B=2)")
+                  "train bf16 eval FUSED_STACK (B=2)",
+                  *(f"modes {label} bf16" for label in modes["models"]))
     bench_path = f"bench train bf16 ({BENCH_TRAIN_STEPS} steps)"  # its tiny() Llama is f32
     paths = {"edge_attn_core": f32_paths, "fused_two_site_stack": f32_paths,
              "edge_attn_core_bf16": bf16_paths, "fused_two_site_stack_bf16": bf16_paths,
-             "causal_attention": ("layer loop", "fused", "text", bwd_path["llama3_8b"]),
+             "causal_attention": ("layer loop", "fused", "text", bwd_path["llama3_8b"], qa_path),
              "causal_attention_f32": ("demo (B=2)", bwd_path["as_shipped"], "serve demo (B=1)",
                                       f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})",
                                       bench_path),
-             "causal_attention_bwd": (bwd_path["llama3_8b"],),
+             "causal_attention_bwd": (bwd_path["llama3_8b"], qa_path),
              "causal_attention_bwd_f32": (bwd_path["as_shipped"], bench_path)}
     for k in kernels:
         wrapper = k["name"].removesuffix("_f32").removesuffix("_bf16")
@@ -3614,7 +4048,7 @@ def main(argv):
                                               "per_site": per_site_f16}},
                    "flash_d40": d40_rows,
                    "parity_m": parity, "train": train, "text_train": text_train, "data": data,
-                   "serve": serve, "bf16_train": bf16_train,
+                   "serve": serve, "bf16_train": bf16_train, "modes": modes,
                    "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "sites"} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

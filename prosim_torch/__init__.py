@@ -19,10 +19,14 @@ backward as a CUDA kernel too; the host data pipeline (`data/`);
 the weights (`utils/safetensors_io.py`, the HF Llama and tokenizer
 loaders, `utils/checkpoint_convert.py`) and the serving entry points: the
 WOSAC farm (`rollout/runner.py`, `wosac.py`, `wosac_metrics.py`), the demo
-API (`demo/api.py`), the plots (`viz/`) and the CLI (`main.py`). Entry
-points run on the card unless the caller passes `device="cpu"`. What is
-left (the modes no shipped config reaches, the Llama's `model` axis) is
-listed in ROADMAP.md.
+API (`demo/api.py`), the plots (`viz/`) and the CLI (`main.py`); and the
+modes no shipped config reaches: the MLP map and obs encoders, the 'mlp'
+obs-update fusion and ATTN_UPDATE's re-attention, the policy's goal
+context and its 'mlp', 'cluster', 'vel_pred' and 'goal_pred' heads, and the
+QA probe with the Llama's LM head. Entry points run on the card unless the
+caller passes `device="cpu"`. The port does all that the JAX package does
+except shard the Llama over a `model` mesh axis, where the JAX package
+declares the axis and shards nothing (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

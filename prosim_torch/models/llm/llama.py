@@ -32,11 +32,17 @@ At `tiny()` (cfg.dtype float32) this is the JAX CPU computation. On the
 card the attention is csrc/flash_attn.cu (ops/flash_attn.py) in cfg.dtype:
 its bf16 instantiation at the Llama3-8B widths, its f32 one at `tiny()`.
 
+The LM head (`LlamaModel(cfg, lm_head=True)`, `forward(...,
+return_logits=True)`; the QA probe, models/llm/text_attn.py
+LlamaTextAttnQA, is its only user) is untied, [hidden, total_vocab] in
+cfg.dtype, drawn N(0, 0.02), frozen with the body; the logits multiply the
+final hidden states cast to cfg.dtype by it, accumulate in f32 and come
+back f32, as every other product here. A model built without it has no
+such parameter, so the text conditioning's state dict is unchanged.
+
 `load_hf_llama_params` writes HF-layout safetensors shards (f32, f16 or
-bf16) into a built `LlamaModel`, tensor by tensor on the model's device.
-Left for later (ROADMAP.md queue A4): the LM head (`return_logits`, used
-only by the training-time QA probe); the loader returns the head's weights
-when asked, as the JAX loader does.
+bf16) into a built `LlamaModel`, tensor by tensor on the model's device,
+the LM head too when asked for.
 """
 
 import dataclasses
@@ -178,10 +184,11 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    """Decoder stack returning the final hidden states [B, T, H] in f32 (no
-    LM head: the text conditioning reads hidden states)."""
+    """Decoder stack returning the final hidden states [B, T, H] in f32 and,
+    when built with `lm_head=True` and asked for, the logits (the text
+    conditioning reads hidden states only)."""
 
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, lm_head: bool = False):
         super().__init__()
         self.cfg = c = cfg
         dt = c.dtype
@@ -192,6 +199,8 @@ class LlamaModel(nn.Module):
         for i in range(c.num_layers):
             self.add_module(f"layer_{i}", LlamaBlock(c))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, dt)
+        if lm_head:  # untied (the Llama3 convention), flax layout [hidden, vocab]
+            self.lm_head = nn.Parameter(torch.empty((c.hidden_size, c.total_vocab), dtype=dt))
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -199,7 +208,8 @@ class LlamaModel(nn.Module):
         Llama3-8B model never passes through host memory), with the flax
         initializers' scales: projection weights lecun_normal (normal of std
         1/sqrt(fan_in) truncated at 2 std, rescaled to that std), the
-        embedding and the LoRA A factors N(0, 0.02), the LoRA B factors 0 (so
+        embedding, the LM head and the LoRA A factors N(0, 0.02), the LoRA B
+        factors 0 (so
         the adapters start as the identity), norm scales 1."""
         dev = self.embed_tokens.device
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -211,7 +221,7 @@ class LlamaModel(nn.Module):
                 p.zero_()
             else:
                 val = torch.empty(p.shape, dtype=torch.float32, device=dev)
-                if leaf in ("embed_tokens", "lora_a", "lora_embed_a"):
+                if leaf in ("embed_tokens", "lm_head", "lora_a", "lora_embed_a"):
                     val.normal_(0.0, 0.02, generator=gen)
                 else:  # weight [out, in]
                     std = p.shape[1] ** -0.5 / 0.87962566103423978
@@ -231,11 +241,13 @@ class LlamaModel(nn.Module):
         return (base.float() + (c.lora_alpha / c.lora_rank) * delta).to(c.dtype)
 
     def forward(self, input_ids, attention_mask, agent_embs=None, agent_slot_ids=None,
-                agent_add_mode: bool = False):
+                agent_add_mode: bool = False, return_logits: bool = False):
         """input_ids [B, T]; attention_mask [B, T] bool. With agent_embs
         [B, N, H] and agent_slot_ids [B, T], each <A{i}> position takes (or
         with agent_add_mode adds) agent i's vector. Positions are
-        cumsum(mask) - 1, so they run on across the mask's holes."""
+        cumsum(mask) - 1, so they run on across the mask's holes. Returns
+        the hidden states, or with return_logits (hidden states, logits
+        [B, T, total_vocab] f32)."""
         c = self.cfg
         x = self.lookup(input_ids)
         if agent_embs is not None and agent_slot_ids is not None:
@@ -250,7 +262,10 @@ class LlamaModel(nn.Module):
                 x = checkpoint(block, x, positions, attention_mask, use_reentrant=False)
             else:
                 x = block(x, positions, attention_mask)
-        return self.final_norm(x)
+        x = self.final_norm(x)
+        if return_logits:
+            return x, (x.to(c.dtype) @ self.lm_head).float()
+        return x
 
 
 def embed_with_agent_tokens(base, agent_embs, agent_slot_ids, add_mode: bool = False):
@@ -284,8 +299,9 @@ def load_hf_llama_params(path: str, model: LlamaModel, rng_seed: int = 0,
     the JAX order (lora_embed_a, then q/k/v lora_a layer by layer, N(0,
     0.02); every lora_b zero), so they equal the JAX loader's bit for bit.
     With with_lm_head, returns the LM head [H, V + agent tokens] in f32
-    (lm_head.weight, or the embedding when the checkpoint ties them);
-    otherwise None."""
+    (lm_head.weight, or the embedding when the checkpoint ties them; its
+    agent-token columns the mean column) and, when `model` was built with an
+    LM head, writes it there too; otherwise returns None."""
     shards = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if not shards:
         raise FileNotFoundError(f"no .safetensors under {path}")
@@ -336,5 +352,8 @@ def load_hf_llama_params(path: str, model: LlamaModel, rng_seed: int = 0,
                 lin.lora_b.zero_()
     if with_lm_head:
         key = "lm_head.weight" if "lm_head.weight" in where else "model.embed_tokens.weight"
-        return extend_vocab(t(key)).T
+        head = extend_vocab(t(key)).T
+        if hasattr(model, "lm_head"):
+            put(model.lm_head, head)
+        return head
     return None

@@ -1,5 +1,6 @@
 """Llama text conditioning: natural-language prompts -> per-agent residuals
-(port of prosim_tpu/models/llm/text_attn.py:LlamaTextAttn).
+(port of prosim_tpu/models/llm/text_attn.py: LlamaTextAttn, and the QA
+probe LlamaTextAttnQA).
 
   1. project the policy embeddings D -> hidden with `prompt_to_llm` + LN;
   2. token embeddings with each <A{i}> token replaced by (or, in 'add'
@@ -23,9 +24,13 @@ The adapters (`prompt_to_llm`, `ln_prompt`, `llm_to_cond`,
 the hidden states are read in f32 and cast back to `dtype` by
 `llm_to_cond`'s first layer (prosim_tpu/models/llm/text_attn.py:99-122).
 
-The QA probe (the JAX package's LlamaTextAttnQA) is training-only and is
-left for later (ROADMAP.md queue A); the condition transformer never builds
-it.
+The QA probe (`LlamaTextAttnQA`, training-only) asks the Llama, built
+with its LM head, a question about one agent with that agent's projected
+embedding at its <A{i}> tokens, and returns the embeddings unchanged with
+{'qa_loss': next-token cross-entropy over the answer span}; its inputs come
+from tokenizer.py `build_qa_batch`. As in the JAX package the condition
+transformer does not build it: TEXT_ATTN.TYPE 'llama_qa' builds NoTextAttn
+there (prosim_tpu/models/condition/transformer.py:93-112).
 """
 
 from typing import Dict, Optional, Tuple
@@ -103,3 +108,34 @@ class LlamaTextAttn(nn.Module):
         valid = prompt.mask
         loss = torch.where(valid, bce, 0.0).sum() / global_count(valid)
         return out, {"prompt_mask_pred_loss": loss}
+
+
+class LlamaTextAttnQA(nn.Module):
+    """QA probing (reference: text_attns.py:545-687): the agent embeddings
+    go through `prompt_to_llm` and `ln_prompt` into the <A{i}> slots of the
+    question, the Llama runs with its LM head, and the loss is the mean
+    next-token cross-entropy over the answer tokens, log_softmax in f32.
+    Returns prompt_cond_emb unchanged and {'qa_loss': ...}."""
+
+    def __init__(self, hidden_dim: int, llm_config: LlamaConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        H = llm_config.hidden_size
+        self.llm = LlamaModel(llm_config, lm_head=True)
+        self.prompt_to_llm = MLP([hidden_dim, hidden_dim, H], ret_before_act=True, dtype=dtype)
+        self.ln_prompt = LayerNorm(H, dtype=dtype)
+
+    def forward(self, qa_cond: Dict[str, torch.Tensor], prompt_cond_emb,
+                prompt: Prompt) -> Tuple[torch.Tensor, Dict]:
+        """qa_cond: input_ids / token_mask / agent_slot_ids / labels [B, L]
+        (labels -100 outside the answer span); prompt_cond_emb [B, N, D]."""
+        agent_llm = self.ln_prompt(self.prompt_to_llm(prompt_cond_emb))
+        _, logits = self.llm(qa_cond["input_ids"], qa_cond["token_mask"], agent_embs=agent_llm,
+                             agent_slot_ids=qa_cond["agent_slot_ids"], return_logits=True)
+        # next-token prediction: the logits at t predict the label at t + 1
+        labels = qa_cond["labels"][:, 1:].long()
+        lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+        nll = -lp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        on = labels >= 0
+        qa_loss = torch.where(on, nll, 0.0).sum() / on.sum().clamp_min(1)
+        return prompt_cond_emb, {"qa_loss": qa_loss}

@@ -1,6 +1,6 @@
 """Host-side text tokenization for the LLM conditioning path (port of
 prosim_tpu/models/llm/tokenizer.py: the byte tokenizer, batch tokenization,
-the prompt-token block and the prompt builder).
+the prompt-token block, the prompt builder and the QA probe's batch).
 
 The device path needs static [B, L] int arrays; all string handling happens
 here. Agent references use the `<A{i}>` template (reference:
@@ -109,6 +109,44 @@ def build_text_prompt(agent_instructions: Dict[int, str]) -> str:
             instr = f"{token} {instr}"
         lines.append(instr if instr.endswith(".") else instr + ".")
     return "\n".join(lines)
+
+
+def build_qa_batch(tokenizer, gt_xy: np.ndarray, valid: np.ndarray, max_len: int, rng,
+                   question_type: str = "position", contextual: bool = True
+                   ) -> Dict[str, np.ndarray]:
+    """The QA probe's inputs (reference: text_attns.py:577-607
+    _prepare_qa_text): per scene one valid agent, drawn by rng.choice (the
+    JAX package's draws, in its order), is asked for its ground-truth
+    attribute gt_xy [B, N, 2]; valid [B, N] bool. Returns tokenize_batch's
+    arrays [B, max_len] plus labels [B, max_len] (the answer's tokens, -100
+    elsewhere) and query_agent [B]."""
+    B, N = valid.shape
+    ids = np.zeros((B, max_len), np.int32)
+    mask = np.zeros((B, max_len), bool)
+    slots = -np.ones((B, max_len), np.int32)
+    labels = np.full((B, max_len), -100, np.int32)
+    nidxs = np.zeros((B,), np.int32)
+    base = tokenizer.base_vocab
+    for b in range(B):
+        vi = np.nonzero(valid[b])[0]
+        n = int(rng.choice(vi)) if len(vi) else 0
+        nidxs[b] = n
+        q = f" Question: {question_type} of agent {AGENT_TEMPLATE.format(n)} is?"
+        if contextual:
+            q += f" given embedding of {AGENT_TEMPLATE.format(n)} |"
+        a = f"Answer:({gt_xy[b, n, 0]:.2f}, {gt_xy[b, n, 1]:.2f})"
+        q_ids = tokenizer.encode(q)
+        enc = (q_ids + tokenizer.encode(a))[:max_len]
+        L = len(enc)
+        ids[b, :L] = enc
+        mask[b, :L] = True
+        a_start = min(len(q_ids), L)
+        labels[b, a_start:L] = enc[a_start:L]
+        for j, t in enumerate(enc):
+            if t >= base and t - base < N:
+                slots[b, j] = t - base
+    return {"input_ids": ids, "token_mask": mask, "agent_slot_ids": slots, "labels": labels,
+            "query_agent": nidxs}
 
 
 _BLOCK_WIDTH = {"none": 1, "add": 1, "concat": 2, "concat_repeat": 3,

@@ -6,10 +6,11 @@ embeddings once; `rollout` is the closed loop, a Python loop over R replan
 steps (the JAX package's lax.scan). Per step:
   step_env  - rebuild the policy agents' obs history from their rolled-out
               state, non-policy agents replay logged futures (fut_obs), and
-              the obs tokens of the scene are swapped;
+              the scene encoder's `update_obs` swaps (or fuses) the obs
+              tokens, re-attending them with ATTN_UPDATE;
   policy    - a2p/m2p attention at the agents' current poses (the layer
               loop, or with FUSED_STACK the fused two-site stack, whose
-              packed weights are made once per rollout), anchor head;
+              packed weights are made once per rollout), then its head;
   integrate - pick a mode among the top-k and integrate the chunk in f32.
 
 With prompt conditions (PROMPT.CONDITION.TYPES) a condition transformer
@@ -258,9 +259,11 @@ class ProSim(nn.Module):
         return pos, theta
 
     def _step_env(self, batch, scene, traj, vel, r, cursor, init_pos, init_heading,
-                  type_onehot, time_onehot):
+                  type_onehot, time_onehot, deterministic=True, generator=None):
         """Rebuild the obs of the policy agents from their rolled-out state,
-        scatter them over the logged obs of step r, and swap the obs tokens."""
+        scatter them over the logged obs of step r, and update the obs
+        tokens (`update_obs`; with ATTN_UPDATE its re-attention drops out in
+        training, from `generator`)."""
         Th = self.hist_steps
         fo = batch.fut_obs
         prompt = batch.prompt
@@ -304,6 +307,8 @@ class ProSim(nn.Module):
             scatter(fo_mask, True),
             scatter(fo_pos, pos_n),
             scatter(fo_ori, theta_n),
+            deterministic,
+            generator,
         )
 
     def rollout(self, batch: SceneBatch, scene: SceneTokens, policy_emd: dict,
@@ -375,7 +380,7 @@ class ProSim(nn.Module):
         pos_now, theta_now = self._agent_pose(traj, cursor, init_pos, init_heading)
         if r > 0:
             scene = self._step_env(batch, scene, traj, vel, r, cursor, init_pos,
-                                   init_heading, type_onehot, time_onehot)
+                                   init_heading, type_onehot, time_onehot, not train, generator)
         dt = self.dtype
         out = self.policy(policy_emd, scene, pos_now.to(dt), theta_now.to(dt), mask,
                           prompt.agent_type, packed=packed, deterministic=not train,

@@ -11,8 +11,9 @@ utils/params.py `flax_to_state_dict` carries the result onto the port's
 a .ckpt and returns that state_dict with the keys left unmapped, and
 `load_converted` merges it into a built ProSim non-strictly, as the
 reference loads (strict=False): parameters the checkpoint lacks keep their
-values, and converted keys the model lacks (modules the port does not
-build, ROADMAP.md queue A4) are returned, never dropped silently.
+values, and converted keys the model lacks (modules of options the model
+was not built with, e.g. the 'mlp' obs-update fusion or the goal context
+under another config) are returned, never dropped silently.
 
 Key mapping rules (torch -> flax):
   Linear  weight [out, in] -> kernel [in, out] (transposed), bias -> bias

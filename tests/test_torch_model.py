@@ -116,12 +116,26 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("opts", [
+    ["PARALLEL.NUM_MODEL", "2"],
     ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "cluster"],
-    ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "mlp"],
 ])
 def test_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ProSim(get_config(opts=SMALL_OPTS + opts), device="cpu")
+    """What the port cannot serve raises: a `model` mesh axis (make_mesh,
+    pointing at ROADMAP.md; the JAX package declares the axis and shards
+    nothing on it), and a 'cluster' policy without its goals file, with the
+    JAX package's FileNotFoundError. Every other mode builds
+    (tests/test_torch_modes.py)."""
+    cfg = get_config(opts=SMALL_OPTS + opts)
+    if cfg.PARALLEL.NUM_MODEL > 1:
+        from prosim_torch.parallel.mesh import make_mesh
+
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_mesh(num_model=cfg.PARALLEL.NUM_MODEL, devices=["cpu"] * 2)
+        return
+    with pytest.raises(FileNotFoundError):
+        JaxProSim(jax_get_config(opts=SMALL_OPTS + opts))
+    with pytest.raises(FileNotFoundError):
+        ProSim(cfg, device="cpu")
 
 
 def test_train_mode_raises():

@@ -307,8 +307,8 @@ A4 = ["MODEL.OBS_UPDATE.FUSION", "mlp", "MODEL.POLICY.ACT_DECODER.CONTEXT.GOAL",
 
 
 def _a4_keys(cfg, rng):
-    """Reference keys of modules the port does not build yet (A4): the 'mlp'
-    obs-update fusion and the policy's goal context."""
+    """Reference keys of A4 modules that a model built without their options
+    lacks: the 'mlp' obs-update fusion and the policy's goal context."""
     H = cfg.MODEL.HIDDEN_DIM
     sd = ref_mlp_sd("scene_encoder.obs_update_mlp", [2 * H, H, H], rng)
     sd.update(ref_mlp_sd("policy.act_decoder.goal_encoder", [2, H], rng))
@@ -394,3 +394,65 @@ def test_converted_checkpoint_rollout_matches_jax():
     traj = out["rollout_traj"].numpy()[mask]
     assert np.isfinite(traj).all()
     np.testing.assert_allclose(traj, ref["rollout_traj"][mask], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("opts", [
+    pytest.param(A4 + ["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "cluster"],
+                 id="fusion_goal_cluster"),
+    pytest.param(["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "vel_pred"], id="vel_pred"),
+    pytest.param(["MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE", "goal_pred"], id="goal_pred"),
+])
+def test_converted_a4_checkpoint_loads(opts, tmp_path):
+    """A reference checkpoint of the A4 modules the converter maps (the
+    'mlp' obs-update fusion, the goal context, the cluster head; the aux
+    heads): strict conversion, equal to the JAX converter's bit for bit,
+    and loaded into a model built with those options with nothing left
+    unloaded. The cluster model's closed loop (its goals drawn to
+    tmp_path) within 1e-4 m of the JAX package's eager forward; the aux
+    heads have no closed loop in either package, so their model is held at
+    the policy: its aux output within 1e-4 of its largest magnitude of the
+    JAX policy's on the same converted weights and batch."""
+    goals = np.random.default_rng(4).normal(scale=20, size=(3, 2)).astype(np.float32)
+    path = str(tmp_path / "goals.npy")
+    np.save(path, goals)
+    opts = SMALL + opts + ["MODEL.POLICY.ACT_DECODER.TRAJ.CLUSTER_PATH", path,
+                           "MODEL.POLICY.ACT_DECODER.TRAJ.K", "3"]
+    jcfg, tcfg = jax_get_config(opts=opts), get_config(opts=opts)
+    sd = reference_state_dict(tcfg, seed=5)
+    got, unmapped = tconv.reference_to_state_dict(sd, strict=True)
+    assert unmapped == []
+    want = flax_to_state_dict(jconv.convert_state_dict(sd, strict=True)[0])
+    assert set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    tm = ProSim(tcfg, device="cpu")
+    init_params(tm, seed=0)
+    assert tconv.load_converted(tm, got) == []
+    own = tm.state_dict()
+    assert all(torch.equal(own[k], torch.from_numpy(v)) for k, v in got.items())
+
+    jm = JaxProSim(jcfg)
+    jb = jax_synthetic(jcfg, seed=1, **BATCH_KW)
+    tb = make_synthetic_batch(tcfg, seed=1, device="cpu", **BATCH_KW)
+    params = jconv.convert_state_dict(sd, strict=True)[0]  # every leaf of both models
+    mode = tcfg.MODEL.POLICY.ACT_DECODER.TRAJ.PRED_MODE
+    if mode == "cluster":
+        # eager, op by op as the port runs (see the test above)
+        ref = _host(jm.forward(params, jb, "val", jax.random.PRNGKey(1)))
+        out = tm(tb)
+        mask = np.asarray(jb.prompt.mask)
+        traj = out["rollout_traj"].numpy()[mask]
+        assert np.isfinite(traj).all()
+        np.testing.assert_allclose(traj, ref["rollout_traj"][mask], atol=1e-4, rtol=0)
+        return
+    key = {"vel_pred": "init_vel_pred", "goal_pred": "goal_pred"}[mode]
+    scene, emd, _ = jm.prepare(params, jb, "val", jax.random.PRNGKey(1))
+    p = jb.prompt
+    ref = _host(jm.policy.apply({"params": params["policy"]}, emd, scene, p.pos, p.ori, p.mask,
+                                p.agent_type))
+    assert set(ref) == {key}
+    with torch.no_grad():
+        scene_t, emd_t = tm.prepare(tb)
+        q = tb.prompt
+        out = tm.policy(emd_t, scene_t, q.pos, q.ori, q.mask, q.agent_type)
+    assert set(out) == {key}
+    np.testing.assert_allclose(out[key].numpy(), ref[key], atol=1e-4 * np.abs(ref[key]).max(),
+                               rtol=0)

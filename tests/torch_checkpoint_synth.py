@@ -7,9 +7,11 @@ models/base.py:134-139 on_save_checkpoint), in numpy alone.
 No released checkpoint is in the repository; this stands in for one in the
 converter's tests (tests/test_torch_weights.py) and in chip_smoke.py's
 serve phase, which puts tests/ on its path for it. It imports numpy and
-the port alone. `reference_state_dict` covers what
-the port builds for a config (it raises for A4 modes the port does not
-build); `ref_mlp_sd` and friends add keys of any other module.
+the port alone. `reference_state_dict` covers what the port builds for a
+config, the 'mlp' obs-update fusion, the goal context and every policy head
+among it; it refuses the MLP map and obs encoders, whose keys the
+converter does not map. `ref_mlp_sd` and friends add keys of any other
+module.
 """
 
 import numpy as np
@@ -83,6 +85,8 @@ def reference_state_dict(config, seed: int = 0) -> dict:
     body is absent, as in a released checkpoint; its LoRA leaves are there."""
     mc = config.MODEL
     H = mc.HIDDEN_DIM
+    if "mlp" in (mc.SCENE_ENCODER.MAP_TYPE, mc.SCENE_ENCODER.OBS_TYPE):
+        raise ValueError("the converter maps no keys of the MLP map/obs encoders")
     rng = np.random.default_rng(seed)
     sd = {}
     for name, enc, in_dim in (("map", mc.MAP_ENCODER, map_feature_dim(config)),
@@ -105,20 +109,37 @@ def reference_state_dict(config, seed: int = 0) -> dict:
     in_dim = 2 * status.USE_VEL + 2 * status.USE_EXTEND + 3 * status.USE_AGENT_TYPE
     sd.update(ref_mlp_sd("prompt_encoder.motion_pred.state_encoder", [in_dim, H, H], rng))
 
+    if mc.OBS_UPDATE.FUSION == "mlp":
+        sd.update(ref_mlp_sd("scene_encoder.obs_update_mlp", [2 * H, H, H], rng))
+    if ad.CONTEXT.GOAL:
+        sd.update(ref_mlp_sd("policy.act_decoder.goal_encoder",
+                             [H if ad.CONTEXT.USE_POSE_EMB else 2, H], rng))
+        if ad.CONTEXT.EMD:
+            sd.update(ref_mlp_sd("policy.act_decoder.context_fuse", [2 * H, H], rng))
+
     fmt = config.DATASET.FORMAT
     state_dim = len(fmt.TARGET.ELEMENTS.split(",")) + 3 * ad.TRAJ.PRED_GMM
-    sd.update(ref_mlp_sd("policy.act_decoder.motion_head",
-                         [H, H, H // 2, fmt.TARGET.STEPS * state_dim], rng))
+    out_dim = fmt.TARGET.STEPS * state_dim
+    mode = ad.TRAJ.PRED_MODE
+    heads = {"vel_pred": ("vel_head", [H, H, H // 2, 2]), "goal_pred": ("goal_head", [H, 3]),
+             "mlp": ("motion_head", [H, H, H // 2, ad.TRAJ.K * out_dim])}
+    name, dims = heads.get(mode, ("motion_head", [H, H, H // 2, out_dim]))
+    sd.update(ref_mlp_sd(f"policy.act_decoder.{name}", dims, rng))
     if config.LOSS.ROLLOUT_TRAJ.USE_GOAL_PRED_LOSS:
         sd.update(ref_mlp_sd("policy.act_decoder.pred_mlp", [H, H, H // 2, 2], rng))
-    n_types = 3 if config.DATASET.USE_PED_CYCLIST else 1
-    sd["policy.act_decoder.motion_anchors.weight"] = rng.normal(size=(ad.TRAJ.K * n_types, H))
-    for i in range(3):
-        p = f"policy.act_decoder.CG_decode.CGs.{i}.MLP"
-        sd[f"{p}.0.weight"] = rng.normal(size=(H, H))
-        sd[f"{p}.0.bias"] = rng.normal(size=(H,))
-        sd[f"{p}.1.weight"] = rng.normal(size=(H,))
-        sd[f"{p}.1.bias"] = rng.normal(size=(H,))
+    if mode in ("anchor", "cluster"):
+        if mode == "cluster":
+            sd.update(ref_mlp_sd("policy.act_decoder.cluster_mlp", [H, H], rng))
+        else:
+            n_types = 3 if config.DATASET.USE_PED_CYCLIST else 1
+            sd["policy.act_decoder.motion_anchors.weight"] = rng.normal(
+                size=(ad.TRAJ.K * n_types, H))
+        for i in range(3):
+            p = f"policy.act_decoder.CG_decode.CGs.{i}.MLP"
+            sd[f"{p}.0.weight"] = rng.normal(size=(H, H))
+            sd[f"{p}.0.bias"] = rng.normal(size=(H,))
+            sd[f"{p}.1.weight"] = rng.normal(size=(H,))
+            sd[f"{p}.1.bias"] = rng.normal(size=(H,))
 
     types = list(config.PROMPT.CONDITION.TYPES)
     ct = mc.CONDITION_TRANSFORMER
