@@ -1,0 +1,8 @@
+"""Neighbour selection's (B1, csrc/neighbor_topk.cu) share of its roofline
+in the closed loop (default.closed_loop_b64), in %."""
+
+from benchmark.metrics._shared import roofline_pct
+
+
+def read(record):
+    return roofline_pct(record, "b1_topk")

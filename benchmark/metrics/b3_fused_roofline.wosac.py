@@ -1,0 +1,8 @@
+"""The fused two-site policy stack's (B3, csrc/fused_stack.cu) share of its
+roofline in the WOSAC requests (no_text.wosac_m32), in %."""
+
+from benchmark.metrics._shared import roofline_pct
+
+
+def read(record):
+    return roofline_pct(record, "b3_fused")
