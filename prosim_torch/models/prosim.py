@@ -12,6 +12,8 @@ steps (the JAX package's lax.scan). Per step:
               loop, or with FUSED_STACK the fused two-site stack, whose
               packed weights are made once per rollout), then its head;
   integrate - pick a mode among the top-k and integrate the chunk in f32.
+In the eval modes `prepare`, `rollout`, each replan step and these three
+open spans of the same names (prosim_torch/utils/tracing.py; docs/tracing.md).
 
 With prompt conditions (PROMPT.CONDITION.TYPES) a condition transformer
 runs at each of MODEL.CONDITION_TRANSFORMER.CONDITION_LOCATIONS: at
@@ -71,6 +73,7 @@ from prosim_torch.models.decoder import build_decoder
 from prosim_torch.models.policy import build_policy
 from prosim_torch.models.prompt_encoder import build_prompt_encoder
 from prosim_torch.models.scene_encoder import build_scene_encoder
+from prosim_torch.utils import tracing
 from prosim_torch.utils.geometry import (
     rel_traj_to_last_step,
     rel_vel_to_last_step,
@@ -87,6 +90,12 @@ def _topk_stable(x, k: int):
 
 def _grad_mode(mode: str):
     return contextlib.nullcontext() if mode == "train" else torch.inference_mode()
+
+
+def _spans(mode: str):
+    """The span opener of a call in `mode`: none in training, whose remat
+    recomputes would open the spans again (prosim_torch/utils/tracing.py)."""
+    return tracing.no_span if mode == "train" else tracing.span
 
 
 # the matmul ops whose outputs TRAIN.REMAT_POLICY 'dots' keeps (the
@@ -199,12 +208,19 @@ class ProSim(nn.Module):
         """Encode scene + prompts and build per-agent policy embeddings (the
         once-per-scene half; M replicas reuse it). In train mode `generator`
         draws the dropout masks."""
-        with _grad_mode(mode):
+        span = _spans(mode)
+        with _grad_mode(mode), span("prepare"):
             deterministic = mode != "train"
-            scene = self.scene_encoder(batch.init_obs, batch.init_map, deterministic, generator)
-            prompt_emb = self.encode_prompt(batch)
-            policy_emd = self.generate_policy(batch, scene, prompt_emb, deterministic, generator)
-            return scene, self.select_k_emd(policy_emd, batch, mode, generator)
+            with span("scene_encoder"):
+                scene = self.scene_encoder(batch.init_obs, batch.init_map, deterministic,
+                                           generator)
+            with span("prompt_encoder"):
+                prompt_emb = self.encode_prompt(batch)
+            with span("decoder"):
+                policy_emd = self.generate_policy(batch, scene, prompt_emb, deterministic,
+                                                  generator)
+            with span("select_k"):
+                return scene, self.select_k_emd(policy_emd, batch, mode, generator)
 
     def encode_prompt(self, batch: SceneBatch):
         prompt_emb = self.prompt_encoder(batch.prompt)
@@ -321,6 +337,10 @@ class ProSim(nn.Module):
             return self._rollout(batch, scene, policy_emd, mode, generator=generator)
 
     def _rollout(self, batch, scene, policy_emd, mode, generator=None, step_seeds=None):
+        with _spans(mode)("rollout"):
+            return self._rollout_steps(batch, scene, policy_emd, mode, generator, step_seeds)
+
+    def _rollout_steps(self, batch, scene, policy_emd, mode, generator, step_seeds):
         Th = self.hist_steps
         R = int(batch.fut_obs.feat.shape[1])
         total = Th + R * self.replan
@@ -343,8 +363,9 @@ class ProSim(nn.Module):
                                                 mode, self._seeded(s, dev), None),
                     carry, r, step_seeds[r])
             else:
-                carry, ys = self._step(batch, scene.num_map, policy_emd, consts, carry, r, mode,
-                                       generator, packed)
+                with tracing.span("step", r):
+                    carry, ys = self._step(batch, scene.num_map, policy_emd, consts, carry, r,
+                                           mode, generator, packed)
             steps.append(ys)
         traj, vel = carry[4], carry[5]
         output = {
@@ -376,16 +397,25 @@ class ProSim(nn.Module):
         prompt = batch.prompt
         mask = prompt.mask
         train = mode == "train"
+        span = _spans(mode)
         cursor = Th + r * self.replan
         pos_now, theta_now = self._agent_pose(traj, cursor, init_pos, init_heading)
         if r > 0:
-            scene = self._step_env(batch, scene, traj, vel, r, cursor, init_pos,
-                                   init_heading, type_onehot, time_onehot, not train, generator)
+            with span("step_env"):
+                scene = self._step_env(batch, scene, traj, vel, r, cursor, init_pos,
+                                       init_heading, type_onehot, time_onehot, not train,
+                                       generator)
         dt = self.dtype
-        out = self.policy(policy_emd, scene, pos_now.to(dt), theta_now.to(dt), mask,
-                          prompt.agent_type, packed=packed, deterministic=not train,
-                          generator=generator)
+        with span("policy"):
+            out = self.policy(policy_emd, scene, pos_now.to(dt), theta_now.to(dt), mask,
+                              prompt.agent_type, packed=packed, deterministic=not train,
+                              generator=generator)
+        with span("integrate"):
+            return self._integrate(out, traj, vel, cursor, mask, train, generator, scene)
 
+    def _integrate(self, out, traj, vel, cursor, mask, train, generator, scene):
+        """Pick a mode among the top-k and integrate its chunk into the f32
+        trajectory state: the next carry and the step's predictions."""
         # mode selection among the top-k (reference: traj_sam.py:301-313)
         probs = out["motion_prob"]  # [B, N, K]
         k_eff = min(self.top_k_train if train else self.top_k, probs.shape[-1])

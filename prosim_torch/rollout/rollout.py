@@ -14,6 +14,7 @@ import torch
 
 from prosim_torch.data.batch import Condition, SceneBatch, SceneTokens
 from prosim_torch.parallel.mesh import global_count
+from prosim_torch.utils import tracing
 from prosim_torch.utils.geometry import rotate_2d, wrap_angle
 
 
@@ -50,14 +51,15 @@ def rollout_to_world(output: Dict, batch: SceneBatch, center_xy, center_h):
     the scene-frame origin pose in world coordinates
     (reference: gpu_utils.py:230-281). Returns world xyh [B, N, T, 3].
     """
-    traj = output["rollout_traj"]
-    init_pos = output["init_pos"]       # [B, N, 2]
-    init_h = output["init_heading"]     # [B, N]
-    xy_scene = rotate_2d(traj[..., :2], init_h[..., None]) + init_pos[..., None, :]
-    h_scene = wrap_angle(torch.atan2(traj[..., 2], traj[..., 3]) + init_h[..., None])
-    xy_world = rotate_2d(xy_scene, center_h[:, None, None]) + center_xy[:, None, None, :]
-    h_world = wrap_angle(h_scene + center_h[:, None, None])
-    return torch.cat([xy_world, h_world[..., None]], dim=-1)
+    with tracing.span("rollout_to_world"):
+        traj = output["rollout_traj"]
+        init_pos = output["init_pos"]       # [B, N, 2]
+        init_h = output["init_heading"]     # [B, N]
+        xy_scene = rotate_2d(traj[..., :2], init_h[..., None]) + init_pos[..., None, :]
+        h_scene = wrap_angle(torch.atan2(traj[..., 2], traj[..., 3]) + init_h[..., None])
+        xy_world = rotate_2d(xy_scene, center_h[:, None, None]) + center_xy[:, None, None, :]
+        h_world = wrap_angle(h_scene + center_h[:, None, None])
+        return torch.cat([xy_world, h_world[..., None]], dim=-1)
 
 
 def crash_and_goal_metrics(world_xyh, extents, agent_mask, goals_world,
@@ -174,28 +176,33 @@ def parallel_rollout_with_sampler(model, batch: SceneBatch, m: int, sampler_mode
     condition per replica (reference: gpu_utils.py:199-216): encode the scene
     once, tile, attach sampled goal conditions, then decode per-replica
     policies and run one batched rollout. `picks` as in
-    `sample_goal_conditions`."""
-    with torch.inference_mode():
+    `sample_goal_conditions`. Spans: `rollout_with_sampler` > `sampler`,
+    `replicas` (> `scene_encoder`, the second encode of the same scene when
+    the sampler is the model), `rollout`."""
+    with torch.inference_mode(), tracing.span("rollout_with_sampler"):
         # the WOSAC protocol evaluates UNPROMPTED realism: dataset conditions
         # steer neither the sampler's goals nor the policy (the sampled goals
         # replace them wholesale, reference gpu_utils.py:175)
         batch = batch.replace(conditions={})
-        _, s_emd = sampler_model.prepare(batch, "val", generator)
-        if "goal_point" not in s_emd:
-            raise ValueError("sampler model has no goal heads (DECODER.GOAL_PRED)")
-        goal_cond = sample_goal_conditions(
-            s_emd["goal_point"], s_emd["goal_prob"], batch.prompt.mask, m, generator,
-            top_k=top_k, stop_smooth=stop_smooth, picks=picks)
+        with tracing.span("sampler"):
+            _, s_emd = sampler_model.prepare(batch, "val", generator)
+            if "goal_point" not in s_emd:
+                raise ValueError("sampler model has no goal heads (DECODER.GOAL_PRED)")
+            goal_cond = sample_goal_conditions(
+                s_emd["goal_point"], s_emd["goal_prob"], batch.prompt.mask, m, generator,
+                top_k=top_k, stop_smooth=stop_smooth, picks=picks)
 
-        scene_m = _tile_scene(model.scene_encoder(batch.init_obs, batch.init_map), m)
-        batch_m = tile_batch_for_replicas(batch, m).replace(conditions={"goal": goal_cond})
-        # with 'prompt_encoder' a condition location, each replica's prompt is
-        # encoded under its own goal; otherwise the prompt never sees
-        # conditions, so it is encoded once and tiled
-        if "prompt_encoder" in model.condition_locations:
-            prompt_emb_m = model.encode_prompt(batch_m)
-        else:
-            prompt_emb_m = _tile(model.encode_prompt(batch), m)
-        policy_emd = model.generate_policy(batch_m, scene_m, prompt_emb_m)
-        policy_emd = model.select_k_emd(policy_emd, batch_m, mode, generator)
+        with tracing.span("replicas"):
+            with tracing.span("scene_encoder"):
+                scene_m = _tile_scene(model.scene_encoder(batch.init_obs, batch.init_map), m)
+            batch_m = tile_batch_for_replicas(batch, m).replace(conditions={"goal": goal_cond})
+            # with 'prompt_encoder' a condition location, each replica's prompt
+            # is encoded under its own goal; otherwise the prompt never sees
+            # conditions, so it is encoded once and tiled
+            if "prompt_encoder" in model.condition_locations:
+                prompt_emb_m = model.encode_prompt(batch_m)
+            else:
+                prompt_emb_m = _tile(model.encode_prompt(batch), m)
+            policy_emd = model.generate_policy(batch_m, scene_m, prompt_emb_m)
+            policy_emd = model.select_k_emd(policy_emd, batch_m, mode, generator)
         return model.rollout(batch_m, scene_m, policy_emd, mode, generator)

@@ -40,7 +40,12 @@ from prosim_torch.rollout.wosac import (
 )
 from prosim_torch.rollout.wosac_metrics import aggregate_scenarios, scenario_metrics
 from prosim_torch.train.trainer import load_model_state
+from prosim_torch.utils import tracing
 from prosim_torch.utils.params import init_params
+
+# the per-scene timing's keys (host ms) and the farm's spans they read
+STAGE_SPANS = {"format_ms": "format", "rollout_ms": "roll", "package_ms": "package",
+               "metrics_ms": "metrics", "total_ms": "scene"}
 
 
 def scene_seed(seed: int, idx: int) -> int:
@@ -84,7 +89,11 @@ def run_rollout_eval(
 
     A scene that raises is reported and skipped; more than max_failures
     such scenes re-raise. Writes the per-scene times (host ms) to
-    timing_w<worker_id>.json. Returns out_dir."""
+    timing_w<worker_id>.json, read from the spans of prosim_torch's
+    recorder (`STAGE_SPANS`): the farm turns the recorder on for its run
+    (and back off if it was off) and drains it after every scene, so a
+    caller's spans of the farm's time are drained with them. Returns
+    out_dir."""
     m = m or config.ROLLOUT.SAMPLE_NUM
     out_dir = out_dir or os.path.join(config.EXPERIMENT_DIR, config.EXPERIMENT_NAME, "rollouts")
     os.makedirs(out_dir, exist_ok=True)
@@ -116,36 +125,43 @@ def run_rollout_eval(
     all_metrics, timing = [], []
     failures = 0
 
-    for count, idx in enumerate(assigned):
-        t0 = time.perf_counter()
-        env, scene_name, ts = ds.index[idx]
-        out_npz = os.path.join(out_dir, f"{env}__{scene_name}.npz")
-        if skip_existing and os.path.exists(out_npz):
-            # resume: outputs are idempotent, a finished scene needs no rework
-            # (the reference resumes via its touch-file locks,
-            # distributed_utils.py:151-158). Reload its metrics so the final
-            # aggregate still covers previously-completed scenes.
-            mpath = os.path.join(out_dir, f"{env}__{scene_name}.metrics.json")
-            if compute_metrics and os.path.exists(mpath):
-                with open(mpath) as f:
-                    all_metrics.append(json.load(f))
-            continue
-        gen = torch.Generator(device=device).manual_seed(scene_seed(config.SEED, idx))
-        try:
-            rec = _rollout_one_scene(ds, idx, env, scene_name, ts, roll, m, gen, out_dir,
-                                     compute_metrics, all_metrics, device)
-        except Exception:  # per-scene skip-and-continue
-            # (reference: distributed_utils.py:175-226 try/except per scene)
-            failures += 1
-            print(f"[worker {worker_id}] scene {scene_name} FAILED:\n{traceback.format_exc()}",
-                  flush=True)
-            if max_failures is not None and failures > max_failures:
-                raise
-            continue
-        rec["total_ms"] = 1e3 * (time.perf_counter() - t0)
-        timing.append({"scene": f"{env}/{scene_name}", **rec})
-        print(f"[worker {worker_id}] scene {scene_name}: done in {rec['total_ms'] / 1e3:.2f}s "
-              f"({count + 1}/{len(assigned)})", flush=True)
+    was_on = tracing.is_enabled()
+    tracing.enable()
+    try:
+        for count, idx in enumerate(assigned):
+            env, scene_name, ts = ds.index[idx]
+            out_npz = os.path.join(out_dir, f"{env}__{scene_name}.npz")
+            if skip_existing and os.path.exists(out_npz):
+                # resume: outputs are idempotent, a finished scene needs no
+                # rework (the reference resumes via its touch-file locks,
+                # distributed_utils.py:151-158). Reload its metrics so the
+                # final aggregate still covers previously-completed scenes.
+                mpath = os.path.join(out_dir, f"{env}__{scene_name}.metrics.json")
+                if compute_metrics and os.path.exists(mpath):
+                    with open(mpath) as f:
+                        all_metrics.append(json.load(f))
+                continue
+            try:
+                with tracing.span("scene"):
+                    gen = torch.Generator(device=device).manual_seed(scene_seed(config.SEED, idx))
+                    _rollout_one_scene(ds, idx, env, scene_name, ts, roll, m, gen, out_dir,
+                                       compute_metrics, all_metrics, device)
+            except Exception:  # per-scene skip-and-continue
+                # (reference: distributed_utils.py:175-226 try/except per scene)
+                tracing.drain()
+                failures += 1
+                print(f"[worker {worker_id}] scene {scene_name} FAILED:\n"
+                      f"{traceback.format_exc()}", flush=True)
+                if max_failures is not None and failures > max_failures:
+                    raise
+                continue
+            rec = stage_ms(tracing.drain())
+            timing.append({"scene": f"{env}/{scene_name}", **rec})
+            print(f"[worker {worker_id}] scene {scene_name}: done in "
+                  f"{rec['total_ms'] / 1e3:.2f}s ({count + 1}/{len(assigned)})", flush=True)
+    finally:
+        if not was_on:
+            tracing.disable()
 
     with open(os.path.join(out_dir, f"timing_w{worker_id}.json"), "w") as f:
         json.dump(timing, f, indent=1)
@@ -245,58 +261,64 @@ def _world_lane_segments(scene, max_segments: int = 8192):
     return a, b
 
 
+def stage_ms(spans) -> dict:
+    """One scene's host ms by stage (`STAGE_SPANS`) from its drained spans."""
+    ms = {s.name: 1e-6 * (s.end_ns - s.start_ns) for s in spans}
+    return {key: ms.get(name, 0.0) for key, name in STAGE_SPANS.items()}
+
+
 def _rollout_one_scene(ds, idx, env, scene_name, ts, roll, m, gen, out_dir, compute_metrics,
                        all_metrics, device):
-    """One scene: format on the host, roll out on `device`, package and score
-    on the host. Returns the host ms of each stage."""
-    t0 = time.perf_counter()
-    meta = {}
-    host = ds.get_scene_batch(idx, device=None, out_meta=meta)
-    batch = to_tensors(host, device)
-    scene = ds._load(env, scene_name)
-    t1 = time.perf_counter()
+    """One scene: format on the host (span `format`), roll out on `device`
+    and copy the futures back (`roll`), package (`package`) and score
+    (`metrics`) on the host."""
+    with tracing.span("format"):
+        meta = {}
+        host = ds.get_scene_batch(idx, device=None, out_meta=meta)
+        batch = to_tensors(host, device)
+        scene = ds._load(env, scene_name)
 
-    out = roll(batch, gen)
-    ego = scene.states[scene.ego_index, ts]
-    center_xy = torch.tensor(np.asarray(ego[:2], np.float32), device=device).expand(m, 2)
-    center_h = torch.tensor(np.float32(ego[7]), device=device).expand(m)
-    world = rollout_to_world(out, batch, center_xy, center_h)  # [M, N, T, 3]
-    mask = np.asarray(host.prompt.mask)[0]
-    rows = torch.from_numpy(np.nonzero(mask)[0]).to(device)
-    world_np = world.index_select(1, rows).cpu().numpy()  # the scene's one copy to the host
-    t2 = time.perf_counter()
+    with tracing.span("roll"):
+        out = roll(batch, gen)
+        ego = scene.states[scene.ego_index, ts]
+        center_xy = torch.tensor(np.asarray(ego[:2], np.float32), device=device).expand(m, 2)
+        center_h = torch.tensor(np.float32(ego[7]), device=device).expand(m)
+        world = rollout_to_world(out, batch, center_xy, center_h)  # [M, N, T, 3]
+        mask = np.asarray(host.prompt.mask)[0]
+        rows = torch.from_numpy(np.nonzero(mask)[0]).to(device)
+        world_np = world.index_select(1, rows).cpu().numpy()  # the scene's one copy to the host
 
-    # agent z from the frame at scene_ts (planar policy)
-    names = meta["target_names"][: mask.sum()]
-    name_to_row = {n: i for i, n in enumerate(scene.agent_names)}
-    z = [float(np.nan_to_num(scene.states[name_to_row[n], ts, 2])) for n in names]
-    # 'ego' is the renamed SDC track: remap it to its recorded WOMD object id
-    # so the packaged submission carries the real sim-agent id (reference:
-    # gpu_utils.py:286-288); -1 only when the cache never recorded one
-    ego_oid = scene.ego_object_id
-    oid = [int(n) if n.isdigit() else (ego_oid if n == "ego" and ego_oid is not None else -1)
-           for n in names]
+    with tracing.span("package"):
+        # agent z from the frame at scene_ts (planar policy)
+        names = meta["target_names"][: mask.sum()]
+        name_to_row = {n: i for i, n in enumerate(scene.agent_names)}
+        z = [float(np.nan_to_num(scene.states[name_to_row[n], ts, 2])) for n in names]
+        # 'ego' is the renamed SDC track: remap it to its recorded WOMD object
+        # id so the packaged submission carries the real sim-agent id
+        # (reference: gpu_utils.py:286-288); -1 only when the cache never
+        # recorded one
+        ego_oid = scene.ego_object_id
+        oid = [int(n) if n.isdigit() else (ego_oid if n == "ego" and ego_oid is not None else -1)
+               for n in names]
 
-    sr = ScenarioRollouts(scenario_id=f"{env}/{scene_name}",
-                          joint_scenes=joint_scenes_from_rollout(world_np, oid, z))
-    validate_scenario_rollouts(sr, num_rollouts=m, steps=world_np.shape[2])
-    save_rollouts_npz(sr, os.path.join(out_dir, f"{env}__{scene_name}.npz"))
-    t3 = time.perf_counter()
+        sr = ScenarioRollouts(scenario_id=f"{env}/{scene_name}",
+                              joint_scenes=joint_scenes_from_rollout(world_np, oid, z))
+        validate_scenario_rollouts(sr, num_rollouts=m, steps=world_np.shape[2])
+        save_rollouts_npz(sr, os.path.join(out_dir, f"{env}__{scene_name}.npz"))
 
-    if compute_metrics:
-        # native realism metrics vs the logged future (reference farm
-        # computes official WOSAC metrics per scene, distributed_utils.py:205-223)
-        rows = [name_to_row[n] for n in names]
-        fut = scene.states[rows, ts + 1 : ts + 1 + world_np.shape[2]]
-        log_xyh = np.stack([np.nan_to_num(fut[..., 0]), np.nan_to_num(fut[..., 1]),
-                            np.nan_to_num(fut[..., 7])], axis=-1)
-        extents = np.nan_to_num(scene.extents[rows])
-        valid = scene.valid[rows, ts + 1 : ts + 1 + world_np.shape[2]]
-        metrics = scenario_metrics(world_np, log_xyh, extents,
-                                   road_segments=_world_lane_segments(scene), valid=valid)
-        with open(os.path.join(out_dir, f"{env}__{scene_name}.metrics.json"), "w") as f:
-            json.dump(metrics, f, indent=2)
-        all_metrics.append(metrics)
-    t4 = time.perf_counter()
-    return {"format_ms": 1e3 * (t1 - t0), "rollout_ms": 1e3 * (t2 - t1),
-            "package_ms": 1e3 * (t3 - t2), "metrics_ms": 1e3 * (t4 - t3)}
+    with tracing.span("metrics"):
+        if compute_metrics:
+            # native realism metrics vs the logged future (reference farm
+            # computes official WOSAC metrics per scene,
+            # distributed_utils.py:205-223)
+            rows = [name_to_row[n] for n in names]
+            fut = scene.states[rows, ts + 1 : ts + 1 + world_np.shape[2]]
+            log_xyh = np.stack([np.nan_to_num(fut[..., 0]), np.nan_to_num(fut[..., 1]),
+                                np.nan_to_num(fut[..., 7])], axis=-1)
+            extents = np.nan_to_num(scene.extents[rows])
+            valid = scene.valid[rows, ts + 1 : ts + 1 + world_np.shape[2]]
+            metrics = scenario_metrics(world_np, log_xyh, extents,
+                                       road_segments=_world_lane_segments(scene), valid=valid)
+            with open(os.path.join(out_dir, f"{env}__{scene_name}.metrics.json"), "w") as f:
+                json.dump(metrics, f, indent=2)
+            all_metrics.append(metrics)
