@@ -59,7 +59,14 @@ tensor-core kernels. Phases:
                 values at most BF16_RULE's 2x the bf16 plain version's,
                 plus 1e-5; empty rows zero, two launches bitwise equal;
                 beside their times the f32 path's, the bf16 SDPA
-                yardstick (B2) and the bf16 layer loop (B3).
+                yardstick (B2) and the bf16 layer loop (B3). The rel-PE
+                table kernel (csrc/rel_pe_table.cu) at the six sites on
+                their real graphs, f32 and bf16, against the plain chain
+                (f32 within REL_PE_F32_TOL, bf16 within one bf16 ulp; two
+                launches bitwise equal), timed beside its bytes bound and
+                the chain; every rollout's launches count its tables, and
+                no table of a rollout may come from the plain chain; the
+                plain paths of phases 5 and 12 build the chain.
                 Times: device ms per call (torch.profiler,
                 the call's device operations) beside the bound and a
                 one-call PyTorch yardstick where one exists (for the fused
@@ -297,6 +304,7 @@ EDGE_TOL = 1e-4      # f32, unit-scale inputs; only the summation order differs
 BF16_RULE = (2.0, 1e-5)  # bf16 kernels: err <= 2 * (plain in bf16's err) + 1e-5, both vs f32
 FLASH_F32_TOL = 1e-5  # flash attention in f32: only the order of the sums differs
 FUSED_TOL = 3e-4     # abs and rel; the bar tests/test_fused_stack.py holds the TPU kernel to
+REL_PE_F32_TOL = 4e-6  # the rel-PE table in f32: only the statistics' sum order differs
 PARITY_TOL_M = 1e-3  # metres, the bar the JAX package was held to
 B_FULL, LANES, OBS_AGENTS, AGENTS, REPLAN = 16, 2048, 160, 128, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -336,6 +344,7 @@ FLASH_BWD_REPLACES = (  # the library Pallas kernels B4's backward replaces (jax
     "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")  # _flash_attention_bwd_dq
 
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
+    ("rel_pe_table (ours)", ("rel_pe_table_kernel",)),
     ("flash_attn_bwd (ours)", ("flash_bwd_",)),
     ("flash_attn (ours)", ("flash_attn_",)),
     ("fused_stack (ours)", ("fused_stack_kernel",)),
@@ -351,7 +360,7 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
 KERNEL_NAMES = {  # a substring of the name of one CUDA kernel each wrapper call launches once
     "neighbor_topk": "neighbor_topk_", "edge_attn_core": "edge_attn_kernel",
     "fused_two_site_stack": "fused_stack_kernel", "causal_attention": "flash_attn_",
-    "causal_attention_bwd": "flash_bwd_prep_kernel"}
+    "causal_attention_bwd": "flash_bwd_prep_kernel", "rel_pe_table": "rel_pe_table_kernel"}
 # the kernels of B2's and B3's bf16 paths (tensor-core products on the edge
 # engine of csrc/edge_mma.cuh), and the template argument of their f32 ones
 BF16_KERNELS = {"edge_attn_core": "edge_attn_kernel_mma",
@@ -435,6 +444,7 @@ def times(torch, fn, iters):
 
 def kernel_fns():
     """{name: wrapper} of every kernel of the path; each counts its launches."""
+    from prosim_torch.ops.attention import rel_pe_table
     from prosim_torch.ops.edge_attn import edge_attn_core
     from prosim_torch.ops.flash_attn import causal_attention, causal_attention_bwd
     from prosim_torch.ops.fused_stack import fused_two_site_stack
@@ -442,18 +452,27 @@ def kernel_fns():
 
     return {"neighbor_topk": neighbor_topk, "edge_attn_core": edge_attn_core,
             "fused_two_site_stack": fused_two_site_stack, "causal_attention": causal_attention,
-            "causal_attention_bwd": causal_attention_bwd}
+            "causal_attention_bwd": causal_attention_bwd, "rel_pe_table": rel_pe_table}
 
 
 def launch_counts():
     return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
+def rel_pe_table_chain(dst_pos, dst_ori, src_pos, src_ori, idx, pe, deterministic):
+    """The rel-PE table op's plain version on every path: the eager chain
+    (`rel_pe_table_plain`) where the op would launch csrc/rel_pe_table.cu."""
+    from prosim_torch.ops.attention import rel_pe_table_plain
+
+    return rel_pe_table_plain(dst_pos, dst_ori, src_pos, src_ori, idx, pe)
+
+
 @contextlib.contextmanager
-def kernel_calls(topk_fn, edge_fn, fused_fn, flash_fn):
+def kernel_calls(topk_fn, edge_fn, fused_fn, flash_fn, table_fn=None):
     """Point the model's kernel calls at other functions (the plain versions
     in phase 5, recording shims in phase 4's profiled forward); the
-    originals come back on exit."""
+    originals come back on exit. `table_fn` takes the rel-PE table op's
+    place where it is given (`rel_pe_table_chain` on the plain paths)."""
     from prosim_torch.models import decoder, policy, scene_encoder
     from prosim_torch.models.llm import llama
     from prosim_torch.ops import attention
@@ -462,6 +481,8 @@ def kernel_calls(topk_fn, edge_fn, fused_fn, flash_fn):
     swaps.append((attention, "edge_attn_core", edge_fn))
     swaps.append((policy, "fused_two_site_stack", fused_fn))
     swaps.append((llama, "causal_attention", flash_fn))
+    if table_fn is not None:
+        swaps += [(m, "rel_pe_table", table_fn) for m in (scene_encoder, decoder, policy)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     try:
         for m, name, fn in swaps:
@@ -720,6 +741,72 @@ def check_edge_bf16(torch, graphs, H, D, scale, f32_rows, ptxas):
             f"kernel {f32_ms[name]:.4f}, plain {plain_ms:.4f}, sdpa bf16 {lib_ms:.4f} + gather "
             f"{lib_gather_ms:.4f}, bound {bound_ms(rows[-1]):.4f}; wall ms: kernel {wall_ms:.4f}")
     return rows
+
+
+def site_poses(torch, batch):
+    """(dst_pos, dst_ori, src_pos, src_ori) of the six fixed-PE sites, as the
+    model builds their rel-PE tables from this batch (site_inputs' order)."""
+    m, o, p = batch.init_map, batch.init_obs, batch.prompt
+    s_pos, s_ori = torch.cat([m.pos, o.pos], 1), torch.cat([m.ori, o.ori], 1)
+    return {"a2a": (o.pos, o.ori, o.pos, o.ori), "s2s": (s_pos, s_ori, s_pos, s_ori),
+            "p2p": (p.pos, p.ori, p.pos, p.ori), "s2p": (p.pos, p.ori, s_pos, s_ori),
+            "a2p": (p.pos, p.ori, o.pos, o.ori), "m2p": (p.pos, p.ori, m.pos, m.ori)}
+
+
+def check_rel_pe_table(torch, poses, graphs, D):
+    """The rel-PE table kernel against its plain chain at each of the six
+    fixed-PE sites, on the top-K's real graph `idx` (a2a's K=100 runs the
+    partial chunk of 32 edges), f32 and bf16: f32 within REL_PE_F32_TOL,
+    bf16 within one bf16 ulp of the plain value (or REL_PE_F32_TOL where
+    that ulp is smaller), two launches bitwise equal; device and wall ms
+    against the bytes bound (table_cost), and the plain chain's."""
+    from prosim_torch.ops.attention import RelPE, rel_pe_table, rel_pe_table_plain
+
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        pe = RelPE(D, dtype=dt).to("cuda")
+        for site, pose in poses.items():
+            idx = graphs[site][0]
+            args = (*pose, idx)
+            B, Q, K = idx.shape
+            S = pose[2].shape[1]
+            iters = 5 if Q * K > 100_000 else 20
+            with torch.no_grad():
+                want = rel_pe_table_plain(*args, pe)
+                got, again = rel_pe_table(*args, pe, True), rel_pe_table(*args, pe, True)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"rel_pe_table[{site} {dt}]: two launches differ")
+                err = (got.float() - want.float()).abs()
+                if dt == torch.float32:
+                    floor = torch.full_like(err, REL_PE_F32_TOL)
+                else:  # one bf16 ulp of the plain value: |want| in [2^(e-1), 2^e) -> 2^(e-8)
+                    floor = torch.ldexp(torch.ones_like(err), torch.frexp(want.float())[1] - 8)
+                    floor = floor.clamp_min(REL_PE_F32_TOL)
+                if bool((err > floor).any()):
+                    raise AssertionError(f"rel_pe_table[{site} {dt}]: max error "
+                                         f"{float(err.max()):.3g} past its bar")
+                ms, wall_ms = times(torch, lambda: rel_pe_table(*args, pe, True), iters)
+                plain_ms, plain_wall_ms = times(torch, lambda: rel_pe_table_plain(*args, pe),
+                                                iters)
+            row = dict(site=site, dtype=str(dt).removeprefix("torch."), B=B, Q=Q, K=K, S=S,
+                       ms=ms, wall_ms=wall_ms, plain_ms=plain_ms, plain_wall_ms=plain_wall_ms,
+                       library_ms=None, max_abs_err=float(err.max()),
+                       **table_cost(B, Q, S, K, D // 4, got.element_size()))
+            rows.append(row)
+            log(f"rel_pe_table[{site} {row['dtype']}]: B={B} Q={Q} K={K} S={S}: {ms:.4f} device "
+                f"ms (wall {wall_ms:.4f}), bound {bound_ms(row):.4f} ms (bytes), plain chain "
+                f"{plain_ms:.3f} device ms (wall {plain_wall_ms:.3f}); max |err| "
+                f"{row['max_abs_err']:.3g}")
+            del want, got, again, err, floor
+    return rows
+
+
+def table_cost(B, Q, S, K, npf, size):
+    """Bytes the rel-PE table must move (the table written once, `size`
+    bytes a value; idx and both sides' f32 poses, 12 bytes a slot, read
+    once); its sines are not counted."""
+    return {"bytes": B * Q * K * (3 * npf * size + 4) + B * (S + Q) * 3 * 4, "ops": 0}
 
 
 def topk_cost(B, Q, S, K):
@@ -1153,8 +1240,8 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
     recorded by a shim around its wrapper. Each kernel launch's device time
     (matched to its shim record in launch order) and its bound at these
     inputs are added up per site; the site is the phase-3 site of the same
-    shape ("policy" for the fused stack). Also returns the device time by
-    kernel family."""
+    shape ("policy" for the fused stack; a rel-PE table's is its top-K
+    graph's). Also returns the device time by kernel family."""
     from torch.profiler import ProfilerActivity, profile
 
     fns = kernel_fns()
@@ -1168,6 +1255,16 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
         S = a[1].shape[1]
         calls["neighbor_topk"].append((topk_site[Q, S, K], topk_cost(B, Q, S, K)))
         return idx, valid
+
+    def table(dst_pos, dst_ori, src_pos, src_ori, idx, pe, deterministic):
+        n = fns["rel_pe_table"].launches
+        z = fns["rel_pe_table"](dst_pos, dst_ori, src_pos, src_ori, idx, pe, deterministic)
+        if fns["rel_pe_table"].launches > n:  # the kernel's table, not the plain chain's
+            B, Q, K = idx.shape
+            S = src_pos.shape[1]
+            calls["rel_pe_table"].append(
+                (topk_site[Q, S, K], table_cost(B, Q, S, K, pe.hidden_dim // 4, z.element_size())))
+        return z
 
     def edge(x_src_n, idx, z_r, qx, qp, edge_valid, scale):
         out = fns["edge_attn_core"](x_src_n, idx, z_r, qx, qp, edge_valid, scale)
@@ -1197,7 +1294,7 @@ def profile_forward(torch, model, batch, topk_rows, edge_rows):
         for recs in calls.values():
             recs.clear()
         before = launch_counts()
-        with kernel_calls(topk, edge, fused, flash), profile(
+        with kernel_calls(topk, edge, fused, flash, table_fn=table), profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             model(batch)
@@ -1268,10 +1365,10 @@ def text_parity(torch, model, small, plain, flash_plain):
     emd = model.prepare(small)[1]["emd"]
     out = model(small)
     before = launch_counts()
-    with kernel_calls(*plain, f32_attention):
+    with kernel_calls(*plain, f32_attention, table_fn=rel_pe_table_chain):
         emd_ref = model.prepare(small)[1]["emd"]
         out_ref = model(small)
-    with kernel_calls(*plain, flash_plain):
+    with kernel_calls(*plain, flash_plain, table_fn=rel_pe_table_chain):
         emd_bf16 = model.prepare(small)[1]["emd"]
     if launch_counts() != before:
         raise AssertionError("text: the plain path launched a kernel")
@@ -1302,32 +1399,40 @@ def train_launches():
 
 def forward_launches():
     """Each kernel's launches per forward of the full-width closed loop: the
-    layer loop's and FUSED_STACK=True's."""
+    layer loop's and FUSED_STACK=True's. Each graph's site builds its rel-PE
+    table through csrc/rel_pe_table.cu, but B3 reads raw features."""
     steps = 2 + 2 + 2 * REPLAN  # graph builds: scene encoder, decoder, policy per step
     want = {"neighbor_topk": steps, "edge_attn_core": LAYERS * steps, "fused_two_site_stack": 0,
-            "causal_attention": 0, "causal_attention_bwd": 0}
-    return want, dict(want, edge_attn_core=LAYERS * 4, fused_two_site_stack=REPLAN)
+            "causal_attention": 0, "causal_attention_bwd": 0, "rel_pe_table": steps}
+    return want, dict(want, edge_attn_core=LAYERS * 4, fused_two_site_stack=REPLAN,
+                      rel_pe_table=4)
 
 
 def run_rollout(torch, cfg, model, batch, want, label):
     """Warm-up forward, then three timed forwards of the full-width B=16
-    closed loop: launches per forward as `want`, finite, bounded, (sin, cos)
-    on the unit circle, bitwise deterministic. Returns the sorted forward
-    times in seconds."""
+    closed loop: launches per forward as `want`, no rel-PE table built by
+    the plain chain, finite, bounded, (sin, cos) on the unit circle,
+    bitwise deterministic. Returns the sorted forward times in seconds."""
+    from prosim_torch.ops.attention import rel_pe_table
+
     t0 = time.perf_counter()
     model(batch)
     torch.cuda.synchronize()
     log(f"rollout[{label}]: first forward {time.perf_counter() - t0:.2f} s")
     for fn in kernel_fns().values():
         fn.launches = 0
+    plain0 = rel_pe_table.plain_builds
     t0 = time.perf_counter()
     out = model(batch)
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     launches = launch_counts()
-    log(f"rollout[{label}]: launches per forward {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"{label}: kernel launches {launches} != {want}")
+    plain = rel_pe_table.plain_builds - plain0
+    log(f"rollout[{label}]: launches per forward {launches} (expected {want}); rel-PE tables "
+        f"by the plain chain {plain}")
+    if launches != want or plain:
+        raise AssertionError(f"{label}: kernel launches {launches} != {want}, or {plain} "
+                             "rel-PE tables by the plain chain")
     for _ in range(2):
         t0 = time.perf_counter()
         out2 = model(batch)
@@ -1544,7 +1649,7 @@ def train_phase(torch, root, shape, batch_size=None, steps=TRAIN_STEPS, device="
     loss_k2, g_k2 = grad_step()
     before = launch_counts()
     with kernel_calls(neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain,
-                      causal_attention_plain):
+                      causal_attention_plain, table_fn=rel_pe_table_chain):
         loss_p, g_p = grad_step()
     if launch_counts() != before:
         raise AssertionError("train: the plain path launched a kernel")
@@ -1695,7 +1800,7 @@ def text_train_phase(torch, root, shape, label, opts, steps=TRAIN_STEPS, device=
     per_fwd = 3 if llm.cfg.remat else 2  # forward, prepare's recompute (+ the block's own)
     want = {"neighbor_topk": timed * 2 * (4 + 2 * R), "edge_attn_core": 0,
             "fused_two_site_stack": 0, "causal_attention": timed * per_fwd * L,
-            "causal_attention_bwd": timed * L}
+            "causal_attention_bwd": timed * L, "rel_pe_table": 0}
     if B != cfg.TRAIN.BATCH_SIZE:
         log(f"text train[{label}]: CUT: B={B} instead of TRAIN.BATCH_SIZE {cfg.TRAIN.BATCH_SIZE}")
     log(f"text train[{label}]: {TEXT_TRAIN_YAML} {llm.cfg.dtype} Llama ({L} layers, remat "
@@ -2717,7 +2822,7 @@ def serve_phase(torch, root, want_d, device="cuda", opts=(), m=SERVE_M):
 
     k_out = roll()
     with kernel_calls(neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain,
-                      causal_attention_plain):
+                      causal_attention_plain, table_fn=rel_pe_table_chain):
         p_out = roll()
     valid = batch.prompt.mask[0]
     err = float((k_out["rollout_traj"] - p_out["rollout_traj"])[:, valid][..., :2].abs().max())
@@ -2912,7 +3017,7 @@ def bf16_grad_gate(torch, cfg, model16, shape, device, label):
     kernel_launches = launch_counts()
     plain = (neighbor_topk_plain, edge_attn_core_plain, fused_two_site_stack_plain,
              causal_attention_plain)
-    with kernel_calls(*plain):
+    with kernel_calls(*plain, table_fn=rel_pe_table_chain):
         loss_p, g_p = grad_step(model16)
         loss_p2, g_p2 = grad_step(model16)
         loss_32, g_32 = grad_step(m32)
@@ -3232,11 +3337,12 @@ def modes_launches(cfg):
     """Each kernel's launches per forward of a phase-12 model: phase 4's
     layer loop or fused loop, plus, with ATTN_UPDATE, each update_obs call's
     (one per replan step after the first) two graphs through B1 and its
-    2 x NUM_LAYER re-attention layers through B2."""
+    2 x NUM_LAYER re-attention layers through B2, and its two rel-PE tables."""
     want, want_f = forward_launches()
     w = dict(want_f if cfg.MODEL.POLICY.ACT_DECODER.ATTN.FUSED_STACK else want)
     if cfg.MODEL.OBS_UPDATE.ATTN_UPDATE:
         w["neighbor_topk"] += 2 * (REPLAN - 1)
+        w["rel_pe_table"] += 2 * (REPLAN - 1)
         w["edge_attn_core"] += 2 * cfg.MODEL.SCENE_ENCODER.ATTN.NUM_LAYER * (REPLAN - 1)
     return w
 
@@ -3485,7 +3591,7 @@ def modes_phase(torch, root, shape, ptxas, device="cuda"):
             check_instantiations(f"modes {label} {tag}", {"instantiations": inst}, tag)
             out = model(small)
             before = launch_counts()
-            with kernel_calls(*plain):
+            with kernel_calls(*plain, table_fn=rel_pe_table_chain):
                 out_plain = model(small)
             if launch_counts() != before:
                 raise AssertionError(f"modes {label} {tag}: the plain path launched a kernel")
@@ -3496,7 +3602,7 @@ def modes_phase(torch, root, shape, ptxas, device="cuda"):
                     saved = [p.detach().clone() for p in model.parameters()]
                     for p in model.parameters():
                         p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen, device=device))
-                    with kernel_calls(*plain):
+                    with kernel_calls(*plain, table_fn=rel_pe_table_chain):
                         out_noisy = model(small)
                     for p, v in zip(model.parameters(), saved):
                         p.copy_(v)
@@ -3675,6 +3781,7 @@ def main(argv):
                                          batch_t.prompt.mask), N, D)
     edge_rows = check_edge(torch, graphs, H, D, hd ** -0.5)
     edge_rows16 = check_edge_bf16(torch, graphs, H, D, hd ** -0.5, edge_rows, ptxas)
+    table_rows = check_rel_pe_table(torch, site_poses(torch, batch), graphs, D)
     del graphs
     llm_cfg = LlamaConfig.llama3_8b(lora_rank=ct_cfg.TEXT_ATTN.LORA.R)  # TEXT_OPTS' ARCH
     text_len = ct_cfg.CONDITION_ENCODER.TEXT.LLM.MAX_TEXT_TOKENS
@@ -3774,7 +3881,7 @@ def main(argv):
     for label, m in (("layer loop", model), ("fused", model_f)):
         outs[label] = m(small)
         before = launch_counts()
-        with kernel_calls(*plain, causal_attention_plain):
+        with kernel_calls(*plain, causal_attention_plain, table_fn=rel_pe_table_chain):
             out_plain = plain32[label] = m(small)
         if launch_counts() != before:
             raise AssertionError(f"{label}: the plain path launched a kernel")
@@ -3783,7 +3890,7 @@ def main(argv):
     for label, m in (("layer loop", model16), ("fused", model_f16)):
         out16 = m(small)
         before = launch_counts()
-        with kernel_calls(*plain, causal_attention_plain):
+        with kernel_calls(*plain, causal_attention_plain, table_fn=rel_pe_table_chain):
             out_plain16 = m(small)
         if launch_counts() != before:
             raise AssertionError(f"{label} bf16: the plain path launched a kernel")
@@ -3818,7 +3925,7 @@ def main(argv):
     if not bool(torch.isfinite(out_d["rollout_traj"][small_d.prompt.mask]).all()):
         raise AssertionError("demo: rollout_traj has non-finite values")
     before = launch_counts()
-    with kernel_calls(*plain, causal_attention_plain):
+    with kernel_calls(*plain, causal_attention_plain, table_fn=rel_pe_table_chain):
         out_dp = model_d(small_d)
     if launch_counts() != before:
         raise AssertionError("demo: the plain path launched a kernel")
@@ -3846,7 +3953,7 @@ def main(argv):
     if launches_d16 != want_d:
         raise AssertionError(f"demo bf16: kernel launches {launches_d16} != {want_d}")
     before = launch_counts()
-    with kernel_calls(*plain, causal_attention_plain):
+    with kernel_calls(*plain, causal_attention_plain, table_fn=rel_pe_table_chain):
         out_dp16 = model_d16(small_d)
     if launch_counts() != before:
         raise AssertionError("demo bf16: the plain path launched a kernel")
@@ -4012,6 +4119,15 @@ def main(argv):
         k["replaces_also"] = FLASH_BWD_REPLACES[1]
     for k in kernels[3:5]:  # the bf16 paths' edge engine
         k["source_also"] = "prosim_torch/csrc/edge_mma.cuh"
+    # the rel-PE table kernel, read from the layer loop (f32) and the bf16
+    # layer loop: 4 tables in prepare and 2 a replan step
+    for name, dt, n, site in (("rel_pe_table", "float32", launches, per_site),
+                              ("rel_pe_table_bf16", "bfloat16", launches16, per_site16)):
+        kernels.append(summarize(name, "cuda", "prosim_torch/csrc/rel_pe_table.cu",
+                                 "none: XLA fuses the chain on the TPU",
+                                 [r for r in table_rows if r["dtype"] == dt],
+                                 n["rel_pe_table"], site["rel_pe_table"],
+                                 extra=("plain_wall_ms",)))
     # B4's one launch count covers both instantiations: bf16 in the text
     # configuration, f32 in the shipped demo one
     f32_paths = [p for p in by_path if "bf16" not in p]
@@ -4026,7 +4142,8 @@ def main(argv):
                                       f"serve farm ({SERVE_SCENES} scenes, M={SERVE_M})",
                                       bench_path),
              "causal_attention_bwd": (bwd_path["llama3_8b"], qa_path),
-             "causal_attention_bwd_f32": (bwd_path["as_shipped"], bench_path)}
+             "causal_attention_bwd_f32": (bwd_path["as_shipped"], bench_path),
+             "rel_pe_table": f32_paths, "rel_pe_table_bf16": bf16_paths}
     for k in kernels:
         wrapper = k["name"].removesuffix("_f32").removesuffix("_bf16")
         k["launches_per_path"] = {p: by_path[p][wrapper] for p in paths.get(k["name"], by_path)}

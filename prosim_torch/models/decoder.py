@@ -14,8 +14,7 @@ from prosim_torch.data.batch import Prompt, SceneTokens
 from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
-    normalize_rel_pe,
-    rel_pe_features,
+    rel_pe_table,
     shared_source,
 )
 from prosim_torch.ops.mlp import MLP
@@ -56,20 +55,17 @@ class SymCoordDecoder(nn.Module):
             prompt.pos, prompt.pos, prompt.mask, prompt.mask, k=self.max_neigh,
             radius=self.prompt_radius if radius else None, exclude_self=True,
         )
-        p2p_pe = self.p2p_pe(
-            rel_pe_features(prompt.pos, prompt.ori, prompt.pos, prompt.ori, p2p_idx))
+        p2p_z = rel_pe_table(prompt.pos, prompt.ori, prompt.pos, prompt.ori, p2p_idx,
+                             self.p2p_pe, deterministic)
         s2p_idx, s2p_valid = neighbor_topk(
             prompt.pos, scene.pos, prompt.mask, scene.mask, k=self.max_neigh,
             radius=self.scene_radius if radius else None,
         )
-        s2p_pe = self.s2p_pe(
-            rel_pe_features(prompt.pos, prompt.ori, scene.pos, scene.ori, s2p_idx))
+        s2p_z = rel_pe_table(prompt.pos, prompt.ori, scene.pos, scene.ori, s2p_idx,
+                             self.s2p_pe, deterministic)
         # scene tokens are layer-constant here: normalize (and in training
         # gather) them once for the stack
         s2p_src = shared_source(scene.tokens, s2p_idx, s2p_valid, deterministic)
-
-        p2p_z = normalize_rel_pe(p2p_pe, self.hidden_dim)
-        s2p_z = normalize_rel_pe(s2p_pe, self.hidden_dim)
         x_p = prompt_emb
         drop = dict(deterministic=deterministic, generator=generator)
         for i in range(self.num_layers):

@@ -42,8 +42,8 @@ from prosim_torch.data.batch import SceneTokens
 from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
-    normalize_rel_pe,
     rel_pe_features,
+    rel_pe_table,
     shared_source,
     takes_kernel,
 )
@@ -201,14 +201,12 @@ class PolicyRelPE(nn.Module):
         m = scene.num_map
         obs_pos, obs_ori = scene.pos[:, m:], scene.ori[:, m:]
         map_pos, map_ori = scene.pos[:, :m], scene.ori[:, :m]
-        a2p_pe = self.a2p_pe(rel_pe_features(pos, ori, obs_pos, obs_ori, a2p_idx))
-        m2p_pe = self.m2p_pe(rel_pe_features(pos, ori, map_pos, map_ori, m2p_idx))
+        a2p_z = rel_pe_table(pos, ori, obs_pos, obs_ori, a2p_idx, self.a2p_pe, deterministic)
+        m2p_z = rel_pe_table(pos, ori, map_pos, map_ori, m2p_idx, self.m2p_pe, deterministic)
         # the normalized (in training, gathered) source rows are
         # layer-constant within a replan step and shared by every layer
         a2p_src = shared_source(scene.obs_tokens, a2p_idx, a2p_valid, deterministic)
         m2p_src = shared_source(scene.map_tokens, m2p_idx, m2p_valid, deterministic)
-        a2p_z = normalize_rel_pe(a2p_pe, self.hidden_dim)
-        m2p_z = normalize_rel_pe(m2p_pe, self.hidden_dim)
         drop = dict(deterministic=deterministic, generator=generator)
         for i in range(self.num_layers):
             x_p = getattr(self, f"a2p_{i}")(

@@ -25,8 +25,7 @@ from prosim_torch.data.synthetic import map_feature_dim, obs_feature_dim
 from prosim_torch.ops.attention import (
     GatedNeighborAttention,
     RelPE,
-    normalize_rel_pe,
-    rel_pe_features,
+    rel_pe_table,
     shared_source,
 )
 from prosim_torch.ops.mlp import MLP
@@ -181,14 +180,13 @@ class SceneEncoderAttnRelPE(nn.Module):
         a2a_idx, a2a_valid = neighbor_topk(
             obs_pos.contiguous(), obs_pos.contiguous(), obs_mask.contiguous(),
             obs_mask.contiguous(), k=a2a_k)
-        a2a_pe = self.a2a_pe(rel_pe_features(obs_pos, obs_ori, obs_pos, obs_ori, a2a_idx))
+        a2a_z = rel_pe_table(obs_pos, obs_ori, obs_pos, obs_ori, a2a_idx, self.a2a_pe,
+                             deterministic)
 
         s2s_idx, s2s_valid = neighbor_topk(
             scene.pos, scene.pos, scene.mask, scene.mask, k=self.max_neigh)
-        s2s_pe = self.s2s_pe(rel_pe_features(scene.pos, scene.ori, scene.pos, scene.ori, s2s_idx))
-
-        a2a_z = normalize_rel_pe(a2a_pe, self.hidden_dim)
-        s2s_z = normalize_rel_pe(s2s_pe, self.hidden_dim)
+        s2s_z = rel_pe_table(scene.pos, scene.ori, scene.pos, scene.ori, s2s_idx, self.s2s_pe,
+                             deterministic)
         x = scene.tokens
         drop = dict(deterministic=deterministic, generator=generator)
         for i in range(self.num_layers):
@@ -226,13 +224,12 @@ class SceneEncoderAttnRelPE(nn.Module):
 
         a2a_idx, a2a_valid = neighbor_topk(obs_pos, obs_pos, obs_mask, obs_mask, k=self.max_neigh,
                                            radius=self.agent_radius, exclude_self=True)
-        a2a_pe = self.a2a_pe(rel_pe_features(obs_pos, obs_ori, obs_pos, obs_ori, a2a_idx))
+        a2a_z = rel_pe_table(obs_pos, obs_ori, obs_pos, obs_ori, a2a_idx, self.a2a_pe,
+                             deterministic)
         m2a_idx, m2a_valid = neighbor_topk(obs_pos, map_pos, obs_mask, map_mask, k=self.max_neigh,
                                            radius=self.scene_radius)
-        m2a_pe = self.s2s_pe(rel_pe_features(obs_pos, obs_ori, map_pos, map_ori, m2a_idx))
-
-        a2a_z = normalize_rel_pe(a2a_pe, self.hidden_dim)
-        m2a_z = normalize_rel_pe(m2a_pe, self.hidden_dim)
+        m2a_z = rel_pe_table(obs_pos, obs_ori, map_pos, map_ori, m2a_idx, self.s2s_pe,
+                             deterministic)
         x_a, x_m = scene.obs_tokens, scene.map_tokens
         # the map tokens are layer-constant: one normalized (in training,
         # gathered) source table serves every m2a layer

@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "prosim_torch_kernels"
 SOURCES = {"neighbor_topk": "neighbor_topk.cu", "edge_attn": "edge_attn.cu",
            "fused_stack": "fused_stack.cu", "flash_attn": "flash_attn.cu",
-           "flash_attn_bwd": "flash_attn_bwd.cu",
+           "flash_attn_bwd": "flash_attn_bwd.cu", "rel_pe_table": "rel_pe_table.cu",
            # the edge core's earlier design, a baseline chip_smoke.py measures
            "edge_attn_table": "edge_attn_table.cu"}
 NVCC_FLAGS = [

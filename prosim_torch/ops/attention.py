@@ -22,13 +22,17 @@ TPU gather (:160-189); both give the same weight and row values, so the
 port reads the weights and gathers the bf16 rows directly.
 """
 
+import ctypes
+import functools
+
 import torch
 from torch import nn
 
+from prosim_torch.ops import _build
 from prosim_torch.ops.edge_attn import attend_gathered, edge_attn_core
 from prosim_torch.ops.fourier import FourierEmbedding, FourierEmbeddingFix
 from prosim_torch.ops.mlp import Dense, LayerNorm
-from prosim_torch.ops.neighbors import gather_neighbors
+from prosim_torch.ops.neighbors import _check, gather_neighbors
 from prosim_torch.utils.geometry import angle_between_2d_vectors, wrap_angle
 
 
@@ -122,6 +126,110 @@ def normalize_rel_pe(rel_pe, full_dim: int):
     return _norm_stats(rel_pe, dup_tail=full_dim - rel_pe.shape[-1])
 
 
+def takes_kernel(deterministic: bool) -> bool:
+    """Whether the layer's core is the kernel (`edge_attn_core`, no
+    backward): only when the layer is deterministic and grad mode is off."""
+    return deterministic and not torch.is_grad_enabled()
+
+
+def rel_pe_table_plain(dst_pos, dst_ori, src_pos, src_ori, idx, pe: RelPE):
+    """The normalized rel-PE table [B,Q,K,D_pe] of a site: the features of
+    the pairs (dst q, src idx[b,q,k]), embedded by `pe` and normalized over
+    its reference width."""
+    return normalize_rel_pe(pe(rel_pe_features(dst_pos, dst_ori, src_pos, src_ori, idx)),
+                            pe.hidden_dim)
+
+
+def table_takes_kernel(pe: RelPE, deterministic: bool) -> bool:
+    """Whether a site's table on the card is the kernel's: the fixed folded
+    embedding, with no gradient wanted. The learnable embedding, the
+    reference layout (fold_dup=False) and training take the plain chain."""
+    return not pe.learnable_pe and pe.fold_dup and takes_kernel(deterministic)
+
+
+@functools.cache
+def _table_launcher(dtype: torch.dtype):
+    """The table kernel's instantiation for the table's dtype: f32 or bf16."""
+    lib = _build.load("rel_pe_table")
+    fn = lib.rel_pe_table_launch_bf16 if dtype == torch.bfloat16 else lib.rel_pe_table_launch
+    pose = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+    fn.argtypes = pose * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _table_freqs(npf: int, temperature: float, device: torch.device):
+    """cat(inv_t, phase) [2 npf] f32 of FourierEmbeddingFix, computed on
+    `device` by its own expressions, so the kernel's sines take the plain
+    chain's arguments."""
+    return torch.cat(FourierEmbeddingFix(npf, temperature).freqs(device)).contiguous()
+
+
+def _pose_args(pos, ori, name):
+    """A pose's kernel arguments: f32 position [B,N,2] and orientation [B,N]
+    with their batch and row strides (a view that keeps each position's two
+    coordinates adjacent is read in place)."""
+    pos, ori = pos.float(), ori.float()
+    if pos.dim() != 3 or pos.shape[-1] != 2 or ori.shape != pos.shape[:2]:
+        raise ValueError(f"{name}: pos [B,N,2] and ori [B,N], got {tuple(pos.shape)} and "
+                         f"{tuple(ori.shape)}")
+    if pos.stride(-1) != 1:
+        pos = pos.contiguous()
+    return pos, ori, [pos.data_ptr(), pos.stride(0), pos.stride(1),
+                      ori.data_ptr(), ori.stride(0), ori.stride(1)]
+
+
+def rel_pe_table(dst_pos, dst_ori, src_pos, src_ori, idx, pe: RelPE, deterministic: bool):
+    """rel_pe_table_plain(...) of a site: dst_pos [B,Q,2], dst_ori [B,Q],
+    src_pos [B,S,2], src_ori [B,S], idx [B,Q,K] (in [0, S), arbitrary where
+    an edge is invalid) -> [B,Q,K,3 (hidden // 4)] in pe's dtype. On a CUDA
+    tensor where `table_takes_kernel`, one launch of csrc/rel_pe_table.cu
+    writes it, with the plain chain's roundings (the statistics' sums in
+    another order); elsewhere the plain chain builds it (on the card counted
+    in `rel_pe_table.plain_builds`)."""
+    on_card = dst_pos.device.type == "cuda"
+    if not (on_card and table_takes_kernel(pe, deterministic)):
+        rel_pe_table.plain_builds += on_card
+        return rel_pe_table_plain(dst_pos, dst_ori, src_pos, src_ori, idx, pe)
+    npf = pe.hidden_dim // 4
+    if not 1 <= npf <= 32:  # a lane a Fourier feature
+        raise ValueError("rel_pe_table kernel takes hidden_dim // 4 from 1 to 32, got "
+                         f"hidden_dim {pe.hidden_dim}")
+    dt = pe.dtype
+    if dt not in (torch.float32, torch.bfloat16) or dst_ori.dtype not in (torch.float32,
+                                                                          torch.bfloat16):
+        raise TypeError(f"rel_pe_table kernel takes a float32 or bfloat16 table and destination "
+                        f"pose, got {dt} and {dst_ori.dtype}")
+    B, Q, K = idx.shape
+    S = src_pos.shape[1]
+    dev = dst_pos.device
+    idx = idx.to(torch.int32).contiguous()
+    _check("idx", idx, torch.int32, (B, Q, K), dev)
+    dst = _pose_args(dst_pos, dst_ori, "dst")
+    src = _pose_args(src_pos, src_ori, "src")
+    for name, (pos, _, _), n in (("dst", dst, Q), ("src", src, S)):
+        if pos.shape[0] != B or pos.shape[1] != n or pos.device != dev:
+            raise ValueError(f"{name} pose {tuple(pos.shape)} on {pos.device} does not fit idx "
+                             f"{(B, Q, K)} on {dev}")
+    z = torch.empty((B, Q, K, 3 * npf), dtype=dt, device=dev)
+    if z.numel() == 0:
+        return z
+    freqs = _table_freqs(npf, pe.fourier_fix.temperature, dev)
+    err = _table_launcher(dt)(
+        *dst[2], *src[2], idx.data_ptr(), freqs.data_ptr(), z.data_ptr(), B, Q, S, K, npf,
+        pe.hidden_dim, int(dst_ori.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rel_pe_table kernel launch failed: CUDA error {err}")
+    rel_pe_table.launches += 1
+    return z
+
+
+rel_pe_table.launches = 0
+rel_pe_table.plain_builds = 0
+
+
 def gather_src_features(x_src, idx):
     """Gathered parameter-free-normalized source features [B,Q,K,D]: the
     per-edge table of the fused stack's plain version (ops/fused_stack.py).
@@ -138,12 +246,6 @@ def dropout(x, rate: float, generator: torch.Generator):
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
-
-
-def takes_kernel(deterministic: bool) -> bool:
-    """Whether the layer's core is the kernel (`edge_attn_core`, no
-    backward): only when the layer is deterministic and grad mode is off."""
-    return deterministic and not torch.is_grad_enabled()
 
 
 def shared_source(x_src, idx, edge_valid, deterministic: bool) -> dict:

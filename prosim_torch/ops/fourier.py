@@ -25,16 +25,22 @@ class FourierEmbeddingFix(nn.Module):
         self.num_pos_feats = int(num_pos_feats)  # features PER input dim
         self.temperature = temperature
 
-    def forward(self, x):
-        # x [..., D] -> [..., D * num_pos_feats]
+    def freqs(self, device):
+        """(inv_t, phase) [num_pos_feats] f32: lane j's feature is
+        sin(x * inv_t[j] + phase[j]), computed on `device` as forward does."""
         npf = self.num_pos_feats
-        d = x.shape[-1]
-        dim_t = torch.arange(npf, dtype=torch.float32, device=x.device)
-        ramp = torch.tensor(self.temperature, dtype=torch.float32, device=x.device) ** (
+        dim_t = torch.arange(npf, dtype=torch.float32, device=device)
+        ramp = torch.tensor(self.temperature, dtype=torch.float32, device=device) ** (
             2 * torch.div(dim_t, 2, rounding_mode="floor") / npf)
         inv_t = (2 * math.pi) / ramp
-        phase = torch.where(torch.arange(npf, device=x.device) % 2 == 0, 0.0, 0.5 * math.pi)
-        flat = (x[..., None] * inv_t + phase).reshape(*x.shape[:-1], d * npf)
+        phase = torch.where(torch.arange(npf, device=device) % 2 == 0, 0.0, 0.5 * math.pi)
+        return inv_t, phase
+
+    def forward(self, x):
+        # x [..., D] -> [..., D * num_pos_feats]
+        d = x.shape[-1]
+        inv_t, phase = self.freqs(x.device)
+        flat = (x[..., None] * inv_t + phase).reshape(*x.shape[:-1], d * self.num_pos_feats)
         return torch.sin(flat)
 
 

@@ -961,8 +961,9 @@ def test_forward_only_wrappers_refuse_inputs_that_require_grad(cuda):
 def test_train_step_with_topk_kernel_matches_plain(cuda, remat):
     """One train step (dropout on, one seed) through B1's kernel against the
     same step with the plain top-K: B1 is bit-equal to its plain version, so
-    only the backward's atomic adds differ. B2 and B3 do not run in
-    training; each forward and its recompute build their graphs with B1."""
+    only the backward's atomic adds differ. B2, B3 and the rel-PE table
+    kernel do not run in training; each forward and its recompute build
+    their graphs with B1."""
     from prosim_torch.data.synthetic import make_synthetic_batch
 
     import chip_smoke
@@ -976,7 +977,7 @@ def test_train_step_with_topk_kernel_matches_plain(cuda, remat):
     per_forward = 4 + 2 * TRAIN_SHAPE["num_replan"]
     assert launches == {"neighbor_topk": 2 * per_forward * (2 if remat == "full" else 1),
                         "edge_attn_core": 0, "fused_two_site_stack": 0, "causal_attention": 0,
-                        "causal_attention_bwd": 0}
+                        "causal_attention_bwd": 0, "rel_pe_table": 0}
     with chip_smoke.kernel_calls(neighbor_topk_plain, edge_attn_core_plain,
                                  fused_two_site_stack_plain, causal_attention_plain):
         loss_p, g_p = _grad_step(model, cfg, batch)

@@ -4,7 +4,8 @@ with goal heads, one layer a stack, width 16): off records nothing and
 costs one shared no-op; on and off give bitwise-equal outputs; the span
 tree has the layers' names, parents and request ids; spans close when the
 code inside raises; training opens none; the spans' clock is the one
-torch.profiler stamps its events with. One test, marked `gpu`, checks on a
+torch.profiler stamps its events with; scripts/trace_layers.py groups
+device time by layer and kernel family. One test, marked `gpu`, checks on a
 card that a span holds exactly the launches made inside it. This file
 imports neither JAX nor prosim_tpu:
     python -m pytest --noconftest tests/test_torch_tracing.py -q
@@ -299,3 +300,33 @@ def test_span_holds_exactly_its_launches_on_the_card():
     assert len(inside) == 5
     assert all("add" in k.name().lower() or "Add" in k.name() for k in inside), [
         k.name() for k in inside]
+
+
+def test_trace_layers_groups_device_time_by_layer_and_family():
+    """scripts/trace_layers.py's layer_families: each operation's device ms
+    a call goes to the layer whose span was open at its launch (or an
+    ancestor's), by kernel family, with its top operations."""
+    import sys
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    try:
+        import trace_layers
+    finally:
+        sys.path.remove(os.path.join(REPO, "scripts"))
+    # (name, start ns, end ns, id, parent id)
+    spans = [("rollout", 0, 100, 1, 0), ("step", 10, 50, 2, 1), ("policy", 12, 40, 3, 2),
+             ("prepare", 100, 200, 4, 0), ("scene_encoder", 110, 150, 5, 4)]
+    # (name, device start, device end, correlation id), launched at `launches`
+    ops = [("rel_pe_table_kernel<float>", 20, 30, 11), ("reduce_kernel<512>", 31, 35, 12),
+           ("reduce_kernel<512>", 36, 38, 13), ("sm80_xmma_gemm", 120, 130, 14),
+           ("copy_kernel", 210, 220, 15)]
+    launches = {11: 15, 12: 16, 13: 17, 14: 115, 15: 205}
+    got = trace_layers.layer_families(ops, launches, spans, calls=2)
+    assert got["policy"]["families_ms"] == pytest.approx({"rel_pe_table (ours)": 5e-6,
+                                                          "reduce": 3e-6})
+    assert got["policy"]["top_ops"][0] == ["rel_pe_table_kernel<float>", pytest.approx(5e-6),
+                                           pytest.approx(0.5)]
+    assert got["policy"]["top_ops"][1] == ["reduce_kernel<512>", pytest.approx(3e-6),
+                                           pytest.approx(1.0)]
+    assert got["prepare/scene_encoder"]["families_ms"] == pytest.approx({"matmul": 5e-6})
+    assert got["prepare/decoder"] == {"families_ms": {}, "top_ops": []}
