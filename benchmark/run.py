@@ -9,10 +9,11 @@ builds or finds the program's CUDA libraries (inside the checkout), makes
 the weights on the card from the seed, draws the scenes from the seed,
 warms up the cell's shapes (all of that is `setup_s`), then calls the
 program back to back for `--seconds`. With --trace 1 the window is traced
-(device only) and the kernels' bounds and the model's operations are
-accounted after it. Then, the program freed, the reference checks a sample
-of what the window produced, drawn from the seed. Metrics are read by the
-readers in benchmark/metrics/, one file per metric named in BENCHMARK.json.
+(device only), with the program's spans recorded over it, and the kernels'
+bounds and the model's operations are accounted after it. Then, the
+program freed, the reference checks a sample of what the window produced,
+drawn from the seed. Metrics are read by the readers in benchmark/metrics/,
+one file per metric named in BENCHMARK.json.
 
 It exits non-zero without a result when there is no CUDA card, too few
 cards, a module of JAX or of the JAX package loaded, or anything missing.
@@ -32,6 +33,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmark import compare, core  # noqa: E402
+from benchmark import spans as sp  # noqa: E402
 
 
 class Ctx(types.SimpleNamespace):
@@ -64,14 +66,17 @@ def check_sample(mix: dict, seed: int) -> set:
                                           replace=False))
 
 
-def run_window(ctx, drv, seconds: float, trace: bool) -> dict:
+def run_window(ctx, drv, seconds: float, trace: bool, recorder=None) -> dict:
     """Calls back to back until `seconds` have passed; the window is the
     first call's start to the last call's end. What the check reads is
     kept of the sampled calls (`check_sample`), and of the last call, which
     stands in where the window finished fewer calls. With `trace`, the
     device is traced over the window's first whole calls up to the mix's
     `trace_seconds` (a trace of every call of a long window would take
-    minutes to read), and the benchmark's spans are kept for those calls."""
+    minutes to read), and the benchmark's spans are kept for those calls.
+    Given the program's span recorder (`benchmark.spans.tracer()`), a
+    traced window turns it on over the same calls and keeps their spans
+    (`program_spans`; None without a recorder)."""
     torch = ctx.torch
     trace_s = min(seconds, ctx.mix.get("trace_seconds", seconds)) if trace else 0.0
     spans = {} if trace else None
@@ -83,6 +88,9 @@ def run_window(ctx, drv, seconds: float, trace: bool) -> dict:
         from torch.profiler import ProfilerActivity, profile
 
         prof = profile(activities=[ProfilerActivity.CUDA])
+        if recorder is not None:
+            recorder.drain()
+            recorder.enable()
         prof.__enter__()
     t0 = time.perf_counter()
     i = 0
@@ -100,8 +108,12 @@ def run_window(ctx, drv, seconds: float, trace: bool) -> dict:
         if prof is not None and te - t0 >= trace_s:
             torch.cuda.synchronize()
             prof.__exit__(None, None, None)
+            program_spans = None
+            if recorder is not None:
+                recorder.disable()
+                program_spans = recorder.drain()
             traced = {"prof": prof, "window_s": te - t0, "calls": i, "served": dict(served),
-                      "spans": spans}
+                      "spans": spans, "program_spans": program_spans}
             prof, spans = None, None
         if te - t0 >= seconds:
             break
@@ -129,7 +141,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - T_START
 
-    w = run_window(ctx, drv, args.seconds, bool(args.trace))
+    w = run_window(ctx, drv, args.seconds, bool(args.trace), sp.tracer())
     memory_peak = torch.cuda.max_memory_allocated(device)
     found = core.loaded_forbidden()
     if found:
@@ -147,13 +159,28 @@ def main(argv=None) -> int:
 
         t_read = time.perf_counter()
         tw = w["traced"]
-        events = tr.device_events(tw.pop("prof"), torch)
+        prof = tw.pop("prof")
+        events = tr.device_events(prof, torch)
         if not events:
             raise core.BenchError("the profiler recorded no device operation in the window")
         # the per-layer readers read the traced part of the window
         record.update(window_s=tw["window_s"], calls=tw["calls"], spans=tw["spans"],
                       units=drv.units(ctx, tw["calls"]), trace=tr.summarize(events))
         del events
+        program_spans = tw["program_spans"]
+        layers_note = ""
+        if program_spans is not None:
+            # the program's spans over the device trace: the span readers'
+            # layers, and the idle gaps named by what the host was doing
+            ops, launches = sp.kineto_ops(prof, torch)
+            L = record["layers"] = sp.layers(ops, launches, program_spans)
+            record["trace"]["idle_gaps"] = sp.label_gaps(ops, program_spans)
+            layers_note = (f"; {len(program_spans)} program spans, launch events found for "
+                           f"{100.0 * L['launches_found']:.4f} % of the operations, "
+                           f"{100.0 * L['unattributed_busy_s'] / L['busy_s']:.4f} % of the "
+                           f"busy time under no span")
+            del ops, launches
+        del prof
         per_input = {key: tr.account(lambda key=key: drv.call(ctx, key), torch)
                      for key in sorted(tw["served"])}
         record["accounting"] = tr.scaled_accounting(per_input, tw["served"])
@@ -162,8 +189,8 @@ def main(argv=None) -> int:
         breakdown = {"device_ops": record["trace"]["device_ops"],
                      "idle_gaps": record["trace"]["idle_gaps"]}
         print(f"# trace: {tw['calls']} calls in {tw['window_s']:.3f} s traced, "
-              f"{record['trace']['n_device_ops']} device operations, read and accounted in "
-              f"{time.perf_counter() - t_read:.3f} s", file=sys.stderr)
+              f"{record['trace']['n_device_ops']} device operations{layers_note}; read and "
+              f"accounted in {time.perf_counter() - t_read:.3f} s", file=sys.stderr)
 
     drv.release_program(ctx)
     torch.cuda.empty_cache()
@@ -182,7 +209,8 @@ def main(argv=None) -> int:
         raise core.BenchError(f"modules of JAX or the JAX package are loaded: {found}")
     lat = w["latencies_s"]
     print(f"# {args.workload} seed {args.seed}: {w['calls']} calls in {w['window_s']:.3f} s "
-          f"(call ms p50 {1e3 * core.quantile(lat, 0.5):.3f}, p95 "
+          f"(call ms p25 {1e3 * core.quantile(lat, 0.25):.3f}, p50 "
+          f"{1e3 * core.quantile(lat, 0.5):.3f}, p75 {1e3 * core.quantile(lat, 0.75):.3f}, p95 "
           f"{1e3 * core.quantile(lat, 0.95):.3f}, max {1e3 * max(lat):.3f}), setup "
           f"{setup_s:.3f} s, check {check_s:.3f} s; card {core.power_limit()}", file=sys.stderr)
     core.print_result(all(c["ok"] for c in checks), w["calls"], 0, metrics, device_info, checks,

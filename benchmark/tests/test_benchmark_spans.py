@@ -127,20 +127,21 @@ def test_readers_read_the_layers():
     got = {m: core.read_metric(m, _record(L)) for m in (
         "sampler_host_ms.wosac", "replicas_host_ms.wosac", "step_host_ms.wosac",
         "launches_per_request.wosac", "program_idle_ms.wosac", "prepare_device_ms.default",
-        "step_env_device_ms.default", "policy_device_ms.default")}
+        "step_env_device_ms.default", "policy_device_ms.default", "step_host_ms.default")}
     assert got == pytest.approx({
         "sampler_host_ms.wosac": 3.0, "replicas_host_ms.wosac": 2.0,
         "step_host_ms.wosac": 2.5, "launches_per_request.wosac": 2.5,
         # 22 ms of root spans, 2.5 ms busy inside them, over 2 requests
         "program_idle_ms.wosac": (22 - 2.5) / 2,
         "prepare_device_ms.default": 0.5, "step_env_device_ms.default": 0.15,
-        "policy_device_ms.default": 0.9 / 4}, rel=1e-5)  # ms given to the ns
+        "policy_device_ms.default": 0.9 / 4, "step_host_ms.default": 2.5},
+        rel=1e-5)  # ms given to the ns
 
 
 def test_readers_give_none_without_the_recorder(monkeypatch):
     names = ["sampler_host_ms.wosac", "replicas_host_ms.wosac", "step_host_ms.wosac",
              "launches_per_request.wosac", "program_idle_ms.wosac", "prepare_device_ms.default",
-             "step_env_device_ms.default", "policy_device_ms.default"]
+             "step_env_device_ms.default", "policy_device_ms.default", "step_host_ms.default"]
     # a record of a program without the recorder has no layers
     plain = {"window_s": 1.0, "calls": 2, "spans": {}}
     assert all(core.read_metric(m, plain) is None for m in names)
@@ -154,6 +155,57 @@ def test_readers_give_none_without_the_recorder(monkeypatch):
     monkeypatch.delattr(prosim_torch.utils, "tracing", raising=False)
     monkeypatch.setitem(sys.modules, "prosim_torch.utils.tracing", None)
     assert sp.tracer() is None
+
+
+def closed_loop_call(i0, t0):
+    """One closed-loop call as the benchmark makes it at t0 ms, span ids
+    from i0: prepare [t0, t0+4] > scene_encoder [t0, t0+3]; then, after a
+    synchronise, rollout [t0+5, t0+11] > step r=0 [t0+5, t0+7] > policy
+    [t0+5, t0+6], integrate [t0+6, t0+7]; step r=1 [t0+7, t0+11] > step_env
+    [t0+7, t0+8], policy [t0+8, t0+10], integrate [t0+10, t0+11]."""
+    return [
+        S("prepare", t0, t0 + 4, i0),
+        S("scene_encoder", t0, t0 + 3, i0 + 1, i0, i0),
+        S("rollout", t0 + 5, t0 + 11, i0 + 2),
+        S("step", t0 + 5, t0 + 7, i0 + 3, i0 + 2, i0 + 2, 0),
+        S("policy", t0 + 5, t0 + 6, i0 + 4, i0 + 3, i0 + 2),
+        S("integrate", t0 + 6, t0 + 7, i0 + 5, i0 + 3, i0 + 2),
+        S("step", t0 + 7, t0 + 11, i0 + 6, i0 + 2, i0 + 2, 1),
+        S("step_env", t0 + 7, t0 + 8, i0 + 7, i0 + 6, i0 + 2),
+        S("policy", t0 + 8, t0 + 10, i0 + 8, i0 + 6, i0 + 2),
+        S("integrate", t0 + 10, t0 + 11, i0 + 9, i0 + 6, i0 + 2),
+    ]
+
+
+def test_closed_loop_readers_on_a_record():
+    """The closed loop's four span readers on the layers of two synthetic
+    calls: device ms under `prepare`, `step_env` and `policy` a span, host
+    ms a `step`; the WOSAC readers find no request there."""
+    spans = closed_loop_call(1, 0) + closed_loop_call(20, 20)
+    ops, launches = [], {}
+    # (start, end, launch) ms: two overlapping encoder ops and one more in
+    # prepare, a policy op each step, a step_env op, an integrate op
+    for k, t0 in enumerate((0, 20)):
+        for j, (a, b, t) in enumerate([(0.5, 2.0, 0.1), (1.0, 2.5, 0.2), (3.5, 4.5, 3.2),
+                                       (5.2, 5.8, 5.1), (8.2, 9.0, 8.1), (7.2, 7.5, 7.1),
+                                       (10.2, 10.4, 10.1)]):
+            c = 100 * k + j
+            ops.append(op(f"k{j}", t0 + a, t0 + b, c))
+            launches[c] = int((t0 + t) * MS)
+    ops.sort(key=lambda o: o[1])
+    L = sp.layers(ops, launches, spans)
+    assert L["requests"] == {"prepare": 2, "rollout": 2}
+    assert L["unattributed_busy_s"] == 0
+    rec = _record(L)
+    want = {"prepare_device_ms.default": 2.0 + 1.0,  # union [0.5, 2.5] and [3.5, 4.5]
+            "step_env_device_ms.default": 0.3,
+            "policy_device_ms.default": (0.6 + 0.8) / 2,
+            "step_host_ms.default": 3.0}
+    got = {m: core.read_metric(m, rec) for m in want}
+    assert got == pytest.approx(want, rel=1e-5)
+    for m in ("sampler_host_ms.wosac", "replicas_host_ms.wosac", "launches_per_request.wosac",
+              "program_idle_ms.wosac"):
+        assert core.read_metric(m, rec) is None, m
 
 
 def test_tracer_is_the_programs_recorder():
@@ -187,3 +239,41 @@ def test_layers_of_the_programs_own_spans(make_tiny_ctx):
     assert L["host"]["rollout/step/step_env"][0] == R - 1
     assert L["device"]["rollout/step/policy"][0] == R
     assert L["device"]["prepare"][0] == 5 and L["unattributed_busy_s"] == 0
+
+
+@pytest.mark.parametrize("has_recorder", [True, False])
+def test_the_traced_window_records_the_programs_spans(make_tiny_ctx, monkeypatch, has_recorder):
+    """`run_window` with trace on, given the program's recorder, turns it on
+    over the traced calls, hands out their spans and leaves it off; given
+    none (a caller that handles the recorder itself) it hands out None.
+    The profiler is stubbed: the CPU build of torch traces no device."""
+    import torch
+
+    from benchmark import run
+    from prosim_torch.utils import tracing
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    ctx = make_tiny_ctx("default.closed_loop_b64")
+    ctx.mix["trace_seconds"] = 0.0  # the first call alone is traced
+    drv = core.load_driver(ctx.cell["driver"])
+    drv.setup(ctx)
+    tw = run.run_window(ctx, drv, 0.0, True, sp.tracer() if has_recorder else None)["traced"]
+    assert tw["calls"] == 1 and not tracing.is_enabled()
+    if not has_recorder:
+        assert tw["program_spans"] is None
+        return
+    names = [s.name for s in tw["program_spans"]]
+    assert names.count("prepare") == 1 and names.count("rollout") == 1
+    assert names.count("step") == ctx.replan_steps
+    assert tracing.drain() == []
